@@ -8,13 +8,15 @@ Phases, each printing a line when it starts and when it ends:
   2. build    nvcc of monohair_tpu_torch/csrc/patch_kernels.cu, its seconds and
               its -Xptxas -v lines
   3. kernels  each CUDA kernel against its plain PyTorch version on the card at
-              the full-width shapes of the stage, with CUDA-event times
+              the full-width shapes of the stage (the tap loop on random, tied
+              and near-tie windows), with CUDA-event times
   4. stage    a synthetic case (128x128, 24 views, patch 3) written to a temp
               directory with the port's writers, then run_pmvo on cuda; the
               refine/{Occ3D,Ori3D}.mat grids are checked against the known wig
   5. width    16 views at 1920x1080, patch 7, through filter_raw_points ->
               optimize_points -> refine_and_voxelize on cuda; the first chunk of
-              pmvo_forward is held against the same call with the plain versions
+              pmvo_forward is held against the same call with the plain versions;
+              the tap loop is held and timed on one chunk's captured inputs
 
 Before the last line it prints one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}, printed only when every phase passed.
@@ -153,6 +155,58 @@ def min_loss_bound(V: int, N: int, S: int, P: int):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+def nudge_ulps(x: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    """x with each element moved 1-3 ulps up or down."""
+    steps = torch.randint(1, 4, x.shape, generator=g, device=x.device)
+    toward = torch.where(torch.rand(x.shape, generator=g, device=x.device) > 0.5,
+                         math.inf, -math.inf)
+    for i in range(3):
+        x = torch.where(steps > i, torch.nextafter(x, toward), x)
+    return x
+
+
+# the tap loop as pmvo_forward calls it and as the refine pass does
+MIN_LOSS_SHAPES = [(16, 8192, 90, 49), (16, 65536, 1, 49)]
+
+
+def min_loss_inputs(g: torch.Generator, V: int, N: int, S: int, P: int,
+                    near_ties: bool = True) -> tuple:
+    """Random tap-loop arguments on g's device, with tied windows and, unless
+    near_ties is False (the inputs the kernel table is timed on), near-tie
+    windows."""
+    dev = g.device
+    prj = torch.randn((V, N, S, 2), generator=g, device=dev)
+    ori = torch.randn((V, N, P, 2), generator=g, device=dev)
+    conf = torch.rand((V, N, P), generator=g, device=dev)
+    # tied taps: every 7th point repeats tap 0 across its window
+    ori[:, ::7] = ori[:, ::7, :1]
+    # near ties: the taps of the points 3 past those are tap 0 moved by
+    # 1-3 ulps, so rounded quotients tie where the exact ones do not
+    if near_ties:
+        ori[:, 3::7, 1:] = nudge_ulps(ori[:, 3::7, :1].expand(-1, -1, P - 1, -1), g)
+    vis = torch.where(torch.rand((V, N), generator=g, device=dev) > 0.3,
+                      torch.rand((V, N), generator=g, device=dev), -1.0)
+    vis[:, ::11] = -1.0                       # points seen by no view
+    return prj, ori, conf, vis, 0.15
+
+
+def check_min_loss(args, what: str) -> float:
+    """The tap-loop kernel against its plain version on the same inputs:
+    num and den within rtol 1e-5/atol 1e-6 (view sums in another order),
+    counts exact. Returns the largest absolute error."""
+    k = pk.patch_min_loss(*args)
+    p = pk.patch_min_loss_plain(*args)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b in zip(("num", "den"), k, p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6,
+                                   msg=lambda m, name=name: f"patch_min_loss {name} ({what}): {m}")
+        worst = max(worst, (a - b).abs().max().item())
+    if not torch.equal(k[2], p[2]):
+        raise AssertionError(f"patch_min_loss ({what}): positive counts differ")
+    return worst
+
+
 def phase_kernels(dev: torch.device) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -182,40 +236,28 @@ def phase_kernels(dev: torch.device) -> dict:
                                    bound_ms=bound_ms, bound_by=bound_by)
     del padded, out_k, out_p
 
-    # patch_min_loss as pmvo_forward calls it (S=90) and as the refine pass
-    # does (S=1, 65536 points); the timed shape is the forward's
+    # checked on random, tied and near-tie windows; the table's time is the
+    # forward's (S=90) on random and tied windows
     worst = 0.0
-    for (V, N, S, P) in [(16, 8192, 90, 49), (16, 65536, 1, 49)]:
-        prj = torch.randn((V, N, S, 2), generator=g, device=dev)
-        ori = torch.randn((V, N, P, 2), generator=g, device=dev)
-        conf = torch.rand((V, N, P), generator=g, device=dev)
-        # tied taps: every 7th point repeats tap 0 across its window
-        ori[:, ::7] = ori[:, ::7, :1]
-        vis = torch.where(torch.rand((V, N), generator=g, device=dev) > 0.3,
-                          torch.rand((V, N), generator=g, device=dev), -1.0)
-        vis[:, ::11] = -1.0                       # points seen by no view
-        thr = 0.15
-        args = (prj, ori, conf, vis, thr)
-        k = pk.patch_min_loss(*args)
-        p = pk.patch_min_loss_plain(*args)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("num", "den"), k, p):
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6,
-                                       msg=lambda m, name=name: f"patch_min_loss {name}: {m}")
-            worst = max(worst, (a - b).abs().max().item())
-        if not torch.equal(k[2], p[2]):
-            raise AssertionError("patch_min_loss: positive counts differ")
-        log(f"patch_min_loss V={V} N={N} S={S} P={P}: within rtol 1e-5/atol 1e-6, "
-            f"counts exact, max abs err {worst:.3g}")
+    for (V, N, S, P) in MIN_LOSS_SHAPES:
+        args = min_loss_inputs(g, V, N, S, P)
+        worst = max(worst, check_min_loss(args, f"S={S}"))
+        near_ms = cuda_time_ms(lambda: pk.patch_min_loss(*args))
+        log(f"patch_min_loss V={V} N={N} S={S} P={P} (random, tied, near-tie windows): "
+            f"within rtol 1e-5/atol 1e-6, counts exact, max abs err {worst:.3g}; "
+            f"kernel {near_ms:.4f} ms")
+        del args
         if S == 90:
+            args = min_loss_inputs(g, V, N, S, P, near_ties=False)
+            worst = max(worst, check_min_loss(args, f"S={S}, no near ties"))
             ms = cuda_time_ms(lambda: pk.patch_min_loss(*args))
             plain_ms = cuda_time_ms(lambda: pk.patch_min_loss_plain(*args), iters=20)
             bound_ms, bound_by = min_loss_bound(V, N, S, P)
-            log(f"patch_min_loss timed: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+            log(f"patch_min_loss timed (random, tied windows): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             results["patch_min_loss"] = dict(ms=ms, plain_ms=plain_ms,
                                              bound_ms=bound_ms, bound_by=bound_by)
-        del prj, ori, conf, vis, k, p, args
+            del args
     results["patch_min_loss"]["max_abs_err"] = worst
     log(f"launch counts during the comparisons: {dict(pk.LAUNCHES)}")
     return results
@@ -273,6 +315,22 @@ def plain_versions():
         yield
     finally:
         solver.patch_gather, solver.patch_min_loss_kernel = saved
+
+
+@contextlib.contextmanager
+def recorded_min_loss_calls():
+    """Record the arguments of every tap-loop call the solver makes."""
+    calls, saved = [], solver.patch_min_loss_kernel
+
+    def record(*args):
+        calls.append(args)
+        return saved(*args)
+
+    solver.patch_min_loss_kernel = record
+    try:
+        yield calls
+    finally:
+        solver.patch_min_loss_kernel = saved
 
 
 PATCH, CONF_THR, VIS_THR, THRESHOLD = 7, 0.15, 1.0, 0.025   # bench.py's stage 2
@@ -357,6 +415,7 @@ def phase_full_width(dev: torch.device, n_points: int = FULL_WIDTH_POINTS,
         f"{share * 100:.3f}% with |cos| > 0.999, max |min_loss diff| {loss_err:.3g} there")
     if share < 0.99 or loss_err > 1e-5:
         raise AssertionError("full width: kernels and plain versions disagree")
+    result = dict(steps=steps, launches=launches, peak_bytes=peak, surface=n_surf)
     if on_card:
         # one line-search chunk end to end, kernels and plain versions in turns
         chunk = torch.as_tensor(pts[:auto_chunk(views)], device=dev)
@@ -374,7 +433,21 @@ def phase_full_width(dev: torch.device, n_points: int = FULL_WIDTH_POINTS,
         log(f"full width: pmvo_forward on {chunk.shape[0]} points: kernels "
             f"{k1:.3f} / {k2:.3f} ms, plain versions {p1:.3f} / {p2:.3f} ms "
             f"(host clock between synchronisations, 3 calls each)")
-    return dict(steps=steps, launches=launches, peak_bytes=peak, surface=n_surf)
+
+        # the tap loop on the scene's own inputs: the kernel's work depends on
+        # the data (taps skipped, exact paths taken), so time it there too
+        with recorded_min_loss_calls() as calls:
+            forward()
+        err = max(check_min_loss(args, "head scene") for args in calls)
+        scene_ms = cuda_time_ms(lambda: [pk.patch_min_loss(*args) for args in calls],
+                                iters=10) / len(calls)
+        shape = tuple(calls[0][0].shape[:3]) + (calls[0][1].shape[2],)
+        log(f"full width: patch_min_loss on the {len(calls)} calls of one "
+            f"{chunk.shape[0]}-point chunk (V, N, S, P = {shape}): within rtol 1e-5/"
+            f"atol 1e-6, counts exact, max abs err {err:.3g}; kernel {scene_ms:.4f} ms "
+            f"per call")
+        result["scene_ms"] = scene_ms
+    return result
 
 
 def profile_line_search(dev: torch.device, chunks: int = 4) -> None:
@@ -433,7 +506,9 @@ def main(argv=None) -> int:
     with Phase("4 stage"):
         phase_stage("cuda")
     with Phase("5 full width"):
-        launches = phase_full_width(dev)["launches"]
+        width = phase_full_width(dev)
+    launches = width["launches"]
+    kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:
         with Phase("profile"):
             profile_line_search(dev)
