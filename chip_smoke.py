@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's stage 2 (PMVO) on one GPU and check it.
+"""Run the PyTorch/CUDA port's stages 2 (PMVO) and 4 (HairGrow) on one GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -12,11 +13,17 @@ Phases, each printing a line when it starts and when it ends:
               and near-tie windows), with CUDA-event times
   4. stage    a synthetic case (128x128, 24 views, patch 3) written to a temp
               directory with the port's writers, then run_pmvo on cuda; the
-              refine/{Occ3D,Ori3D}.mat grids are checked against the known wig
+              refine/{Occ3D,Ori3D}.mat grids are checked against the known wig;
+              then run_hair_grow on cuda on those grids, whose five files are
+              read back and refine/connected_strands.hair checked against the wig
   5. width    16 views at 1920x1080, patch 7, through filter_raw_points ->
               optimize_points -> refine_and_voxelize on cuda; the first chunk of
               pmvo_forward is held against the same call with the plain versions;
               the tap loop is held and timed on one chunk's captured inputs
+  6. grow     HairGrow at full width: 8000 swirl strands voxelised into the
+              256x256x192 grids, 60,000 scalp seeds; the trace and the smoothing
+              timed on cuda, connect_to_scalp (host C++) on 100,000 strands; the
+              first trace chunks and the smoothing held against the CPU
 
 Before the last line it prints one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}, printed only when every phase passed.
@@ -38,17 +45,27 @@ import time
 import numpy as np
 import torch
 
+from monohair_tpu_torch.constants import BUST_TO_ORIGIN, VOXEL_MIN, VOXEL_SIZE
+from monohair_tpu_torch.io.hair_io import load_hair, strands_from_flat
 from monohair_tpu_torch.io.mat_io import load_occ_mat, load_ori_mat
 from monohair_tpu_torch.ops import _build
 from monohair_tpu_torch.ops import patch_kernels as pk
 from monohair_tpu_torch.pipeline.common import case_paths
+from monohair_tpu_torch.pipeline.hair_grow_stage import (run_hair_grow, scalp_seeds,
+                                                         voxel_strands_to_world)
 from monohair_tpu_torch.pipeline.pmvo_stage import run_pmvo
 from monohair_tpu_torch.pmvo import solver
 from monohair_tpu_torch.pmvo.driver import (auto_chunk, filter_raw_points,
                                             optimize_points, refine_and_voxelize)
+from monohair_tpu_torch.strands import connect as strand_connect
+from monohair_tpu_torch.strands.smooth import smooth_strand_list
+from monohair_tpu_torch.strands.trace import (generate_guide_and_segments, strands_to_list,
+                                              trace_bidirectional, trace_from_scalp)
 from monohair_tpu_torch.synthetic import (analytic_head_maps, cameras_numpy,
-                                          head_camera_list, shell_points,
-                                          swirl_direction, write_synthwig_case)
+                                          curved_strand_batch, grow_field,
+                                          grow_scalp_cap, head_camera_list,
+                                          shell_points, swirl_direction,
+                                          write_synthwig_case)
 
 # Phase 5 point count: a quarter of big_wavy1's 2.1 M raw points.
 FULL_WIDTH_POINTS = 524_288
@@ -270,9 +287,42 @@ def phase_kernels(dev: torch.device) -> dict:
 WIG_DIRECTION = np.array([0.0, -1.0, 0.0])
 
 
+HAIR_FILES = ("scalp_segment.hair", "scalp_segment_smooth.hair", "strands.hair",
+              "connected_strands.hair")
+
+
+def check_hair_outputs(refine: str) -> dict:
+    """The five files of the HairGrow stage exist and read back;
+    connected_strands.hair holds many strands along the wig's direction,
+    exported in the bust frame (y near +1.64), as the verify notes check."""
+    counts = {}
+    for name in HAIR_FILES:
+        segments, points = load_hair(os.path.join(refine, name))
+        if len(segments) == 0 or not np.isfinite(points).all():
+            raise AssertionError(f"{name}: {len(segments)} strands or non-finite points")
+        counts[name] = len(segments)
+    num_root = int(np.load(os.path.join(refine, "num_root.npy")))
+    segments, points = load_hair(os.path.join(refine, "connected_strands.hair"))
+    seg = np.concatenate([np.diff(s, axis=0) for s in strands_from_flat(segments, points)
+                          if len(s) > 1])
+    seg = seg / np.maximum(np.linalg.norm(seg, axis=-1, keepdims=True), 1e-12)
+    med = float(np.median(np.abs(seg @ WIG_DIRECTION)))
+    y_lo, y_med, y_hi = (float(v) for v in np.percentile(points[:, 1], [0, 50, 100]))
+    log(f"synthwig HairGrow: strands per file {counts}, num_root {num_root}; "
+        f"connected_strands: median |cos| of segments to (0,-1,0) {med:.6f}, "
+        f"y from {y_lo:.4f} to {y_hi:.4f}, median {y_med:.4f}")
+    if num_root <= 0 or counts["connected_strands.hair"] < 100:
+        raise AssertionError(f"HairGrow: num_root {num_root}, strands {counts}")
+    if med <= 0.95 or abs(y_med - 1.64) > 0.1 or y_lo < 1.4 or y_hi > 1.9:
+        raise AssertionError(f"HairGrow strands off the wig: median |cos| {med}, "
+                             f"y {y_lo}..{y_hi}")
+    return dict(counts=counts, num_root=num_root, median_cos=med)
+
+
 def phase_stage(device: str, num_views: int = 24) -> dict:
-    """Write the synthwig case with the port's writers and run the stage CLI's
-    run_pmvo on it; check the written grids against the known wig direction."""
+    """Write the synthwig case with the port's writers, run the stage CLIs'
+    run_pmvo, then run_hair_grow, on it; check the written grids against the
+    known wig direction, and the strands as check_hair_outputs does."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_case_") as tmp:
         cfg = case_paths(write_synthwig_case(tmp, num_views=num_views))
         log(f"synthwig case: {num_views} views of 128x128, patch "
@@ -283,6 +333,9 @@ def phase_stage(device: str, num_views: int = 24) -> dict:
         refine = os.path.join(cfg.output_path, "refine")
         occ = load_occ_mat(os.path.join(refine, "Occ3D.mat"))
         ori = load_ori_mat(os.path.join(refine, "Ori3D.mat"))
+        grow_steps = run_hair_grow(cfg, device=device)
+        log(f"synthwig HairGrow steps {json.dumps({k: round(v, 4) for k, v in grow_steps.items()})}")
+        hair = check_hair_outputs(refine)
     if occ.shape != (256, 256, 192) or ori.shape != (256, 256, 192, 3):
         raise AssertionError(f"grid shapes {occ.shape} {ori.shape}")
     if not (np.isfinite(occ).all() and np.isfinite(ori).all()):
@@ -297,7 +350,7 @@ def phase_stage(device: str, num_views: int = 24) -> dict:
     if device != "cpu" and min(launches.values()) == 0:
         raise AssertionError(f"the stage did not launch every kernel: {launches}")
     return dict(occupied=int(occupied.sum()), median_cos=med, launches=launches,
-                steps=steps)
+                steps=steps, grow_steps=grow_steps, hair=hair)
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +534,135 @@ def profile_line_search(dev: torch.device, chunks: int = 4) -> None:
         print(f"  {dev_us(e) / 1e3:10.3f} ms {e.count:6d} calls  {e.key[:90]}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+GROW_THRESHOLD = 0.8            # bench.py's stage-4 trace threshold (base.yaml's grow_threshold)
+TRACE_CHUNK = 16384             # the JAX package's chunk, part of the result
+
+
+def compare_strands(a, b, atol: float = 1e-4):
+    """(equal counts, share of strands with equal length and points within atol)."""
+    if len(a) != len(b):
+        return False, 0.0
+    ok = [x.shape == y.shape and np.allclose(x, y, rtol=0, atol=atol) for x, y in zip(a, b)]
+    return True, float(np.mean(ok)) if ok else 1.0
+
+
+def trace_device_share(occ_d, ori_d, seeds, noise) -> float:
+    """The device's busy share of one trace chunk's wall time (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        strands_to_list(trace_bidirectional(occ_d, ori_d, seeds, noise, GROW_THRESHOLD), 5)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy = sum(dev_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0)
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and dev_us(e) > 0)
+    log(f"grow: profile of one {len(seeds)}-seed trace chunk: wall {wall_us / 1e3:.3f} ms, "
+        f"device busy {busy / 1e3:.3f} ms over {kernels} device operations, "
+        f"busy share {busy / wall_us:.4f}")
+    return busy / wall_us
+
+
+def phase_grow_full_width(dev: torch.device) -> dict:
+    """HairGrow's device and host steps at the full 256x256x192 output grid."""
+    rng = np.random.default_rng(0)
+    t = time.perf_counter()
+    occ, ori = grow_field(rng)
+    cap_v, cap_f = grow_scalp_cap()
+    sp, sn = scalp_seeds(cap_v, cap_f, 0)
+    log(f"grow field: {occ.shape}, {int(occ.sum())} occupied voxels, {len(sp)} scalp "
+        f"seeds; made in {time.perf_counter() - t:.2f}s")
+    occ_d = torch.as_tensor(occ, device=dev)
+    ori_d = torch.as_tensor(ori, device=dev)
+    steps = {}
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    strands, num_root = generate_guide_and_segments(occ_d, ori_d, sp, sn, GROW_THRESHOLD,
+                                                    chunk=TRACE_CHUNK)
+    torch.cuda.synchronize(dev)
+    steps["trace"] = time.perf_counter() - t
+    world = voxel_strands_to_world(strands)
+    t = time.perf_counter()
+    smooth = smooth_strand_list(world, 4.0, 2.0, device=dev)
+    torch.cuda.synchronize(dev)
+    steps["smooth"] = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    points = sum(len(s) for s in strands)
+    log(f"grow: {len(strands)} strands ({num_root} scalp-rooted, {points} points); "
+        f"trace {steps['trace']:.4f} s ({len(strands) / steps['trace']:.1f} strands/s), "
+        f"smooth {steps['smooth']:.4f} s, peak device memory {peak / 2**30:.3f} GiB")
+    if num_root == 0 or len(strands) <= num_root:
+        raise AssertionError(f"grow: {num_root} guides of {len(strands)} strands")
+    if not all(np.isfinite(s).all() for s in smooth):
+        raise AssertionError("grow: non-finite smoothed strands")
+
+    # connect_to_scalp (host C++) on bench.py's 100,000 curved strands, 1/5 rooted
+    arcs = curved_strand_batch(rng, 100_000, 25, occ.shape)
+    t = time.perf_counter()
+    attached = strand_connect.connect_to_scalp(list(arcs), 20_000, occ, ori)
+    steps["connect_to_scalp"] = time.perf_counter() - t
+    info = _build.BUILD_INFO[strand_connect.SOURCE]
+    log(f"grow: connect_to_scalp on 100000 strands: {len(attached)} attached in "
+        f"{steps['connect_to_scalp']:.4f} s ({os.cpu_count()} host cores; g++ build "
+        f"{info['seconds']:.2f} s)")
+    if len(attached) <= 20_000:
+        raise AssertionError(f"grow: connect_to_scalp attached {len(attached)}")
+
+    # connect_all_segments (host Python) on the first 2000 free segments, to
+    # project the whole stage's time at this width
+    free = [s + BUST_TO_ORIGIN for s in world[num_root:num_root + 2000]]
+    t = time.perf_counter()
+    strand_connect.connect_all_segments(free, occ, ori, 0.005, 0.7, VOXEL_MIN, VOXEL_SIZE)
+    per_segment = (time.perf_counter() - t) / max(len(free), 1)
+    log(f"grow: connect_all_segments {per_segment * 1e3:.3f} ms a segment on "
+        f"{len(free)} segments; {len(world) - num_root} free segments would take "
+        f"~{per_segment * (len(world) - num_root):.1f} s")
+
+    # the card against the CPU on the first chunks, same seeds and noise
+    seeds = torch.nonzero(occ_d > 0)[:TRACE_CHUNK]
+    noise = torch.from_numpy(np.random.default_rng(0).random((len(seeds), 3)).astype(np.float32))
+    occ_c, ori_c = torch.from_numpy(occ), torch.from_numpy(ori)
+    t = time.perf_counter()
+    card = strands_to_list(trace_bidirectional(occ_d, ori_d, seeds, noise, GROW_THRESHOLD), 5)
+    chunk_s = time.perf_counter() - t
+    host = strands_to_list(trace_bidirectional(occ_c, ori_c, seeds.cpu(), noise,
+                                               GROW_THRESHOLD), 5)
+    count_ok, share = compare_strands(card, host)
+    g_card = strands_to_list(trace_from_scalp(occ_d, ori_d, torch.from_numpy(sp[:TRACE_CHUNK]),
+                                              torch.from_numpy(sn[:TRACE_CHUNK]),
+                                              GROW_THRESHOLD), 2)
+    g_host = strands_to_list(trace_from_scalp(occ_c, ori_c, torch.from_numpy(sp[:TRACE_CHUNK]),
+                                              torch.from_numpy(sn[:TRACE_CHUNK]),
+                                              GROW_THRESHOLD), 2)
+    g_ok, g_share = compare_strands(g_card, g_host)
+    sm_card = smooth_strand_list(world[:2000], 4.0, 2.0, device=dev)
+    sm_host = smooth_strand_list(world[:2000], 4.0, 2.0, device="cpu")
+    sm_err = max(float(np.abs(a - b).max()) for a, b in zip(sm_card, sm_host))
+    log(f"grow: card vs CPU, first {len(seeds)}-seed chunk: {len(card)} / {len(host)} strands, "
+        f"{share * 100:.3f}% equal within 1e-4 voxels ({chunk_s:.4f} s on the card); "
+        f"first {min(TRACE_CHUNK, len(sp))} scalp seeds: {len(g_card)} / {len(g_host)} guides, "
+        f"{g_share * 100:.3f}% equal; smoothing of 2000 strands max abs diff {sm_err:.3g}")
+    if not (count_ok and share >= 0.99 and g_ok and g_share >= 0.99) or sm_err > 1e-5:
+        raise AssertionError("grow: the card and the CPU disagree")
+
+    busy = trace_device_share(occ_d, ori_d, seeds, noise)
+    return dict(steps=steps, strands=len(strands), num_root=num_root, peak_bytes=peak,
+                busy_share=busy)
+
+
 KERNEL_META = {
     "patch_gather": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
                          replaces="monohair_tpu/ops/pallas_kernels.py:188"),
@@ -507,6 +689,8 @@ def main(argv=None) -> int:
         phase_stage("cuda")
     with Phase("5 full width"):
         width = phase_full_width(dev)
+    with Phase("6 grow"):
+        phase_grow_full_width(dev)
     launches = width["launches"]
     kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:

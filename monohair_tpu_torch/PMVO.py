@@ -8,18 +8,12 @@ GPU unless --device=cpu is given.
 
 import sys
 
-from .pipeline.common import resolve_config
+from .pipeline.common import resolve_config, split_device
 from .pipeline.pmvo_stage import run_pmvo
 
 
 def main(argv):
-    device = "cuda"
-    rest = []
-    for a in argv:
-        if a.startswith("--device="):
-            device = a.split("=", 1)[1]
-        else:
-            rest.append(a)
+    device, rest = split_device(argv)
     run_pmvo(resolve_config(rest), device=device)
 
 

@@ -6,8 +6,8 @@ save_options_file :116-138) without easydict, and without interactive
 prompts (unknown keys raise unless ``allow_new=True``; an existing differing
 options.yaml is backed up instead of prompting — batch pipelines must not block).
 
-PyYAML is imported only inside the functions that read or write YAML, so the
-stages import without it when their Config is built in code.
+YAML is read and written by the port's own reader and writer of the subset the
+configs use (io/yaml_io.py), so the stages and their CLIs run without PyYAML.
 
 Port of monohair_tpu/config.py. Syntax (identical to the reference):
     --key1.key2=value   -> value (YAML-parsed)
@@ -24,6 +24,8 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from .io.yaml_io import dump_yaml, load_yaml, parse_scalar
 
 
 class Config(dict):
@@ -70,7 +72,6 @@ class Config(dict):
 
 def parse_arguments(args: List[str]) -> Config:
     """Parse ``--a.b.c=v`` style command-line arguments into a nested Config."""
-    import yaml
     opt_cmd: Dict[str, Any] = {}
     for arg in args:
         if not arg.startswith("--"):
@@ -85,15 +86,14 @@ def parse_arguments(args: List[str]) -> Config:
             node = node.setdefault(k, {})
         if keys[-1] in node:
             raise ValueError(f"duplicate argument: {key_str}")
-        node[keys[-1]] = yaml.safe_load(value) if value != "" else None
+        node[keys[-1]] = parse_scalar(value) if value != "" else None
     return Config(opt_cmd)
 
 
 def load_options(fname: str) -> Config:
     """Load a YAML file, resolving the ``_parent_`` inheritance chain."""
-    import yaml
     with open(fname) as f:
-        opt = Config(yaml.safe_load(f) or {})
+        opt = Config(load_yaml(f.read()) or {})
     if "_parent_" in opt:
         parent_fnames = opt.pop("_parent_")
         if isinstance(parent_fnames, str):
@@ -161,12 +161,10 @@ def save_options_file(opt: Config, output_path: Optional[str] = None) -> str:
 
     (The reference diffs and prompts, options.py:116-138; we keep a .bak copy.)
     """
-    import yaml
     output_path = output_path or opt["output_path"]
     os.makedirs(output_path, exist_ok=True)
     opt_fname = os.path.join(output_path, "options.yaml")
-    new_contents = yaml.safe_dump(opt.to_dict() if isinstance(opt, Config) else dict(opt),
-                                  default_flow_style=False, indent=4)
+    new_contents = dump_yaml(opt.to_dict() if isinstance(opt, Config) else dict(opt))
     if os.path.isfile(opt_fname):
         with open(opt_fname) as f:
             old_contents = f.read()

@@ -1,8 +1,10 @@
-"""World -> voxel coordinate transforms (port of the PMVO part of monohair_tpu/coords.py).
+"""World <-> voxel coordinate transforms (port of the voxel half of
+monohair_tpu/coords.py; the NeRF/NGP converters belong to stage 1).
 
 The world->voxel map *negates y and z*, then rescales into grid indices
-(reference: PMVO_utils.py:386-421 `p2v`/`points_to_voxel`/`voxel_to_points`).
-Functions take and return torch tensors on any device.
+(reference: PMVO_utils.py:386-421 `p2v`/`points_to_voxel`/`voxel_to_points`,
+HairGrow.py:22-36). Functions take and return torch tensors on any device,
+in float32 as the JAX package computes them.
 """
 
 from __future__ import annotations
@@ -21,6 +23,23 @@ def world_to_voxel(points: torch.Tensor, voxel_min=VOXEL_MIN,
     flip = torch.tensor(_FLIP, dtype=points.dtype, device=points.device)
     vmin = torch.as_tensor(voxel_min, dtype=points.dtype, device=points.device)
     return (points * flip - vmin) / voxel_size
+
+
+def voxel_to_world(voxels: torch.Tensor, voxel_min=VOXEL_MIN,
+                   voxel_size: float = VOXEL_SIZE) -> torch.Tensor:
+    """(..., 3) continuous voxel coordinates -> world points (PMVO_utils.py:407-413)."""
+    voxels = voxels.float()
+    flip = torch.tensor(_FLIP, dtype=voxels.dtype, device=voxels.device)
+    vmin = torch.as_tensor(voxel_min, dtype=voxels.dtype, device=voxels.device)
+    return (voxels * voxel_size + vmin) * flip
+
+
+def world_dir_to_voxel(dirs: torch.Tensor) -> torch.Tensor:
+    """Direction vectors transform with the y/z negation only (HairGrow.py:894)."""
+    return dirs * torch.tensor(_FLIP, dtype=dirs.dtype, device=dirs.device)
+
+
+voxel_dir_to_world = world_dir_to_voxel  # the map is an involution
 
 
 def voxel_indices(points: torch.Tensor, voxel_min=VOXEL_MIN,

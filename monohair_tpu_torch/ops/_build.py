@@ -1,17 +1,21 @@
-"""Build the port's CUDA sources with plain nvcc and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
 Each source under ``monohair_tpu_torch/csrc/`` compiles at first use into a
 shared library with a C interface, in ``build/monohair_tpu_torch/`` at the
-repository root (git-ignored). The library's name carries a hash of the source
-and the flags, so an unchanged source is not rebuilt. A failed build raises
-with nvcc's output; there is no fallback. torch.utils.cpp_extension is not
-used: a file that includes PyTorch's headers takes minutes to compile, this
-takes seconds.
+repository root (git-ignored): CUDA sources (``.cu``) with plain nvcc for
+sm_90a, host C++ sources (``.cpp``) with g++. The library's name carries a
+hash of the source and the flags (for host C++ also of the CPU that
+-march=native targets), so an unchanged source is not rebuilt, and
+it is renamed into place atomically, so concurrent builds (test workers) see
+all or nothing. A failed build raises with the compiler's output; there is no
+fallback. torch.utils.cpp_extension is not used: a file that includes
+PyTorch's headers takes minutes to compile, this takes seconds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,6 +30,12 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "monohair_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# The JAX package's flags for the same C++ (monohair_tpu/native/__init__.py),
+# so that both libraries give the same bits: -march=native lets g++ contract
+# a * b + c into fused multiply-adds, which changes the results. A library
+# built for one CPU may not run on another, so the name of a host library also
+# hashes what -march=native means on this CPU (native_target).
+GXX_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": nvcc wall time (0.0 when the cached build was used),
@@ -44,10 +54,32 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def find_gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH")
+    return gxx
+
+
+@functools.lru_cache(maxsize=1)
+def native_target() -> str:
+    """The -m flags that -march=native expands to on this host, as g++ -v
+    reports them to its compiler proper."""
+    proc = subprocess.run([find_gxx(), "-march=native", "-E", "-v", "-x", "c++",
+                           os.devnull, "-o", os.devnull], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ -march=native -v failed:\n{proc.stderr}")
+    return " ".join(f for line in proc.stderr.splitlines() if "cc1plus" in line
+                    for f in line.split() if f.startswith("-m"))
+
+
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` unless a library of the same hash exists."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    cuda = src.suffix == ".cu"
+    flags = NVCC_FLAGS if cuda else GXX_FLAGS
+    target = "" if cuda else native_target()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode() + target.encode()
                             ).hexdigest()[:16]
     lib = BUILD_DIR / f"{src.stem}-{digest}.so"
     if lib.exists():
@@ -55,14 +87,14 @@ def build(source: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [find_nvcc() if cuda else find_gxx(), *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:\n"
+        raise RuntimeError(f"{Path(cmd[0]).name} failed ({proc.returncode}) for {src}:\n"
                            f"{' '.join(cmd)}\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     BUILD_INFO[source] = {"seconds": seconds, "log": log, "path": str(lib)}

@@ -146,6 +146,37 @@ def patch_min_loss_plain(prj_dir: torch.Tensor, ori_patch: torch.Tensor,
             torch.sum((weight > 0).float(), 0))
 
 
+# the tap-loop kernel's limits, as patch_kernels.cu's launcher sets them: the
+# three counts of a (point, sample) are packed 10 bits each into one int, and
+# a warp's windows live in the default 48 KB of dynamic shared memory
+# (kSmemLimit); the launcher refuses more with cudaErrorInvalidValue
+MAX_VIEWS = 1023
+SMEM_LIMIT = 48 * 1024
+
+
+def check_min_loss_limits(V: int, S: int, P: int) -> None:
+    """Raise a ValueError naming the limit when the tap-loop kernel cannot
+    take V views, S samples and P taps (the plain version takes any). The
+    shared-memory budget is the launcher's: a warp stages the windows of G
+    points, each (P | 1) float4 taps and one int of flags, where G is 1 for
+    S > 16 and min(16, 32 / L) for L, the power of two >= S, otherwise."""
+    if V > MAX_VIEWS:
+        raise ValueError(f"patch_min_loss: the CUDA kernel takes at most {MAX_VIEWS} "
+                         f"views (10-bit packed counts), got {V}")
+    G = 1
+    if S <= 16:
+        L = 1
+        while L < S:
+            L *= 2
+        G = min(16, 32 // L)
+    per_warp = G * ((P | 1) * 16 + 4)
+    if per_warp > SMEM_LIMIT:
+        raise ValueError(
+            f"patch_min_loss: the CUDA kernel's shared-memory budget is {SMEM_LIMIT} "
+            f"bytes a warp; S={S} samples and P={P} taps need {per_warp} "
+            f"({G} windows of {P | 1} taps x 16 bytes + 4 bytes of flags)")
+
+
 def patch_min_loss(prj_dir: torch.Tensor, ori_patch: torch.Tensor,
                    conf_patch: torch.Tensor, visible: torch.Tensor,
                    conf_threshold: float
@@ -170,6 +201,7 @@ def patch_min_loss(prj_dir: torch.Tensor, ori_patch: torch.Tensor,
     _check("visible", visible, torch.float32, (V, N), dev)
     if P < 1 or V * N * max(S, P) * 2 >= 2 ** 31:
         raise ValueError(f"patch_min_loss: unsupported sizes V={V} N={N} S={S} P={P}")
+    check_min_loss_limits(V, S, P)
     num = torch.empty((N, S), dtype=torch.float32, device=dev)
     den = torch.empty_like(num)
     cnt = torch.empty_like(num)

@@ -41,6 +41,18 @@ def resolve_config(argv: List[str]) -> Config:
     return case_paths(set_options(opt_cmd, allow_new=False), save_options=True)
 
 
+def split_device(argv: List[str], default: str = "cuda") -> Tuple[str, List[str]]:
+    """A stage CLI's --device=<d> (the card unless it says otherwise) and the
+    config arguments around it."""
+    device, rest = default, []
+    for a in argv:
+        if a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    return device, rest
+
+
 def load_pmvo_maps(args: Config, device="cuda") -> Tuple[PMVOMaps, List[str]]:
     """Stack per-view depth/ori/conf/mask into a PMVOMaps on `device`
     (PMVO.py:823-834)."""

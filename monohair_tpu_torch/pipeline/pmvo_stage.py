@@ -60,11 +60,14 @@ def run_pmvo(args: Config, device="cuda") -> Dict[str, float]:
         print(f"total points: {points.shape[0]}")
         if points.shape[0] == 0:
             raise _no_points_error("loaded", args)
+        # this run's near-surface points, never a file an earlier run left
+        filter_unvisible = None
         if args.PMVO.filter_point:
             surface, filt = filter_raw_points(maps, points, patch, conf_thr, vis_thr)
             os.makedirs(save_root, exist_ok=True)
             np.save(os.path.join(save_root, "surface.npy"), points[surface])
-            np.save(os.path.join(save_root, "filter_unvisible.npy"), points[filt])
+            filter_unvisible = points[filt]
+            np.save(os.path.join(save_root, "filter_unvisible.npy"), filter_unvisible)
             points = points[surface]
         print(f"process points: {points.shape[0]}")
         if points.shape[0] == 0:
@@ -73,8 +76,6 @@ def run_pmvo(args: Config, device="cuda") -> Dict[str, float]:
         pts, ori, loss, _ = optimize_points(maps, points, patch, conf_thr,
                                             save_root=save_root)
         t = step("optimize", t)
-        fu_path = os.path.join(save_root, "filter_unvisible.npy")
-        filter_unvisible = np.load(fu_path) if os.path.exists(fu_path) else None
         occ, ori_grid = refine_and_voxelize(
             maps, pts, ori, loss, filter_unvisible, patch, conf_thr, vis_thr,
             args.PMVO.threshold, scalp_points=scalp_v,
@@ -85,7 +86,10 @@ def run_pmvo(args: Config, device="cuda") -> Dict[str, float]:
         pts = np.load(os.path.join(save_root, "select_p.npy"))
         ori = np.load(os.path.join(save_root, "select_o.npy"))
         loss = np.load(os.path.join(save_root, "min_loss.npy"))
-        filter_unvisible = np.load(os.path.join(save_root, "filter_unvisible.npy"))
+        # written only by a run with PMVO.filter_point on; the JAX stage
+        # loads it unconditionally and crashes without it
+        fu_path = os.path.join(save_root, "filter_unvisible.npy")
+        filter_unvisible = np.load(fu_path) if os.path.exists(fu_path) else None
         coarse = None
         if args.PMVO.infer_inner:
             # raw.npy = [pts, ori, occ_flag] for every query. As in the JAX

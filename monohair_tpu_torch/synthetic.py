@@ -1,4 +1,4 @@
-"""Synthetic scenes for driving stage 2 without capture data, in numpy.
+"""Synthetic scenes for driving stages 2 and 4 without capture data, in numpy.
 
 - The ``synthwig`` case: 24 ring cameras around 24 vertical strands (a wig of
   direction (0, -1, 0)), its 128x128 observation maps, a coarse tube mesh, a
@@ -8,6 +8,9 @@
 - The full-width head scene of bench.py's stage-2 benchmark: 16 ring cameras at
   1920x1080 looking at a head sphere whose hair follows a swirl field
   (analytic_head_maps), and jittered samples on its shell (shell_points).
+- The full-width field of bench.py's stage-4 benchmark: curved swirl strands
+  voxelised into the 256x256x192 occ/ori grids (grow_field), with a scalp cap
+  inside the hair shell (grow_scalp_cap).
 
 Everything is made from a seed; nothing is read from disk.
 """
@@ -21,7 +24,7 @@ from typing import List, Tuple
 import numpy as np
 
 from .config import Config
-from .constants import BUST_TO_ORIGIN
+from .constants import BUST_TO_ORIGIN, GRID_RESOLUTION, VOXEL_MIN, VOXEL_SIZE
 
 HEAD_RADIUS = 0.09
 
@@ -85,9 +88,26 @@ def make_wig(num_strands: int = 24, num_pts: int = 64, rng=None) -> List[np.ndar
     return strands
 
 
+def wig_grids(strands: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    """(occ (X,Y,Z), world-frame ori (X,Y,Z,3)) float32 grids of world-space
+    strands: the voxel of each segment's start (rounded, as voxel_indices)
+    holds occupancy 1 and the segment's unit direction."""
+    res = tuple(int(r) for r in GRID_RESOLUTION)
+    occ = np.zeros(res, np.float32)
+    ori = np.zeros(res + (3,), np.float32)
+    for s in strands:
+        v = np.round(((s[:-1] * np.array([1.0, -1.0, -1.0])) - VOXEL_MIN) / VOXEL_SIZE)
+        idx = np.clip(v.astype(np.int64), 0, np.array(res) - 1)
+        d = s[1:] - s[:-1]
+        d = d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-12)
+        occ[idx[:, 0], idx[:, 1], idx[:, 2]] = 1.0
+        ori[idx[:, 0], idx[:, 1], idx[:, 2]] = d
+    return occ, ori
+
+
 def synthwig_config(data_root: str, case: str = "synthwig") -> Config:
-    """The stage-2 keys of configs/reconstruct/base.yaml with the synthwig
-    overrides of tests/make_synthetic_case.py, built without YAML."""
+    """The stage-2 and stage-4 keys of configs/reconstruct/base.yaml with the
+    synthwig overrides of tests/make_synthetic_case.py, built without YAML."""
     root = os.path.join(data_root, case)
     return Config({
         "yaml": None, "seed": 0, "name": "verify",
@@ -111,6 +131,13 @@ def synthwig_config(data_root: str, case: str = "synthwig") -> Config:
             "genrate_ori_only": None, "threshold": 0.1, "conf_threshold": 0.4,
             "bf16_maps": False,
         },
+        "HairGenerate": {
+            "connect_threshold": 0.005, "grow_threshold": 0.7,
+            "connect_dot_threshold": 0.7, "dist_to_root": 6, "connect_to_guide": None,
+            "generate_segments": True, "connect_segments": True, "connect_scalp": True,
+            "out_ratio": 0.3,
+        },
+        "scalp_diffusion": None, "check_strands": True,
     })
 
 
@@ -268,3 +295,80 @@ def shell_points(rng: np.random.Generator, n: int) -> np.ndarray:
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     r = HEAD_RADIUS + rng.normal(size=(n, 1)) * 0.004
     return (d * r).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the full-width field of stage 4 (bench.py's grow benchmark)
+# ---------------------------------------------------------------------------
+
+def curved_strand_batch(rng: np.random.Generator, count: int, length: int,
+                        grid_shape=tuple(GRID_RESOLUTION), step: float = 1.1) -> np.ndarray:
+    """(count, length, 3) voxel-space polylines integrating the swirl field
+    around a head centred in the grid: curved, varied, not axis-aligned
+    (bench.py curved_strand_batch)."""
+    center = np.array([grid_shape[0] / 2, grid_shape[1] * 0.55, grid_shape[2] / 2])
+    scale = grid_shape[0] * 0.28
+    d = rng.normal(size=(count, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    p = center + d * (scale * (1.0 + rng.random((count, 1)) * 0.25))
+    out = np.empty((count, length, 3))
+    for i in range(length):
+        out[:, i] = p
+        w = swirl_direction((p - center) / scale)
+        w += rng.normal(size=w.shape) * 0.08       # per-step waviness
+        w /= np.linalg.norm(w, axis=-1, keepdims=True)
+        p = p + w * step
+    lo = np.array([1.0, 1.0, 1.0])
+    hi = np.array(grid_shape, np.float64) - 2.0
+    return np.clip(out, lo, hi)
+
+
+def grow_field(rng: np.random.Generator, num_strands: int = 8000, length: int = 60,
+               grid_shape=tuple(GRID_RESOLUTION)) -> Tuple[np.ndarray, np.ndarray]:
+    """(occ, voxel-frame ori) float32 grids of `num_strands` curved strands,
+    each segment's direction in the voxel of its start (bench.py
+    bench_stage4_grow). With default_rng(0) and the defaults: 427,570
+    occupied voxels."""
+    occ = np.zeros(grid_shape, np.float32)
+    ori = np.zeros(tuple(grid_shape) + (3,), np.float32)
+    strands = curved_strand_batch(rng, num_strands, length, grid_shape)
+    idx = np.round(strands[:, :-1]).astype(np.int64)
+    seg_dir = strands[:, 1:] - strands[:, :-1]
+    seg_dir /= np.linalg.norm(seg_dir, axis=-1, keepdims=True)
+    ix, iy, iz = idx[..., 0].ravel(), idx[..., 1].ravel(), idx[..., 2].ravel()
+    occ[ix, iy, iz] = 1.0
+    ori[ix, iy, iz] = seg_dir.reshape(-1, 3)
+    return occ, ori
+
+
+def grow_scalp_cap(grid_shape=tuple(GRID_RESOLUTION), radius: float = 0.92,
+                   max_polar_deg: float = 70.0, rings: int = 24, sectors: int = 48
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """A spherical cap over the top of grow_field's head (world up, voxel -y),
+    inside its hair shell (`radius` of the shell's inner radius), as a scalp
+    mesh in obj coordinates (world minus BUST_TO_ORIGIN, as the stage reads
+    ours/scalp_tsfm.obj). Faces wind so that their normals point outward.
+    Returns (vertices (V, 3) float64, faces (F, 3) int64)."""
+    center = np.array([grid_shape[0] / 2, grid_shape[1] * 0.55, grid_shape[2] / 2])
+    r = grid_shape[0] * 0.28 * radius
+    verts = [center + np.array([0.0, -r, 0.0])]
+    for i in range(1, rings + 1):
+        th = math.radians(max_polar_deg) * i / rings
+        for j in range(sectors):
+            ph = 2 * math.pi * j / sectors
+            verts.append(center + r * np.array([math.sin(th) * math.cos(ph), -math.cos(th),
+                                                math.sin(th) * math.sin(ph)]))
+    faces = [[0, 1 + j, 1 + (j + 1) % sectors] for j in range(sectors)]
+    for i in range(rings - 1):
+        a, b = 1 + i * sectors, 1 + (i + 1) * sectors
+        for j in range(sectors):
+            k = (j + 1) % sectors
+            faces.extend([[a + j, b + j, b + k], [a + j, b + k, a + k]])
+    verts, faces = np.array(verts), np.array(faces)
+    e1 = verts[faces[:, 1]] - verts[faces[:, 0]]
+    e2 = verts[faces[:, 2]] - verts[faces[:, 0]]
+    inward = np.sum(np.cross(e1, e2) * (verts[faces].mean(1) - center), -1) < 0
+    faces[inward] = faces[inward][:, [0, 2, 1]]
+    # voxel -> world (the y/z flip is a rotation, so the winding stays outward)
+    world = (verts * VOXEL_SIZE + VOXEL_MIN) * np.array([1.0, -1.0, -1.0])
+    return world - BUST_TO_ORIGIN, faces

@@ -2,7 +2,9 @@
 
 In a fresh interpreter whose import system refuses jax, jaxlib, cv2, yaml, PIL,
 monohair_tpu and tests, every module of monohair_tpu_torch and chip_smoke.py
-import, and chip_smoke's stage phase runs on the CPU at a small size."""
+import, chip_smoke's stage phase runs on the CPU at a small size, and
+`python -m monohair_tpu_torch.HairGrow --yaml=<case> --device=cpu` writes the
+stage's files on a small written case."""
 
 import os
 import subprocess
@@ -36,6 +38,28 @@ GUARDED = textwrap.dedent('''
     import chip_smoke
     result = chip_smoke.phase_stage("cpu", num_views=12)
     assert result["median_cos"] > 0.95, result
+
+    # the HairGrow CLI, as `python -m` runs it, on grids of the voxelised wig
+    import os, runpy, tempfile
+    import numpy as np
+    from monohair_tpu_torch.io.hair_io import load_hair
+    from monohair_tpu_torch.io.mat_io import save_occ_ori_mat
+    from monohair_tpu_torch.io.yaml_io import dump_yaml
+    from monohair_tpu_torch.synthetic import make_wig, wig_grids, write_synthwig_case
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_synthwig_case(tmp, num_views=2)
+        refine = os.path.join(tmp, "synthwig", "output", "verify", "refine")
+        save_occ_ori_mat(refine, *wig_grids(make_wig(rng=np.random.default_rng(0))))
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        sys.argv = ["HairGrow", "--yaml=" + os.path.join(tmp, "case"), "--device=cpu"]
+        runpy.run_module("monohair_tpu_torch.HairGrow", run_name="__main__")
+        for name in ("scalp_segment.hair", "scalp_segment_smooth.hair", "strands.hair",
+                     "connected_strands.hair"):
+            segments, points = load_hair(os.path.join(refine, name))
+            assert len(segments) > 100 and np.isfinite(points).all(), name
+        assert int(np.load(os.path.join(refine, "num_root.npy"))) > 0
+
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("GUARD_OK", len(names))
@@ -50,3 +74,18 @@ def test_port_and_chip_smoke_need_no_jax_cv2_yaml_pil():
     assert "GUARD_OK" in proc.stdout
     modules = int(proc.stdout.split("GUARD_OK")[1].split()[0])
     assert modules >= 20
+
+
+def test_stage_clis_run_on_the_card_unless_told_otherwise(monkeypatch):
+    """Both stage CLIs pass device "cuda" unless --device is given; only the
+    arguments are parsed, so no card is needed."""
+    from monohair_tpu_torch import PMVO, HairGrow
+    for cli, stage in ((HairGrow, "run_hair_grow"), (PMVO, "run_pmvo")):
+        seen = []
+        monkeypatch.setattr(cli, "resolve_config", lambda argv: argv)
+        monkeypatch.setattr(cli, stage, lambda cfg, device: seen.append((cfg, device)))
+        cli.main(["--yaml=configs/reconstruct/synthwig", "--HairGenerate.connect_scalp!"])
+        cli.main(["--device=cpu", "--yaml=configs/reconstruct/synthwig"])
+        assert seen == [(["--yaml=configs/reconstruct/synthwig",
+                          "--HairGenerate.connect_scalp!"], "cuda"),
+                        (["--yaml=configs/reconstruct/synthwig"], "cpu")]
