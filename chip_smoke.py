@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's stages 2 (PMVO) and 4 (HairGrow) on one GPU and
-check them.
+"""Run the PyTorch/CUDA port's stages 2 (PMVO), 3 (infer_inner) and 4
+(HairGrow) on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -24,6 +24,17 @@ Phases, each printing a line when it starts and when it ends:
               256x256x192 grids, 60,000 scalp seeds; the trace and the smoothing
               timed on cuda, connect_to_scalp (host C++) on 100,000 strands; the
               first trace chunks and the smoothing held against the CPU
+  7. stage 3  the four MVS maps of 16 views at 1280x720 rendered from phase 6's
+              strands over a bust mesh (one view held against the CPU); the
+              shipped occ/ori nets (trained/mvs/*.npz) on those maps, their
+              features and heads held against the CPU; deep_mvs_eval on
+              1,048,576 queries in batches of 32768 (queries/s, peak memory);
+              then the PMVO, infer_inner and HairGrow CLIs on a 16-view
+              synthwig case: render, MVS at the median margin of the case's
+              queries, the fuse of the MVS-positive interior into full/ (its
+              kernel launches counted), strands grown from full/; last the
+              shipped nets at their shipped margin on a scene of their
+              training family (256x256 renders), held against its labels
 
 Before the last line it prints one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}, printed only when every phase passed.
@@ -45,27 +56,44 @@ import time
 import numpy as np
 import torch
 
-from monohair_tpu_torch.constants import BUST_TO_ORIGIN, VOXEL_MIN, VOXEL_SIZE
+from monohair_tpu_torch import HairGrow as grow_cli, PMVO as pmvo_cli
+from monohair_tpu_torch import infer_inner as infer_cli
+from monohair_tpu_torch.camera import Cameras
+from monohair_tpu_torch.config import Config
+from monohair_tpu_torch.constants import BUST_TO_ORIGIN, VOXEL_MAX, VOXEL_MIN, VOXEL_SIZE
+from monohair_tpu_torch.coords import voxel_to_world
+from monohair_tpu_torch.io.cameras_io import save_cam_params
 from monohair_tpu_torch.io.hair_io import load_hair, strands_from_flat
 from monohair_tpu_torch.io.mat_io import load_occ_mat, load_ori_mat
+from monohair_tpu_torch.io.voxels_io import load_voxels_dat
+from monohair_tpu_torch.io.yaml_io import dump_yaml
+from monohair_tpu_torch.models.pifu import mvs_projection, occ_decision
+from monohair_tpu_torch.mvs.eval import (colmap_guided_queries, deep_mvs_eval, eval_points,
+                                        load_mvs_inputs, save_mvs_outputs)
 from monohair_tpu_torch.ops import _build
 from monohair_tpu_torch.ops import patch_kernels as pk
 from monohair_tpu_torch.pipeline.common import case_paths
 from monohair_tpu_torch.pipeline.hair_grow_stage import (run_hair_grow, scalp_seeds,
                                                          voxel_strands_to_world)
+from monohair_tpu_torch.pipeline.infer_inner_stage import load_net, occ_margin
 from monohair_tpu_torch.pipeline.pmvo_stage import run_pmvo
+from monohair_tpu_torch.render import (render_data, render_view, strands_to_segments,
+                                       upload_segments)
 from monohair_tpu_torch.pmvo import solver
-from monohair_tpu_torch.pmvo.driver import (auto_chunk, filter_raw_points,
+from monohair_tpu_torch.pmvo.driver import (auto_chunk, exact_f32, filter_raw_points,
                                             optimize_points, refine_and_voxelize)
 from monohair_tpu_torch.strands import connect as strand_connect
 from monohair_tpu_torch.strands.smooth import smooth_strand_list
 from monohair_tpu_torch.strands.trace import (generate_guide_and_segments, strands_to_list,
                                               trace_bidirectional, trace_from_scalp)
 from monohair_tpu_torch.synthetic import (analytic_head_maps, cameras_numpy,
-                                          curved_strand_batch, grow_field,
-                                          grow_scalp_cap, head_camera_list,
-                                          shell_points, swirl_direction,
-                                          write_synthwig_case)
+                                          curved_strand_batch, grow_bust_mesh, grow_field,
+                                          grow_scalp_cap, hair_shell_points,
+                                          head_camera_list, mvs_train_camera_list,
+                                          mvs_train_head_mesh, mvs_train_occupancy,
+                                          mvs_train_queries, mvs_train_wig,
+                                          MVS_TRAIN_RENDER_SIZE, shell_points,
+                                          swirl_direction, write_synthwig_case)
 
 # Phase 5 point count: a quarter of big_wavy1's 2.1 M raw points.
 FULL_WIDTH_POINTS = 524_288
@@ -503,20 +531,16 @@ def phase_full_width(dev: torch.device, n_points: int = FULL_WIDTH_POINTS,
     return result
 
 
-def profile_line_search(dev: torch.device, chunks: int = 4) -> None:
-    """Trace `chunks` full-width line-search chunks: device time by kernel and
-    the device's idle share of the wall time."""
+def device_profile(fn, what: str, top: int = 15) -> float:
+    """Run fn() once under torch.profiler: log its wall time, the device's busy
+    time and share, and the `top` device operations by time. Returns the busy
+    share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    maps, points = head_scene(dev, FULL_WIDTH_POINTS // 4, 1920, 1080, 16)
-    surface, _ = filter_raw_points(maps, points, PATCH, CONF_THR, VIS_THR)
-    n = auto_chunk(16)
-    pts = points[surface][:chunks * n]
-    optimize_points(maps, pts[:n], PATCH, CONF_THR)          # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        optimize_points(maps, pts, PATCH, CONF_THR)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
 
@@ -528,10 +552,24 @@ def profile_line_search(dev: torch.device, chunks: int = 4) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events)
-    log(f"profile: {len(pts)} points in {chunks} chunks, wall {wall_us / 1e3:.3f} ms, "
-        f"device busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}")
-    for e in sorted(events, key=dev_us, reverse=True)[:15]:
+    log(f"profile of {what}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+        f"over {sum(e.count for e in events)} device operations, busy share "
+        f"{busy / wall_us:.4f}, idle share {1 - busy / wall_us:.4f}")
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"  {dev_us(e) / 1e3:10.3f} ms {e.count:6d} calls  {e.key[:90]}", flush=True)
+    return busy / wall_us
+
+
+def profile_line_search(dev: torch.device, chunks: int = 4) -> None:
+    """Trace `chunks` full-width line-search chunks: device time by kernel and
+    the device's idle share of the wall time."""
+    maps, points = head_scene(dev, FULL_WIDTH_POINTS // 4, 1920, 1080, 16)
+    surface, _ = filter_raw_points(maps, points, PATCH, CONF_THR, VIS_THR)
+    n = auto_chunk(16)
+    pts = points[surface][:chunks * n]
+    optimize_points(maps, pts[:n], PATCH, CONF_THR)          # warm-up
+    device_profile(lambda: optimize_points(maps, pts, PATCH, CONF_THR),
+                   f"{len(pts)} line-search points in {chunks} chunks")
 
 
 # ---------------------------------------------------------------------------
@@ -552,26 +590,10 @@ def compare_strands(a, b, atol: float = 1e-4):
 
 def trace_device_share(occ_d, ori_d, seeds, noise) -> float:
     """The device's busy share of one trace chunk's wall time (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        strands_to_list(trace_bidirectional(occ_d, ori_d, seeds, noise, GROW_THRESHOLD), 5)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    busy = sum(dev_us(e) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and dev_us(e) > 0)
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and dev_us(e) > 0)
-    log(f"grow: profile of one {len(seeds)}-seed trace chunk: wall {wall_us / 1e3:.3f} ms, "
-        f"device busy {busy / 1e3:.3f} ms over {kernels} device operations, "
-        f"busy share {busy / wall_us:.4f}")
-    return busy / wall_us
+    return device_profile(
+        lambda: strands_to_list(trace_bidirectional(occ_d, ori_d, seeds, noise,
+                                                    GROW_THRESHOLD), 5),
+        f"one {len(seeds)}-seed trace chunk", top=0)
 
 
 def phase_grow_full_width(dev: torch.device) -> dict:
@@ -660,7 +682,389 @@ def phase_grow_full_width(dev: torch.device) -> dict:
 
     busy = trace_device_share(occ_d, ori_d, seeds, noise)
     return dict(steps=steps, strands=len(strands), num_root=num_root, peak_bytes=peak,
-                busy_share=busy)
+                busy_share=busy, voxel_strands=strands)
+
+
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+RENDER_SIZE = (1280, 720)          # base.yaml's infer_inner.render_size, (H, W)
+MVS_VIEWS = 16                     # the shipped nets' position table holds 16 views
+MVS_QUERIES = 1_048_576
+MVS_BATCH = 32768                  # base.yaml's mvs.eval_batch
+EVAL_VSIZE = 0.005                 # base.yaml's mvs.eval_vsize
+NET_CHECK_QUERIES = 4096
+TRAIN_SCENE_QUERIES = 524_288
+TRAINED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "trained", "mvs")
+MVS_WEIGHTS = {kind: os.path.join(TRAINED, kind + ".npz") for kind in ("occ", "ori")}
+# the stage's own weight and margin lookups read the shipped nets from this
+MVS_CFG = Config({"mvs": {f"{kind}_model_path": path for kind, path in MVS_WEIGHTS.items()}})
+
+
+def max_err(card: torch.Tensor, host: torch.Tensor, what: str, rtol: float, atol: float) -> float:
+    """The largest absolute difference of a card result from the CPU's; fails
+    outside rtol/atol."""
+    card = card.detach().cpu()
+    torch.testing.assert_close(card, host, rtol=rtol, atol=atol,
+                               msg=lambda m: f"{what}, card vs CPU: {m}")
+    return (card - host).abs().max().item()
+
+
+def phase_render(dev: torch.device, voxel_strands, case_dir: str) -> dict:
+    """The four MVS maps of 16 views at 1280x720 from phase 6's strands over a
+    bust mesh, written as the stage writes them; one view of a quarter of the
+    strands held against the CPU."""
+    strands = [voxel_to_world(torch.from_numpy(s)).numpy() for s in voxel_strands]
+    bust_v, bust_f = grow_bust_mesh()
+    cam_list = head_camera_list(MVS_VIEWS)
+    ndc, w2c = cameras_numpy(cam_list)
+    names = [c["file"] for c in cam_list]
+    save_cam_params(os.path.join(case_dir, "cam_params.json"), names, ndc, np.linalg.inv(w2c))
+    cams = Cameras.from_json_list(cam_list, dev)
+    seg = upload_segments(strands_to_segments(strands), dev)
+    log(f"render: {len(strands)} strands, {len(seg[0])} segments, bust {len(bust_f)} faces, "
+        f"{MVS_VIEWS} views of {RENDER_SIZE[0]}x{RENDER_SIZE[1]}")
+
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    render_view(cams[0], seg, bust_v, bust_f, RENDER_SIZE)
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    imgs = render_data(cams, names, strands, bust_v, bust_f, RENDER_SIZE,
+                       os.path.join(case_dir, "imgs"))
+    total_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in range(2):
+        render_view(cams[1], seg, bust_v, bust_f, RENDER_SIZE)
+    torch.cuda.synchronize(dev)
+    view_s = (time.perf_counter() - t) / 2
+    peak = torch.cuda.max_memory_allocated(dev)
+    hair = float(np.mean([imgs[n]["mask"].mean() for n in names]))
+    bust = float(np.mean([(imgs[n]["bust_depth"] < 1).mean() for n in names]))
+    log(f"render: {total_s:.3f} s for {MVS_VIEWS} views with their PNGs; one view on the card "
+        f"{view_s:.4f} s ({first_s:.3f} s for the first, with warm-up); hair covers "
+        f"{hair:.4f} and the bust {bust:.4f} of the pixels; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    if not 0.01 < hair < 0.9 or bust <= 0:
+        raise AssertionError(f"render: hair {hair}, bust {bust}")
+
+    # one view on the card and on the CPU, every 4th strand (a full view on
+    # the CPU would take minutes)
+    sub = strands_to_segments(strands[::4])
+    card = render_view(cams[2], upload_segments(sub, dev), bust_v, bust_f, RENDER_SIZE)
+    host = render_view(Cameras(cams.ndc[2:3].cpu(), cams.w2c[2:3].cpu()),
+                       upload_segments(sub, "cpu"), bust_v, bust_f, RENDER_SIZE)
+    cov_c, cov_h = card["mask"].cpu() > 0, host["mask"] > 0
+    same_cov = (cov_c == cov_h).float().mean().item()
+    both = cov_c & cov_h
+    d_err = (card["hair_depth"].cpu() - host["hair_depth"]).abs()[both]
+    c_err = (card["undirectional_map"].cpu() - host["undirectional_map"]).abs().amax(-1)[both]
+    bust_err = (card["bust_depth"].cpu() - host["bust_depth"]).abs()
+    depth_ok = (d_err <= 1e-5).float().mean().item()
+    color_ok = (c_err <= 1e-3).float().mean().item()
+    bust_ok = (bust_err <= 1e-5).float().mean().item()
+    log(f"render, card vs CPU (view 2, {len(sub[0])} segments): hair coverage equal on "
+        f"{same_cov * 100:.4f}% of pixels; hair depth within 1e-5 on {depth_ok * 100:.4f}% "
+        f"and colour within 1e-3 on {color_ok * 100:.4f}% of the pixels both cover; bust "
+        f"depth within 1e-5 on {bust_ok * 100:.4f}% (largest {bust_err.max().item():.3g})")
+    if min(same_cov, depth_ok, color_ok, bust_ok) < 0.999:
+        raise AssertionError("render: the card and the CPU disagree")
+    return dict(seconds=total_s, view_seconds=view_s, segments=len(seg[0]), peak_bytes=peak,
+                hair=hair)
+
+
+@torch.no_grad()
+def phase_nets(dev: torch.device, inputs, queries: np.ndarray, margin: float) -> dict:
+    """The trained nets on the card against the same nets on the CPU: UNet
+    features of one view, and both heads on NET_CHECK_QUERIES queries (from
+    the card's 16-view features)."""
+    pts = torch.from_numpy(queries[:NET_CHECK_QUERIES])
+    host_coord, host_cam = mvs_projection(inputs.w2c.cpu(), inputs.ndc.cpu(), pts)
+    coord, cam = mvs_projection(inputs.w2c, inputs.ndc, pts.to(dev))
+    out, host_out, feat_s, errs = {}, {}, {}, {}
+    for kind in ("occ", "ori"):
+        net, host_net = load_net(MVS_CFG, kind, MVS_VIEWS, dev), load_net(MVS_CFG, kind, MVS_VIEWS, "cpu")
+        net.get_feat(inputs.imgs[:1])                      # warm-up (cuDNN's choice)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        feats = net.get_feat(inputs.imgs)
+        torch.cuda.synchronize(dev)
+        feat_s[kind] = time.perf_counter() - t
+        host_feats0 = host_net.get_feat(inputs.imgs[:1].cpu())
+        errs[f"{kind} features"] = max(max_err(f[:1], h, f"{kind} features of view 0", 1e-3, 1e-4)
+                                       for f, h in zip(feats, host_feats0))
+        out[kind] = net.forward_with_feat(feats, pts.to(dev), cam, coord)
+        host_out[kind] = host_net.forward_with_feat([f.cpu() for f in feats], pts, host_cam,
+                                                    host_coord)
+        errs[f"{kind} head"] = max_err(out[kind], host_out[kind], f"{kind} head", 1e-3, 1e-4)
+        del feats, net
+    # the shipped margin, and the median of the CPU's logit differences, at
+    # which half the queries are occupied and the decision is tested hardest
+    median = float(torch.median(host_out["occ"][:, 1] - host_out["occ"][:, 0]))
+    shares = {}
+    for name, m in (("shipped", margin), ("median", median)):
+        host = occ_decision(host_out["occ"], m)
+        agree = (occ_decision(out["occ"], m).cpu() == host).float().mean().item()
+        shares[name] = (agree, host.float().mean().item())
+        if agree < 0.999:
+            raise AssertionError(f"nets: occupancy at the {name} margin {m} differs on "
+                                 f"{(1 - agree) * 100:.3f}% of the queries")
+    log(f"nets: features of 16 views in {feat_s['occ']:.4f} s (occ) / {feat_s['ori']:.4f} s "
+        f"(ori); card vs CPU max abs err {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}; "
+        f"occupancy equal on {shares['shipped'][0] * 100:.3f}% of {NET_CHECK_QUERIES} queries "
+        f"at the shipped margin {margin:.6f} ({shares['shipped'][1] * 100:.2f}% occupied) and on "
+        f"{shares['median'][0] * 100:.3f}% at the median margin {median:.6f}")
+    return dict(feature_seconds=feat_s, max_abs_err=errs, median_margin=median,
+                host_occ=occ_decision(host_out["occ"], median).numpy(),
+                host_ori=host_out["ori"].numpy())
+
+
+def phase_mvs(dev: torch.device, inputs, queries: np.ndarray, margin: float, nets: dict,
+              case_dir: str) -> dict:
+    """deep_mvs_eval on MVS_QUERIES queries in batches of MVS_BATCH: queries/s
+    and peak memory; the first NET_CHECK_QUERIES results against the CPU's.
+    The margin is phase_nets' median one: the shipped nets were trained on
+    256x256 renders of smaller heads, and at their shipped margin this scene
+    is all but empty, which would leave the occupancy comparison idle."""
+    occ_net, ori_net = load_net(MVS_CFG, "occ", MVS_VIEWS, dev), load_net(MVS_CFG, "ori", MVS_VIEWS, dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    pts, orients, occ = deep_mvs_eval(inputs, occ_net, ori_net, query_points=queries,
+                                      batch=MVS_BATCH, occ_margin=margin)
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    feats = sum(nets["feature_seconds"].values())
+    log(f"mvs: {len(queries)} queries in batches of {MVS_BATCH} at margin {margin:.6f}: "
+        f"{seconds:.3f} s "
+        f"({len(queries) / seconds:.1f} queries/s; {len(queries) / (seconds - feats):.1f} "
+        f"queries/s without the {feats:.3f} s of features), peak device memory "
+        f"{peak / 2**30:.3f} GiB, {occ.mean() * 100:.2f}% occupied")
+    n = NET_CHECK_QUERIES
+    agree = float((occ[:n] == nets["host_occ"]).mean())
+    host = nets["host_ori"] / np.linalg.norm(nets["host_ori"], axis=-1, keepdims=True)
+    cos = np.abs(np.sum(orients[:n] * host, -1))
+    log(f"mvs, card vs CPU on the first {n} queries of the first batch: occupancy equal on "
+        f"{agree * 100:.3f}%, |cos| of the orientations min {cos.min():.7f}, median "
+        f"{np.median(cos):.7f}")
+    if agree < 0.999 or cos.min() < 0.9999 or not np.isfinite(orients).all():
+        raise AssertionError("mvs: the card and the CPU disagree")
+    t = time.perf_counter()
+    save_mvs_outputs(os.path.join(case_dir, "ours"), inputs.model_tsfm, pts, orients, occ,
+                     0.005, VOXEL_MIN, VOXEL_MAX)
+    log(f"mvs: voxels.dat, raw.npy and Voxel_hair/*.mat written in {time.perf_counter() - t:.3f} s")
+    return dict(seconds=seconds, queries_per_s=len(queries) / seconds, peak_bytes=peak,
+                occupied=float(occ.mean()), agree=agree)
+
+
+def precision_recall(pred: np.ndarray, truth: np.ndarray) -> tuple:
+    """(precision, recall, F1) of boolean predictions against labels."""
+    tp = float((pred & truth).sum())
+    p, r = tp / max(float(pred.sum()), 1.0), tp / max(float(truth.sum()), 1.0)
+    return p, r, 2 * p * r / max(p + r, 1e-12)
+
+
+def phase_training_scene(dev: torch.device, margin: float, case_dir: str) -> dict:
+    """The shipped nets on a scene of their own training family
+    (tools/make_mvs_cases.py: a 2000-strand wig on a 0.095-radius head, 16
+    ring views at NDC focal 2.6 rendered at 256x256): at the shipped margin,
+    the occupancy of TRAIN_SCENE_QUERIES queries drawn as the margin was tuned
+    (tools/tune_occ_threshold.py) against the scene's label grid, and the
+    first NET_CHECK_QUERIES of them against the CPU."""
+    rng = np.random.default_rng(0)
+    strands = mvs_train_wig(rng)
+    head_v, head_f = mvs_train_head_mesh()
+    cam_list = mvs_train_camera_list(MVS_VIEWS)
+    ndc, w2c = cameras_numpy(cam_list)
+    names = [c["file"] for c in cam_list]
+    cam_path = os.path.join(case_dir, "cam_params.json")
+    save_cam_params(cam_path, names, ndc, np.linalg.inv(w2c))
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    render_data(Cameras.from_json_list(cam_list, dev), names, strands, head_v, head_f,
+                MVS_TRAIN_RENDER_SIZE, os.path.join(case_dir, "imgs"))
+    render_s = time.perf_counter() - t
+    labels_grid = mvs_train_occupancy(strands)
+    queries, labels = mvs_train_queries(labels_grid, rng)
+    pick = rng.permutation(len(queries))[:TRAIN_SCENE_QUERIES]
+    queries, truth = queries[pick], labels[pick] > 0
+    inputs, _ = load_mvs_inputs(case_dir, cam_path, device=dev)
+    occ_net, ori_net = load_net(MVS_CFG, "occ", MVS_VIEWS, dev), load_net(MVS_CFG, "ori",
+                                                                          MVS_VIEWS, dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    _, orients, occ = deep_mvs_eval(inputs, occ_net, ori_net, query_points=queries,
+                                    batch=MVS_BATCH, occ_margin=margin)
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    p, r, f1 = precision_recall(occ > 0.5, truth)
+    log(f"training scene: {len(strands)} strands, {int(labels_grid.sum())} labelled voxels, "
+        f"{MVS_VIEWS} views of {MVS_TRAIN_RENDER_SIZE[0]}x{MVS_TRAIN_RENDER_SIZE[1]} rendered "
+        f"in {render_s:.3f} s; {len(queries)} of {len(labels)} queries ({truth.mean() * 100:.2f}% "
+        f"labelled occupied) in {seconds:.3f} s ({len(queries) / seconds:.1f} queries/s), peak "
+        f"device memory {peak / 2**30:.3f} GiB; at the shipped margin {margin:.6f}: "
+        f"{occ.mean() * 100:.2f}% occupied, precision {p:.4f}, recall {r:.4f}, F1 {f1:.4f}")
+    n = NET_CHECK_QUERIES
+    host_inputs, _ = load_mvs_inputs(case_dir, cam_path, device="cpu")
+    _, host_ori, host_occ = deep_mvs_eval(
+        host_inputs, load_net(MVS_CFG, "occ", MVS_VIEWS, "cpu"),
+        load_net(MVS_CFG, "ori", MVS_VIEWS, "cpu"), query_points=queries[:n], batch=n,
+        occ_margin=margin)
+    agree = float((occ[:n] == host_occ).mean())
+    cos = np.abs(np.sum(orients[:n] * host_ori, -1))
+    log(f"training scene, card vs CPU on the first {n} queries: occupancy equal on "
+        f"{agree * 100:.3f}%, |cos| of the orientations min {cos.min():.7f}")
+    if agree < 0.999 or cos.min() < 0.9999 or not np.isfinite(orients).all():
+        raise AssertionError("training scene: the card and the CPU disagree")
+    if not 0.05 < occ.mean() < 0.95 or min(p, r) < 0.6 or f1 < 0.7:
+        raise AssertionError(f"training scene: the shipped nets at the shipped margin give "
+                             f"{occ.mean() * 100:.2f}% occupied, precision {p:.4f}, recall "
+                             f"{r:.4f}, F1 {f1:.4f}")
+    return dict(render_seconds=render_s, seconds=seconds, queries_per_s=len(queries) / seconds,
+                peak_bytes=peak, occupied=float(occ.mean()), precision=p, recall=r, f1=f1,
+                agree=agree)
+
+
+def median_occ_margin(cfg: Config, case: str, device, sample: int = MVS_BATCH) -> float:
+    """The median occ logit difference of the stage's colmap-guided queries
+    on the case's rendered maps (every k-th query, `sample` of them): the
+    margin at which half the queries are occupied."""
+    inputs, _ = load_mvs_inputs(case, cfg.camera_path, device=device)
+    net = load_net(cfg, "occ", inputs.imgs.shape[0], device)
+    pts = colmap_guided_queries(os.path.join(case, "ours", "colmap_points.obj"),
+                                vsize=cfg.mvs.eval_vsize)
+    pts = torch.as_tensor(pts[::max(len(pts) // sample, 1)][:sample], device=device)
+    coord, cam = mvs_projection(inputs.w2c, inputs.ndc, pts)
+    with torch.no_grad():
+        logits = net(inputs.imgs, pts, cam, coord)
+    return float(torch.median(logits[:, 1] - logits[:, 0]))
+
+
+def phase_infer_inner(case_root: str, device: str, render_size, eval_vsize: float) -> dict:
+    """The CLIs on a 16-view synthwig case with PMVO.infer_inner on and the
+    trained nets: PMVO, then stage 3 (render, MVS, fuse into full/), then
+    HairGrow on full/. Returns the stage's steps and the fuse's launches.
+
+    The trained nets call every query of this scene empty at the shipped
+    margin (it is not their training scene, see phase 7e), and the case's
+    flat depth maps (capture depth 1.80) put every query in front of every
+    camera, so the fuse would ingest nothing. So the MVS step runs at the
+    median margin of this case's own queries, and the depth maps move to
+    camera depth 1.08, behind which the wig's far half is hidden: then the
+    fuse takes the MVS-positive queries seen by fewer than 3 views."""
+    cfg = write_synthwig_case(case_root, num_views=MVS_VIEWS)
+    cfg.PMVO["infer_inner"] = True
+    cfg.mvs.update(occ_model_path=MVS_WEIGHTS["occ"], ori_model_path=MVS_WEIGHTS["ori"],
+                   eval_vsize=eval_vsize)
+    cfg.infer_inner["render_size"] = list(render_size)
+    with open(os.path.join(case_root, "case.yaml"), "w") as f:
+        f.write(dump_yaml(cfg.to_dict()))
+    argv = ["--yaml=" + os.path.join(case_root, "case"), f"--device={device}"]
+    pmvo_cli.main(argv)
+    steps = infer_cli.main(argv + ["--infer_inner.run_mvs!"])
+    case = os.path.join(case_root, "synthwig")
+    t = time.perf_counter()
+    margin = median_occ_margin(case_paths(cfg), case, device)
+    depth_dir = os.path.join(case, "render_depth")
+    for name in os.listdir(depth_dir):
+        shape = np.load(os.path.join(depth_dir, name)).shape
+        np.save(os.path.join(depth_dir, name), np.full(shape, 1.08 / 2 * 255, np.float32))
+    log(f"stage 3 on synthwig: median occ margin {margin:.6f} of this case's queries "
+        f"({time.perf_counter() - t:.3f} s); depth maps moved to camera depth 1.08")
+    pk.reset_launch_counts()
+    steps.update(infer_cli.main(argv + ["--infer_inner.render_data!",
+                                        f"--mvs.occ_logit_margin={margin!r}"]))
+    launches = dict(pk.LAUNCHES)
+    full = os.path.join(case, "output", "verify", "full")
+    views = sorted(os.listdir(os.path.join(case, "imgs")))
+    pngs = sum(os.path.exists(os.path.join(case, "imgs", v, f"{m}.png"))
+               for v in views for m in ("bust_depth", "undirectional_map", "mask", "hair_depth"))
+    raw = np.load(os.path.join(case, "ours", "raw.npy"))
+    count = len(load_voxels_dat(os.path.join(case, "ours", "voxels.dat"))[0])
+    coarse = np.load(os.path.join(full, "coarse.npy"))
+    occ = load_occ_mat(os.path.join(full, "Occ3D.mat"))
+    ori = load_ori_mat(os.path.join(full, "Ori3D.mat"))
+    refine = load_occ_mat(os.path.join(case, "output", "verify", "refine", "Occ3D.mat"))
+    full_n, refine_n = int((occ > 0).sum()), int((refine > 0).sum())
+    log(f"stage 3 on synthwig: {len(views)} views, {pngs} maps; {len(raw)} queries, "
+        f"{count} MVS-positive, {len(coarse)} of them fused as interior; full/ {full_n} "
+        f"occupied voxels (refine/ {refine_n}); steps "
+        f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; fuse launches {launches}")
+    if (pngs != 4 * MVS_VIEWS or count != int(raw[:, 6].sum()) or not np.isfinite(raw).all()
+            or occ.shape != (256, 256, 192) or not np.isfinite(ori).all()):
+        raise AssertionError("stage 3: missing or wrong outputs")
+    if count == 0 or len(coarse) == 0 or full_n <= refine_n:
+        raise AssertionError(f"stage 3: the fuse took no interior: {count} MVS-positive, "
+                             f"{len(coarse)} fused, full/ {full_n} voxels, refine/ {refine_n}")
+    if device != "cpu" and min(launches.values()) == 0:
+        raise AssertionError(f"the fuse did not launch every kernel: {launches}")
+    grow_cli.main(argv)
+    hair = check_hair_outputs(full)
+    return dict(steps=steps, launches=launches, hair=hair, margin=margin,
+                mvs_positive=count, fused=len(coarse), full_voxels=full_n,
+                refine_voxels=refine_n)
+
+
+def profile_stage3(dev: torch.device, inputs, queries: np.ndarray, margin: float,
+                   voxel_strands) -> None:
+    """Device time by kernel and idle share of one full-width view's render
+    and of one MVS batch through both nets."""
+    seg = upload_segments(strands_to_segments(
+        [voxel_to_world(torch.from_numpy(s)).numpy() for s in voxel_strands]), dev)
+    cam = Cameras.from_json_list(head_camera_list(MVS_VIEWS)[:1], dev)
+    bust_v, bust_f = grow_bust_mesh()
+    device_profile(lambda: render_view(cam, seg, bust_v, bust_f, RENDER_SIZE),
+                   f"one {RENDER_SIZE[0]}x{RENDER_SIZE[1]} view's render")
+    occ_net, ori_net = load_net(MVS_CFG, "occ", MVS_VIEWS, dev), load_net(MVS_CFG, "ori", MVS_VIEWS, dev)
+    with torch.no_grad():
+        feats = occ_net.get_feat(inputs.imgs), ori_net.get_feat(inputs.imgs)
+        pts = torch.as_tensor(queries[:MVS_BATCH], device=dev)
+        eval_points(occ_net, ori_net, *feats, inputs.w2c, inputs.ndc, pts, margin)
+        device_profile(lambda: eval_points(occ_net, ori_net, *feats, inputs.w2c, inputs.ndc,
+                                           pts, margin),
+                       f"one MVS batch of {MVS_BATCH} queries through both nets")
+        device_profile(lambda: occ_net.get_feat(inputs.imgs),
+                       f"one net's features of {MVS_VIEWS} views", top=8)
+
+
+def phase_stage3(dev: torch.device, voxel_strands, profile: bool = False) -> dict:
+    """Phase 7: stage 3 at full width (render, nets, MVS), then its CLI, then
+    the shipped nets on a scene of their training family."""
+    exact_f32()
+    torch.cuda.empty_cache()
+    missing = [p for p in MVS_WEIGHTS.values() if not os.path.exists(p)]
+    if missing:   # the stage would take random weights, with a warning
+        raise FileNotFoundError(f"the shipped nets are missing: {missing}")
+    margin = occ_margin(MVS_CFG)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mvs_") as tmp:
+        with Phase("7b render"):
+            render = phase_render(dev, voxel_strands, tmp)
+        t = time.perf_counter()
+        inputs, _ = load_mvs_inputs(tmp, os.path.join(tmp, "cam_params.json"), device=dev)
+        log(f"mvs inputs: {tuple(inputs.imgs.shape)} read in {time.perf_counter() - t:.3f} s")
+        queries = hair_shell_points(np.random.default_rng(0), MVS_QUERIES)
+        with Phase("7a nets"):
+            nets = phase_nets(dev, inputs, queries, margin)
+        with Phase("7c mvs"):
+            mvs = phase_mvs(dev, inputs, queries, nets["median_margin"], nets, tmp)
+        if profile:
+            with Phase("profile stage 3"):
+                profile_stage3(dev, inputs, queries, margin, voxel_strands)
+        del inputs
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stage3_") as tmp:
+        with Phase("7d stage"):
+            stage = phase_infer_inner(tmp, dev.type, RENDER_SIZE, EVAL_VSIZE)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_scene_") as tmp:
+        with Phase("7e training scene"):
+            scene = phase_training_scene(dev, margin, tmp)
+    nets.pop("host_occ"), nets.pop("host_ori")
+    return dict(render=render, nets=nets, mvs=mvs, scene=scene, stage=stage)
 
 
 KERNEL_META = {
@@ -690,13 +1094,17 @@ def main(argv=None) -> int:
     with Phase("5 full width"):
         width = phase_full_width(dev)
     with Phase("6 grow"):
-        phase_grow_full_width(dev)
-    launches = width["launches"]
+        grow = phase_grow_full_width(dev)
+    # phase 7 renders phase 6's strands, then checks and reads its own paths
+    stage3 = phase_stage3(dev, grow.pop("voxel_strands"), opts.profile)
+    by_path = {"pmvo": width["launches"], "infer_inner_fuse": stage3["stage"]["launches"]}
     kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:
         with Phase("profile"):
             profile_line_search(dev)
-    line = [dict(name=name, **KERNEL_META[name], launches=launches[name],
+    line = [dict(name=name, **KERNEL_META[name],
+                 launches=sum(counts[name] for counts in by_path.values()),
+                 launches_by_path={path: counts[name] for path, counts in by_path.items()},
                  library_ms=None, **kernels[name]) for name in KERNEL_META]
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -51,3 +51,30 @@ def save_occ_ori_mat(save_dir: str, occ: np.ndarray, ori: Optional[np.ndarray] =
         scipy.io.savemat(ori_path, {"Ori": ori_disk})
     return occ_path, ori_path
 
+
+
+def save_ori_mat_from_points(positive_points: np.ndarray, orientation: np.ndarray,
+                             voxel_min: np.ndarray, voxel_size: float,
+                             grid_resolution: np.ndarray, save_dir: str,
+                             model_tsfm: np.ndarray) -> None:
+    """Voxelize (N,3) world points + directions and save Occ/Ori mats.
+
+    Mirror of `save_ori_mat` (Utils/Utils.py:836-874): directions are flipped to
+    point "down" (y<=0), points are moved by model_tsfm then y/z-negated into the
+    voxel frame, nearest-voxel assignment. Where several points share a voxel
+    the last one wins, in numpy's fancy-index assignment order.
+    """
+    grid_resolution = np.asarray(grid_resolution).astype(np.int32)
+    occ = np.zeros(tuple(grid_resolution), dtype=np.float32)
+    ori = np.zeros((*grid_resolution, 3), dtype=np.float32)
+
+    orientation = orientation.copy()
+    orientation[orientation[:, 1] > 0] *= -1
+
+    pts = (model_tsfm[:3, :3] @ positive_points.T + model_tsfm[:3, 3:4]).T
+    pts[:, 1:] *= -1
+    idx = np.round((pts - voxel_min) / voxel_size).astype(np.int32)
+    idx = np.clip(idx, 0, grid_resolution - 1)
+    occ[idx[:, 0], idx[:, 1], idx[:, 2]] = 1
+    ori[idx[:, 0], idx[:, 1], idx[:, 2]] = orientation
+    save_occ_ori_mat(save_dir, occ, ori)

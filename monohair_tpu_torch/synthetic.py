@@ -1,4 +1,4 @@
-"""Synthetic scenes for driving stages 2 and 4 without capture data, in numpy.
+"""Synthetic scenes for driving stages 2 to 4 without capture data, in numpy.
 
 - The ``synthwig`` case: 24 ring cameras around 24 vertical strands (a wig of
   direction (0, -1, 0)), its 128x128 observation maps, a coarse tube mesh, a
@@ -11,6 +11,10 @@
 - The full-width field of bench.py's stage-4 benchmark: curved swirl strands
   voxelised into the 256x256x192 occ/ori grids (grow_field), with a scalp cap
   inside the hair shell (grow_scalp_cap).
+- The MVS nets' training scene (tools/make_mvs_cases.py): a wig of their
+  training family on a 0.095-radius head, 16 ring cameras at NDC focal 2.6
+  for 256x256 renders, its closed label grid and the occupancy queries the
+  shipped margin was tuned on (mvs_train_*).
 
 Everything is made from a seed; nothing is read from disk.
 """
@@ -106,7 +110,7 @@ def wig_grids(strands: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def synthwig_config(data_root: str, case: str = "synthwig") -> Config:
-    """The stage-2 and stage-4 keys of configs/reconstruct/base.yaml with the
+    """The stage-2, -3 and -4 keys of configs/reconstruct/base.yaml with the
     synthwig overrides of tests/make_synthetic_case.py, built without YAML."""
     root = os.path.join(data_root, case)
     return Config({
@@ -124,6 +128,12 @@ def synthwig_config(data_root: str, case: str = "synthwig") -> Config:
             "Ori3D_path": "ours/Ori3D.mat", "depth_path": "render_depth",
             "mask_path": "hair_mask", "raw_points_path": "ours/colmap_points.obj",
             "strands_path": "ours/world_str_raw.dat",
+        },
+        "infer_inner": {"render_data": True, "run_mvs": True, "render_size": [1280, 720]},
+        "mvs": {
+            "occ_model_path": "assets/DeepMVSHair/occ.pth",
+            "ori_model_path": "assets/DeepMVSHair/ori.pth", "eval_vsize": 0.005,
+            "eval_batch": 32768, "use_colmap_points": True, "occ_logit_margin": None,
         },
         "PMVO": {
             "num_sample_per_grid": 2, "patch_size": 3, "optimize": True,
@@ -341,6 +351,47 @@ def grow_field(rng: np.random.Generator, num_strands: int = 8000, length: int = 
     return occ, ori
 
 
+def grow_head_world(grid_shape=tuple(GRID_RESOLUTION)) -> Tuple[np.ndarray, float]:
+    """(centre, inner radius) of grow_field's hair shell in world coordinates."""
+    center = np.array([grid_shape[0] / 2, grid_shape[1] * 0.55, grid_shape[2] / 2])
+    world = (center * VOXEL_SIZE + VOXEL_MIN) * np.array([1.0, -1.0, -1.0])
+    return world, grid_shape[0] * 0.28 * VOXEL_SIZE
+
+
+def hair_shell_points(rng: np.random.Generator, n: int) -> np.ndarray:
+    """(n, 3) float32 world points spread through grow_field's hair shell
+    (0.9 to 1.35 of its inner radius): the MVS queries of that scene."""
+    center, r = grow_head_world()
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (center + d * r * rng.uniform(0.9, 1.35, (n, 1))).astype(np.float32)
+
+
+def grow_bust_mesh(rings: int = 96, sectors: int = 112) -> Tuple[np.ndarray, np.ndarray]:
+    """A head ellipsoid inside grow_field's hair shell (world coordinates), as
+    a UV mesh of 2 * rings * sectors faces less the poles' (21,280 with the
+    defaults; SMPL-X's bust has 20,908). Returns (vertices float32, faces)."""
+    center, r = grow_head_world()
+    th = np.linspace(0.0, math.pi, rings + 1)[1:-1]
+    ph = np.linspace(0.0, 2 * math.pi, sectors, endpoint=False)
+    t, p = np.meshgrid(th, ph, indexing="ij")
+    ring = np.stack([np.sin(t) * np.cos(p), np.cos(t), np.sin(t) * np.sin(p)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0.0, 1.0, 0.0]], ring, [[0.0, -1.0, 0.0]]])
+    verts = center + verts * r * np.array([0.85, 0.95, 0.9])
+    last = len(verts) - 1
+    faces = []
+    for j in range(sectors):
+        k = (j + 1) % sectors
+        faces.append([0, 1 + k, 1 + j])
+        faces.append([last, last - sectors + j, last - sectors + k])
+    for i in range(rings - 2):
+        a, b = 1 + i * sectors, 1 + (i + 1) * sectors
+        for j in range(sectors):
+            k = (j + 1) % sectors
+            faces.extend([[a + j, a + k, b + j], [a + k, b + k, b + j]])
+    return verts.astype(np.float32), np.array(faces, np.int64)
+
+
 def grow_scalp_cap(grid_shape=tuple(GRID_RESOLUTION), radius: float = 0.92,
                    max_polar_deg: float = 70.0, rings: int = 24, sectors: int = 48
                    ) -> Tuple[np.ndarray, np.ndarray]:
@@ -372,3 +423,120 @@ def grow_scalp_cap(grid_shape=tuple(GRID_RESOLUTION), radius: float = 0.92,
     # voxel -> world (the y/z flip is a rotation, so the winding stays outward)
     world = (verts * VOXEL_SIZE + VOXEL_MIN) * np.array([1.0, -1.0, -1.0])
     return world - BUST_TO_ORIGIN, faces
+
+
+# ---------------------------------------------------------------------------
+# the MVS nets' training scene (tools/make_mvs_cases.py, tools/tune_occ_threshold.py)
+# ---------------------------------------------------------------------------
+
+MVS_TRAIN_HEAD_RADIUS = 0.095
+MVS_TRAIN_HEAD_CENTER = np.array([0.0, -0.02, 0.0])
+MVS_TRAIN_RENDER_SIZE = (256, 256)
+
+
+def mvs_train_camera_list(num_views: int = 16) -> List[dict]:
+    """The ring the shipped occ/ori nets were trained on: radius 1.1, eye
+    height 0.12, NDC focal 2.6, square 256x256 renders."""
+    return ring_camera_list(num_views, radius=1.1, fx=2.6, fy=2.6, height=0.12)
+
+
+def mvs_train_wig(rng: np.random.Generator, num_strands: int = 2000,
+                  num_pts: int = 90) -> List[np.ndarray]:
+    """One wig of the nets' training family (make_mvs_cases.make_varied_wig,
+    unshifted): strands grown from the upper head sphere with a random curl,
+    length, comb tilt and wave. World coordinates, float32."""
+    head_r, head_c = MVS_TRAIN_HEAD_RADIUS, MVS_TRAIN_HEAD_CENTER
+    curl = rng.uniform(0.0, 2.2)
+    length = rng.uniform(0.10, 0.22)
+    tilt = rng.uniform(-0.35, 0.35)
+    wave = rng.uniform(0.0, 0.05)
+    step = length / num_pts
+    u = rng.normal(size=(num_strands, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    u[:, 1] = np.abs(u[:, 1]) * 1.6 + 0.4
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    p = head_c + u * head_r
+    phase = rng.uniform(0, 2 * np.pi, num_strands)
+    out = np.empty((num_strands, num_pts, 3), np.float32)
+    tl = np.array([math.sin(tilt), 0.0, 0.0])
+    for i in range(num_pts):
+        out[:, i] = p
+        r = p - head_c
+        rn = r / np.maximum(np.linalg.norm(r, axis=-1, keepdims=True), 1e-9)
+        down = np.array([0.0, -1.0, 0.0]) + tl
+        # 'down' in the local tangent plane near the scalp, free fall further out
+        t = down - rn * (rn @ down)[..., None] * np.clip(1.5 - i / 30.0, 0, 1)
+        swirl = np.stack([-rn[:, 2], np.zeros(num_strands), rn[:, 0]], -1)
+        t = t + curl * 0.4 * swirl * np.sin(phase + i * 0.15)[:, None]
+        t += wave * np.sin(i * 0.45 + phase)[:, None] * np.stack(
+            [np.cos(phase), np.zeros(num_strands), np.sin(phase)], -1)
+        t /= np.maximum(np.linalg.norm(t, axis=-1, keepdims=True), 1e-9)
+        p = p + t * step
+    return [out[k] for k in range(num_strands)]
+
+
+def mvs_train_head_mesh(subdiv: int = 20) -> Tuple[np.ndarray, np.ndarray]:
+    """The training scenes' head sphere as a UV mesh (make_mvs_cases.head_mesh):
+    (vertices float32, faces int64)."""
+    th = np.linspace(0, np.pi, subdiv + 1)[1:-1]
+    ph = np.linspace(0, 2 * np.pi, 2 * subdiv, endpoint=False)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    ring = np.stack([np.sin(T) * np.cos(P), np.cos(T), np.sin(T) * np.sin(P)],
+                    -1).reshape(-1, 3)
+    verts = (np.concatenate([[[0, 1, 0]], ring, [[0, -1, 0]]], 0) * MVS_TRAIN_HEAD_RADIUS
+             + MVS_TRAIN_HEAD_CENTER)
+    nph = len(ph)
+    faces = []
+    for j in range(nph):
+        faces.append([0, 1 + (j + 1) % nph, 1 + j])
+        base = 1 + (len(th) - 1) * nph
+        faces.append([len(verts) - 1, base + j, base + (j + 1) % nph])
+    for i in range(len(th) - 1):
+        for j in range(nph):
+            a = 1 + i * nph + j
+            b = 1 + i * nph + (j + 1) % nph
+            faces += [[a, b, a + nph], [b, b + nph, a + nph]]
+    return verts.astype(np.float32), np.asarray(faces, np.int64)
+
+
+def mvs_train_occupancy(strands: List[np.ndarray]) -> np.ndarray:
+    """The training label grid of a wig: the voxels of its segment starts,
+    closed with a 5-voxel kernel (dilate, then keep fully covered voxels) and
+    joined with the raw voxels, as make_mvs_cases.py builds Occ3D.mat.
+    (X, Y, Z) float32 in {0, 1}."""
+    import torch
+    from scipy.ndimage import maximum_filter, minimum_filter
+
+    from .coords import voxel_indices
+    pts = torch.from_numpy(np.concatenate([s[:-1] for s in strands]))
+    idx = voxel_indices(pts).numpy()
+    occ = np.zeros(tuple(int(r) for r in GRID_RESOLUTION), np.float32)
+    occ[idx[:, 0], idx[:, 1], idx[:, 2]] = 1.0
+    # zero padding outside the grid, as the max/avg pools' padding counts it
+    closed = minimum_filter(maximum_filter(occ, 5, mode="constant", cval=0.0),
+                            5, mode="constant", cval=0.0)
+    return np.maximum(closed, occ)
+
+
+def mvs_train_queries(occ: np.ndarray, rng: np.random.Generator, kernel: int = 5
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """The occupancy queries the nets' margin was tuned on
+    (mvs/sampling.py::sample_occ_training_points): 6 jittered points in each
+    occupied voxel, 4 in each voxel of the kernel-wide shell around them, one
+    in every 10th voxel beyond. Returns (world points (N, 3) float32, labels
+    (N,) int32)."""
+    import torch
+    from scipy.ndimage import maximum_filter
+
+    from .coords import voxel_to_world
+    enlarged = maximum_filter(occ, kernel, mode="constant", cval=0.0)
+    parts = [(np.argwhere(occ > 0), 6), (np.argwhere((enlarged > 0) & (occ == 0)), 4),
+             (np.argwhere(enlarged == 0)[::10], 1)]
+    pts = []
+    for idx, per in parts:
+        base = np.repeat(idx.astype(np.float32), per, 0)
+        pts.append(base + rng.random(base.shape).astype(np.float32))
+    labels = np.concatenate([np.ones(len(parts[0][0]) * 6),
+                             np.zeros(len(pts[1]) + len(pts[2]))]).astype(np.int32)
+    world = voxel_to_world(torch.from_numpy(np.concatenate(pts))).numpy()
+    return world, labels

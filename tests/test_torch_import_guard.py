@@ -4,7 +4,8 @@ In a fresh interpreter whose import system refuses jax, jaxlib, cv2, yaml, PIL,
 monohair_tpu and tests, every module of monohair_tpu_torch and chip_smoke.py
 import, chip_smoke's stage phase runs on the CPU at a small size, and
 `python -m monohair_tpu_torch.HairGrow --yaml=<case> --device=cpu` writes the
-stage's files on a small written case."""
+stage's files on a small written case, as do PMVO and then
+`python -m monohair_tpu_torch.infer_inner` on another."""
 
 import os
 import subprocess
@@ -60,6 +61,29 @@ GUARDED = textwrap.dedent('''
             assert len(segments) > 100 and np.isfinite(points).all(), name
         assert int(np.load(os.path.join(refine, "num_root.npy"))) > 0
 
+    # PMVO then the infer_inner CLI, as `python -m` runs them, on a 4-view case
+    # (random full-width nets: the case names no weights that exist)
+    from monohair_tpu_torch.io.voxels_io import load_voxels_dat
+    from monohair_tpu_torch.io.mat_io import load_occ_mat
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_synthwig_case(tmp, num_views=4)
+        cfg.infer_inner["render_size"] = [48, 40]
+        cfg.mvs.update(eval_vsize=0.08, eval_batch=512)
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        for cli in ("PMVO", "infer_inner"):
+            sys.argv = [cli, "--yaml=" + os.path.join(tmp, "case"), "--device=cpu"]
+            runpy.run_module("monohair_tpu_torch." + cli, run_name="__main__")
+        case = os.path.join(tmp, "synthwig")
+        for view in ("000", "003"):
+            for name in ("bust_depth", "undirectional_map", "mask", "hair_depth"):
+                assert os.path.exists(os.path.join(case, "imgs", view, name + ".png"))
+        raw = np.load(os.path.join(case, "ours", "raw.npy"))
+        assert raw.shape[1] == 7 and len(raw) > 100 and np.isfinite(raw).all()
+        assert len(load_voxels_dat(os.path.join(case, "ours", "voxels.dat"))[0]) == raw[:, 6].sum()
+        assert load_occ_mat(os.path.join(case, "ours/Voxel_hair/Occ3D.mat")).sum() <= raw[:, 6].sum()
+        assert load_occ_mat(os.path.join(case, "output/verify/full/Occ3D.mat")).sum() > 100
+
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("GUARD_OK", len(names))
@@ -77,10 +101,11 @@ def test_port_and_chip_smoke_need_no_jax_cv2_yaml_pil():
 
 
 def test_stage_clis_run_on_the_card_unless_told_otherwise(monkeypatch):
-    """Both stage CLIs pass device "cuda" unless --device is given; only the
+    """The stage CLIs pass device "cuda" unless --device is given; only the
     arguments are parsed, so no card is needed."""
-    from monohair_tpu_torch import PMVO, HairGrow
-    for cli, stage in ((HairGrow, "run_hair_grow"), (PMVO, "run_pmvo")):
+    from monohair_tpu_torch import PMVO, HairGrow, infer_inner
+    for cli, stage in ((HairGrow, "run_hair_grow"), (PMVO, "run_pmvo"),
+                       (infer_inner, "run_infer_inner")):
         seen = []
         monkeypatch.setattr(cli, "resolve_config", lambda argv: argv)
         monkeypatch.setattr(cli, stage, lambda cfg, device: seen.append((cfg, device)))
