@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's stages 2 (PMVO), 3 (infer_inner) and 4
-(HairGrow) on one GPU and check them.
+"""Run the PyTorch/CUDA port's stages 1 (prepare_data's image half), 2 (PMVO),
+3 (infer_inner) and 4 (HairGrow) on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -35,6 +35,17 @@ Phases, each printing a line when it starts and when it ends:
               kernel launches counted), strands grown from full/; last the
               shipped nets at their shipped margin on a scene of their
               training family (256x256 renders), held against its labels
+  8. stage 1  prepare_data's image half through its CLI on a capture case
+              (32 frames at 1280x720, frame_interval 2, the shipped
+              hair-parser weights): the frames kept against a float64
+              sharpness, cam_params.json against the analytic ring, the depth
+              maps against the head silhouette (IoU >= 0.95), hair_mask/
+              against the hair labels (mean IoU >= 0.7), the nets and the
+              Gabor bank on the card against the CPU on 2 frames, PMVO's
+              loaders on the written maps; seconds per step, per-frame times,
+              the host's PNG share and the peak memory
+Phase 3 also holds the tap loop at the shapes PR 7's kernel refused (S = 1 at
+P = 225, the refine pass at patch 15; 1100 views).
 
 Before the last line it prints one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}, printed only when every phase passed.
@@ -58,12 +69,16 @@ import torch
 
 from monohair_tpu_torch import HairGrow as grow_cli, PMVO as pmvo_cli
 from monohair_tpu_torch import infer_inner as infer_cli
+from monohair_tpu_torch import prepare_data as prepare_cli
 from monohair_tpu_torch.camera import Cameras
 from monohair_tpu_torch.config import Config
 from monohair_tpu_torch.constants import BUST_TO_ORIGIN, VOXEL_MAX, VOXEL_MIN, VOXEL_SIZE
 from monohair_tpu_torch.coords import voxel_to_world
-from monohair_tpu_torch.io.cameras_io import save_cam_params
+from monohair_tpu_torch.io.cameras_io import load_cam_params, save_cam_params, subsample_views
 from monohair_tpu_torch.io.hair_io import load_hair, strands_from_flat
+from monohair_tpu_torch.io.image_io import (imread_gray, load_depth_maps, load_masks,
+                                            load_orientation_and_confidence, read_png,
+                                            write_png)
 from monohair_tpu_torch.io.mat_io import load_occ_mat, load_ori_mat
 from monohair_tpu_torch.io.voxels_io import load_voxels_dat
 from monohair_tpu_torch.io.yaml_io import dump_yaml
@@ -72,6 +87,7 @@ from monohair_tpu_torch.mvs.eval import (colmap_guided_queries, deep_mvs_eval, e
                                         load_mvs_inputs, save_mvs_outputs)
 from monohair_tpu_torch.ops import _build
 from monohair_tpu_torch.ops import patch_kernels as pk
+from monohair_tpu_torch.ops.gabor import orientation_maps as gabor_maps
 from monohair_tpu_torch.pipeline.common import case_paths
 from monohair_tpu_torch.pipeline.hair_grow_stage import (run_hair_grow, scalp_seeds,
                                                          voxel_strands_to_world)
@@ -79,6 +95,7 @@ from monohair_tpu_torch.pipeline.infer_inner_stage import load_net, occ_margin
 from monohair_tpu_torch.pipeline.pmvo_stage import run_pmvo
 from monohair_tpu_torch.render import (render_data, render_view, strands_to_segments,
                                        upload_segments)
+from monohair_tpu_torch.segment.runners import MattingRunner, ParsingRunner
 from monohair_tpu_torch.pmvo import solver
 from monohair_tpu_torch.pmvo.driver import (auto_chunk, exact_f32, filter_raw_points,
                                             optimize_points, refine_and_voxelize)
@@ -93,7 +110,8 @@ from monohair_tpu_torch.synthetic import (analytic_head_maps, cameras_numpy,
                                           mvs_train_head_mesh, mvs_train_occupancy,
                                           mvs_train_queries, mvs_train_wig,
                                           MVS_TRAIN_RENDER_SIZE, shell_points,
-                                          swirl_direction, write_synthwig_case)
+                                          swirl_direction, write_capture_case,
+                                          write_synthwig_case)
 
 # Phase 5 point count: a quarter of big_wavy1's 2.1 M raw points.
 FULL_WIDTH_POINTS = 524_288
@@ -141,19 +159,25 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # phase 1
 # ---------------------------------------------------------------------------
 
-def phase_device() -> dict:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    name = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    line = smi_line()
     log(f"device: {name}, count {count}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(line, flush=True)
     return {"platform": "gpu", "kind": name, "count": count}
 
 
@@ -212,6 +236,8 @@ def nudge_ulps(x: torch.Tensor, g: torch.Generator) -> torch.Tensor:
 
 # the tap loop as pmvo_forward calls it and as the refine pass does
 MIN_LOSS_SHAPES = [(16, 8192, 90, 49), (16, 65536, 1, 49)]
+# shapes PR 7's kernel refused: the refine pass at patch 15, and 1100 views
+LIFTED_LIMIT_SHAPES = [(16, 65536, 1, 225), (1100, 64, 90, 49), (1100, 256, 1, 49)]
 
 
 def min_loss_inputs(g: torch.Generator, V: int, N: int, S: int, P: int,
@@ -303,7 +329,20 @@ def phase_kernels(dev: torch.device) -> dict:
             results["patch_min_loss"] = dict(ms=ms, plain_ms=plain_ms,
                                              bound_ms=bound_ms, bound_by=bound_by)
             del args
+    # the limits lifted in PR 8: the refine pass at patch 15 (S = 1, P = 225,
+    # 57,664 bytes of windows a warp: more than the default 48 KB of shared
+    # memory) and more than 1023 views (the counts' 10-bit packing)
+    for (V, N, S, P) in LIFTED_LIMIT_SHAPES:
+        args = min_loss_inputs(g, V, N, S, P)
+        err = check_min_loss(args, f"V={V} S={S} P={P}")
+        lim_ms = cuda_time_ms(lambda: pk.patch_min_loss(*args), iters=10)
+        log(f"patch_min_loss V={V} N={N} S={S} P={P} (beyond PR 7's limits): within "
+            f"rtol 1e-5/atol 1e-6, counts exact, max abs err {err:.3g}; kernel {lim_ms:.4f} ms")
+        del args
     results["patch_min_loss"]["max_abs_err"] = worst
+    log(f"shipped shapes against PR 7's run on this card model: tap loop "
+        f"{results['patch_min_loss']['ms']:.4f} ms (PR 7: 0.5853 ms), gather "
+        f"{results['patch_gather']['ms']:.4f} ms (PR 7: 0.1514 ms)")
     log(f"launch counts during the comparisons: {dict(pk.LAUNCHES)}")
     return results
 
@@ -1067,6 +1106,243 @@ def phase_stage3(dev: torch.device, voxel_strands, profile: bool = False) -> dic
     return dict(render=render, nets=nets, mvs=mvs, scene=scene, stage=stage)
 
 
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+CAPTURE_FRAMES = 32                # tools/make_capture_case.py's orbit
+CAPTURE_SIZE = (720, 1280)         # (H, W)
+CAPTURE_INTERVAL = 2
+HAIR_PARSER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "trained",
+                           "hair_parser")
+SEGMENT_WEIGHTS = {k: os.path.join(HAIR_PARSER, k + ".npz") for k in ("modnet", "bisenet")}
+CHECK_FRAMES = 2                   # frames held card against CPU
+
+
+def sharpness_f64(path: str) -> float:
+    """cv2.Laplacian(cvtColor(imread(path), BGR2GRAY), CV_64F).var() in numpy
+    float64, written here apart from the port's ops/resize.py."""
+    rgb = read_png(path).astype(np.int64)
+    gray = ((rgb[..., 2] * 3735 + rgb[..., 1] * 19235 + rgb[..., 0] * 9798 + (1 << 14))
+            >> 15).astype(np.float64)
+    p = np.pad(gray, 1, mode="reflect")
+    lap = p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:] - 4.0 * p[1:-1, 1:-1]
+    return float(lap.var())
+
+
+def iou(a: np.ndarray, b: np.ndarray) -> float:
+    return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def paeth_png(path: str, rgb: np.ndarray) -> None:
+    """Write `rgb` as a PNG whose every row uses filter 4 (Paeth), as many
+    writers other than the port's choose it."""
+    import struct
+    import zlib
+    H, W, _ = rgb.shape
+    x = rgb.reshape(H, W * 3).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 3:] = x[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((H, 1), 4, np.uint8), ((x - pred) & 0xFF).astype(np.uint8)], 1)
+
+    def chunk(t, body):
+        return (struct.pack(">I", len(body)) + t + body
+                + struct.pack(">I", zlib.crc32(t + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def check_capture_outputs(case: str, mvs_poses: dict) -> dict:
+    """8b on the files the CLI wrote: frames, cameras, depth coverage, hair
+    masks, and PMVO's loaders reading them back."""
+    frames = sorted(os.listdir(os.path.join(case, "colmap", "images")),
+                    key=lambda x: int(x.split(".")[0].split("_")[-1]))
+    sharp = [sharpness_f64(os.path.join(case, "colmap", "images", f)) for f in frames]
+    want = sorted(frames[i + int(np.argmax(sharp[i:i + CAPTURE_INTERVAL]))]
+                  for i in range(0, len(frames), CAPTURE_INTERVAL))
+    kept = sorted(os.listdir(os.path.join(case, "capture_images")))
+    if kept != want:
+        raise AssertionError(f"select_images kept {kept}, float64 sharpness says {want}")
+    with open(os.path.join(case, "ours", "cam_params.json")) as f:
+        cams = json.load(f)["cam_list"]
+    pose_err = max(float(np.abs(np.array(c["pose"]) - mvs_poses[c["file"]]).max()) for c in cams)
+    if sorted(c["file"] for c in cams) != [k[:-4] for k in kept] or pose_err > 1e-6:
+        raise AssertionError(f"cam_params.json: views {[c['file'] for c in cams]}, "
+                             f"pose error {pose_err}")
+    names = [k[:-4] for k in kept]
+    depth_iou, hair_iou = [], []
+    for n in names:
+        hit = read_png(os.path.join(case, "labels", "hit", n + ".png")) > 127
+        label = read_png(os.path.join(case, "labels", "hair", n + ".png")) > 127
+        depth = np.load(os.path.join(case, "render_depth", n + ".npy"))
+        depth_iou.append(iou(depth[..., 0] < 255.0, hit))
+        hair_iou.append(iou(read_png(os.path.join(case, "hair_mask", n + ".png")) > 127, label))
+    # PMVO's loaders on the written maps, in cam_params.json's view order
+    _, cameras = load_cam_params(os.path.join(case, "ours", "cam_params.json"), "cpu")
+    views, _ = subsample_views([c["file"] for c in cams], cameras,
+                               os.path.join(case, "capture_images"))
+    ori, conf = load_orientation_and_confidence(views, os.path.join(case, "best_ori"),
+                                                os.path.join(case, "conf"))
+    depth = load_depth_maps(views, os.path.join(case, "render_depth"))
+    mask = load_masks(views, os.path.join(case, "hair_mask"))
+    H, W = CAPTURE_SIZE
+    V = len(views)
+    shapes = dict(ori=ori.shape, conf=conf.shape, depth=depth.shape, mask=mask.shape)
+    log(f"stage 1 outputs: kept {len(kept)} frames (float64 sharpness agrees), pose error "
+        f"{pose_err:.3g}; depth IoU with the head silhouette min {min(depth_iou):.6f} mean "
+        f"{np.mean(depth_iou):.6f}; hair IoU with the labels min {min(hair_iou):.6f} mean "
+        f"{np.mean(hair_iou):.6f}; PMVO's loaders read {shapes}")
+    if shapes != dict(ori=(V, H, W, 2), conf=(V, H, W), depth=(V, H, W), mask=(V, H, W)) \
+            or V != len(kept):
+        raise AssertionError(f"PMVO's loaders read {shapes} for {V} views")
+    if not all(np.isfinite(x).all() for x in (ori, conf, depth, mask)):
+        raise AssertionError("PMVO's loaders read non-finite maps")
+    if min(depth_iou) < 0.95:
+        raise AssertionError(f"render_depth covers the head silhouette at IoU {min(depth_iou)}")
+    if np.mean(hair_iou) < 0.7:
+        raise AssertionError(f"hair_mask/ against the labels: mean IoU {np.mean(hair_iou)}")
+    return dict(pose_err=pose_err, depth_iou_min=min(depth_iou),
+                hair_iou_mean=float(np.mean(hair_iou)), views=V)
+
+
+def card_against_cpu(case: str, dev: torch.device) -> dict:
+    """8b: the port's card path against its own CPU path on CHECK_FRAMES
+    capture frames: class maps, Gabor bins and conf, and 8c's per-frame
+    times of the nets and the Gabor bank."""
+    files = sorted(os.listdir(os.path.join(case, "capture_images")))[:CHECK_FRAMES]
+    rgb = np.stack([read_png(os.path.join(case, "capture_images", f)) for f in files])
+    out = {}
+    for device in ("cpu", dev):
+        matting = MattingRunner(SEGMENT_WEIGHTS["modnet"], device=device)
+        parser = ParsingRunner(SEGMENT_WEIGHTS["bisenet"], device=device)
+        x = torch.as_tensor(rgb, device=device)
+        grays = [torch.as_tensor(imread_gray(os.path.join(case, "capture_images", f)),
+                                 device=device).float() / 255.0 for f in files]
+        res = dict(matte=matting.matte(x).cpu(), classes=parser.parse(x).cpu(),
+                   gabor=[tuple(t.cpu() for t in gabor_maps(g)[1:]) for g in grays])
+        if device != "cpu":
+            one = x[:1]
+            res["modnet_ms"] = cuda_time_ms(lambda: matting.matte(one), iters=5, warmup=1)
+            res["bisenet_ms"] = cuda_time_ms(lambda: parser.parse(one), iters=5, warmup=1)
+            res["gabor_ms"] = cuda_time_ms(lambda: gabor_maps(grays[0]), iters=5, warmup=1)
+            g1080 = torch.rand((1080, 1920), generator=torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+            res["gabor_1080p_ms"] = cuda_time_ms(lambda: gabor_maps(g1080), iters=5, warmup=1)
+        out[str(device)] = res
+    cpu, card = out["cpu"], out[str(dev)]
+    same_cls = float((cpu["classes"] == card["classes"]).float().mean())
+    matte_err = float((cpu["matte"] - card["matte"]).abs().max())
+    bins_eq, bins_all, bin_max, conf_err, conf_err_all = [], [], 0, 0.0, 0.0
+    for (a_cpu, c_cpu), (a_card, c_card) in zip(cpu["gabor"], card["gabor"]):
+        k_cpu = torch.round(a_cpu * 180 / math.pi).long()
+        k_card = torch.round(a_card * 180 / math.pi).long()
+        d = (k_cpu - k_card).abs()
+        d = torch.minimum(d, 180 - d)
+        seen = (c_cpu * 255).to(torch.uint8) > 0      # pixels with a written confidence
+        bins_eq.append(float((d[seen] == 0).float().mean()))
+        bins_all.append(float((d == 0).float().mean()))
+        bin_max = max(bin_max, int(d[seen].max()))
+        # a flipped argmax moves its pixel's variance too: conf is held where
+        # the bins agree
+        conf_err = max(conf_err, float((c_cpu - c_card).abs()[d == 0].max()))
+        conf_err_all = max(conf_err_all, float((c_cpu - c_card).abs().max()))
+    log(f"card vs CPU on {len(files)} frames: class maps equal on {same_cls:.6f} of pixels, "
+        f"matte max abs err {matte_err:.3g}; Gabor bins equal on {min(bins_eq):.6f} of the "
+        f"pixels with nonzero conf (on {min(bins_all):.6f} of all pixels), at most "
+        f"{bin_max} bin apart there, conf max abs err {conf_err:.3g} where the bins agree "
+        f"({conf_err_all:.3g} over all pixels)")
+    if same_cls < 0.995 or min(bins_eq) < 0.99 or bin_max > 1 or conf_err > 1e-4:
+        raise AssertionError("stage 1 on the card disagrees with its CPU path")
+    return dict(same_classes=same_cls, bins_equal=min(bins_eq), bins_equal_all=min(bins_all),
+                conf_err=conf_err, **{k: card[k] for k in
+                                      ("modnet_ms", "bisenet_ms", "gabor_ms", "gabor_1080p_ms")})
+
+
+def host_png_seconds(case: str) -> dict:
+    """8c: the host's PNG work of process_imgs, timed here again on this case's
+    files: decoding each capture image twice (once a step) and encoding the six
+    maps a frame; and decoding a Paeth-filtered 1920x1080 frame."""
+    files = sorted(os.listdir(os.path.join(case, "capture_images")))
+    t = time.perf_counter()
+    for f in files:
+        read_png(os.path.join(case, "capture_images", f))
+        imread_gray(os.path.join(case, "capture_images", f))
+    decode = time.perf_counter() - t
+    maps = [read_png(os.path.join(case, sub, f)) for f in files
+            for sub in ("hair_mask", "mask", "mask_hair", "best_ori", "conf", "Ori")]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_png_") as tmp:
+        t = time.perf_counter()
+        for i, img in enumerate(maps):
+            write_png(os.path.join(tmp, f"{i}.png"), img)
+        encode = time.perf_counter() - t
+        frame = read_png(os.path.join(case, "capture_images", files[0]))
+        big = np.ascontiguousarray(np.resize(frame, (1080, 1920, 3)))
+        paeth_png(os.path.join(tmp, "paeth.png"), big)
+        t = time.perf_counter()
+        back = read_png(os.path.join(tmp, "paeth.png"))
+        paeth = time.perf_counter() - t
+    if not np.array_equal(back, big):
+        raise AssertionError("the PNG reader misread a Paeth-filtered frame")
+    return dict(decode_s=decode, encode_s=encode, paeth_1080p_s=paeth)
+
+
+def phase_prepare_data(dev: torch.device) -> dict:
+    """Phase 8: stage 1's image half on the card, through its CLI, on a capture
+    case of 32 frames at 1280x720 with the shipped hair-parser weights; then
+    8b's checks and 8c's numbers."""
+    exact_f32()
+    torch.cuda.empty_cache()
+    missing = [p for p in SEGMENT_WEIGHTS.values() if not os.path.exists(p)]
+    if missing:   # the stage would take the classical fallback
+        raise FileNotFoundError(f"the shipped hair-parser weights are missing: {missing}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as tmp:
+        t = time.perf_counter()
+        written = write_capture_case(tmp, "capture", CAPTURE_FRAMES, *CAPTURE_SIZE,
+                                     frame_interval=CAPTURE_INTERVAL,
+                                     modnet=SEGMENT_WEIGHTS["modnet"],
+                                     parser=SEGMENT_WEIGHTS["bisenet"])
+        log(f"capture case: {CAPTURE_FRAMES} frames at {CAPTURE_SIZE[1]}x{CAPTURE_SIZE[0]}, "
+            f"frame_interval {CAPTURE_INTERVAL}, written in {time.perf_counter() - t:.2f} s")
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(written["config"].to_dict()))
+        torch.cuda.reset_peak_memory_stats(dev)
+        pk.reset_launch_counts()
+        t = time.perf_counter()
+        steps = prepare_cli.main(["--yaml=" + os.path.join(tmp, "case"),
+                                  "--prepare_data.run_ngp=", "--prepare_data.fit_bust="])
+        wall = time.perf_counter() - t
+        launches = dict(pk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        case = os.path.join(tmp, "capture")
+        outputs = check_capture_outputs(case, written["mvs_poses"])
+        versus = card_against_cpu(case, dev)
+        png = host_png_seconds(case)
+    imgs_s = steps["calculate_masks"] + steps["process_images"]
+    host_share = (png["decode_s"] + png["encode_s"]) / imgs_s
+    frames = outputs["views"]
+    log(f"stage 1 on cuda: {wall:.3f} s through the CLI; seconds per step "
+        f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; peak device memory "
+        f"{peak / 2**30:.3f} GiB; kernel launches {launches} (stage 1 has no CUDA kernel)")
+    log(f"stage 1 per frame: Gabor {versus['gabor_ms']:.3f} ms at 1280x720, "
+        f"{versus['gabor_1080p_ms']:.3f} ms at 1920x1080; MODNet {versus['modnet_ms']:.3f} ms, "
+        f"BiSeNet (3 scales x flip) {versus['bisenet_ms']:.3f} ms; masks "
+        f"{frames / steps['calculate_masks']:.3f} frames/s through calculate_masks")
+    log(f"process_imgs host PNG work: decode {png['decode_s']:.3f} s, encode "
+        f"{png['encode_s']:.3f} s of {imgs_s:.3f} s (host share {host_share:.3f}); a "
+        f"Paeth-filtered 1920x1080 frame decodes in {png['paeth_1080p_s']:.3f} s")
+    print(smi_line(), flush=True)
+    return dict(steps=steps, launches=launches, peak_bytes=peak, host_share=host_share,
+                png=png, **outputs, **versus)
+
+
 KERNEL_META = {
     "patch_gather": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
                          replaces="monohair_tpu/ops/pallas_kernels.py:188"),
@@ -1097,7 +1373,10 @@ def main(argv=None) -> int:
         grow = phase_grow_full_width(dev)
     # phase 7 renders phase 6's strands, then checks and reads its own paths
     stage3 = phase_stage3(dev, grow.pop("voxel_strands"), opts.profile)
-    by_path = {"pmvo": width["launches"], "infer_inner_fuse": stage3["stage"]["launches"]}
+    with Phase("8 prepare_data"):
+        stage1 = phase_prepare_data(dev)
+    by_path = {"pmvo": width["launches"], "infer_inner_fuse": stage3["stage"]["launches"],
+               "prepare_data": stage1["launches"]}
     kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:
         with Phase("profile"):

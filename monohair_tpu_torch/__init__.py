@@ -8,7 +8,10 @@ library only. Entry points run on ``cuda`` unless the caller passes
 (``ops/patch_kernels.py``, ``csrc/patch_kernels.cu``) with plain PyTorch
 versions that CPU tensors take.
 
-Ported so far: stage 2 (PMVO), ``python -m monohair_tpu_torch.PMVO``.
+Ported so far, each with its ``python -m monohair_tpu_torch.<stage>`` entry
+point: stage 1's image half (``prepare_data`` without the NeRF and the bust
+fit), stage 2 (``PMVO``), stage 3 (``infer_inner``) and stage 4
+(``HairGrow``).
 """
 
 __version__ = "0.1.0"

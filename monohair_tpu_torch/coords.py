@@ -1,5 +1,5 @@
-"""World <-> voxel coordinate transforms (port of the voxel half of
-monohair_tpu/coords.py; the NeRF/NGP converters belong to stage 1).
+"""World <-> voxel coordinate transforms and the NeRF <-> NGP camera-matrix
+conversions (port of monohair_tpu/coords.py).
 
 The world->voxel map *negates y and z*, then rescales into grid indices
 (reference: PMVO_utils.py:386-421 `p2v`/`points_to_voxel`/`voxel_to_points`,
@@ -9,6 +9,7 @@ in float32 as the JAX package computes them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .constants import GRID_RESOLUTION, VOXEL_MIN, VOXEL_SIZE
@@ -59,3 +60,33 @@ def flat_voxel_id(idx: torch.Tensor, grid_resolution=GRID_RESOLUTION) -> torch.T
     """(..., 3) integer indices -> flat ids x*(Ry*Rz) + y*Rz + z."""
     ry, rz = int(grid_resolution[1]), int(grid_resolution[2])
     return (idx[..., 0] * ry + idx[..., 1]) * rz + idx[..., 2]
+
+
+# ---------------------------------------------------------------------------
+# NeRF <-> NGP camera-matrix conversions (numpy float64; host-side plumbing)
+# ---------------------------------------------------------------------------
+
+_NGP_OFFSET = np.array([0.5, 0.5, 0.5])
+_NGP_SCALE = 0.33
+
+
+def nerf_to_ngp(xf: np.ndarray) -> np.ndarray:
+    """4x4 (or 3x4) NeRF c2w matrix -> 3x4 NGP matrix (ingp_utils.py:9-22)."""
+    mat = np.array(xf, dtype=np.float64)[:3, :].copy()
+    mat[:, 1] *= -1
+    mat[:, 2] *= -1
+    mat[:, 3] = mat[:, 3] * _NGP_SCALE + _NGP_OFFSET
+    return mat[[1, 2, 0], :]
+
+
+def ngp_to_nerf(rot: np.ndarray, trans: np.ndarray) -> np.ndarray:
+    """3x3 rotation + 3 translation in NGP frame -> 4x4 NeRF c2w (ingp_utils.py:35-44)."""
+    mat = np.eye(4)
+    mat[:3, :3] = rot
+    mat[:3, 3] = trans
+    mat = mat[[2, 0, 1, 3], :]
+    mat[:3, 3] -= _NGP_OFFSET
+    mat[:3, 3] /= _NGP_SCALE
+    mat[:, 2] *= -1
+    mat[:, 1] *= -1
+    return mat

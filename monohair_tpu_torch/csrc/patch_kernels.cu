@@ -106,7 +106,7 @@ constexpr int kMaxWarpsPerBlock = 4;
 // ptxas keeps every value in registers (no spills) and the line search's tap
 // loop measured fastest among the caps tried (PERF.md).
 constexpr int kMinBlocksPerSM = 6;
-constexpr int kSmemLimit = 48 * 1024;   // default dynamic shared memory of a block
+constexpr int kSmemDefault = 48 * 1024;   // dynamic shared memory a block gets unasked
 constexpr int kStageBatch = 4;          // window loads in flight per lane
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kMargin = 9.5367431640625e-07f;   // 2^-20
@@ -184,7 +184,9 @@ __device__ __forceinline__ void tap_loop(const float4* __restrict__ win, int P,
 // A warp owns G consecutive points (L = 32 / G lanes each) and one chunk of
 // L * R samples of them; lane (g, j) owns samples chunk * L * R + j + L * r.
 // Lanes past the last point or sample repeat the last one and store nothing.
-template <int R>
+// Counts: for V <= 1023 (kWide false) the R counts of a thread are packed
+// 10 bits each into one register; beyond that (kWide true) each has its own.
+template <int R, bool kWide>
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32, kMinBlocksPerSM)
 patch_min_loss_kernel(const float2* __restrict__ prj, const float2* __restrict__ ori,
                       const float* __restrict__ conf, const float* __restrict__ vis,
@@ -209,8 +211,11 @@ patch_min_loss_kernel(const float2* __restrict__ prj, const float2* __restrict__
   if (lane < G) flag[lane] = 0;
   float acc_num[R], acc_den[R];
   unsigned acc_cnt = 0;   // #(weight > 0) of sample r in bits 10r .. 10r + 9
+  unsigned wide_cnt[kWide ? R : 1];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc_num[r] = acc_den[r] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < (kWide ? R : 1); ++r) wide_cnt[r] = 0;
 
   for (int v = 0; v < V; ++v) {
     const int64_t vn0 = (int64_t)v * N + n0;
@@ -266,7 +271,10 @@ patch_min_loss_kernel(const float2* __restrict__ prj, const float2* __restrict__
       const float w = (vis_v == -1.0f) ? 0.0f : conf_b[r];
       acc_num[r] = __fadd_rn(acc_num[r], __fmul_rn(w, loss_b[r]));
       acc_den[r] = __fadd_rn(acc_den[r], w);
-      acc_cnt += (w > 0.0f) ? 1u << (10 * r) : 0u;
+      if (kWide)
+        wide_cnt[kWide ? r : 0] += (w > 0.0f) ? 1u : 0u;
+      else
+        acc_cnt += (w > 0.0f) ? 1u << (10 * r) : 0u;
     }
   }
 #pragma unroll
@@ -275,8 +283,27 @@ patch_min_loss_kernel(const float2* __restrict__ prj, const float2* __restrict__
     const int64_t i = (int64_t)(n0 + g) * S + s0 + L * r;
     num[i] = acc_num[r];
     den[i] = acc_den[r];
-    cnt[i] = (float)((acc_cnt >> (10 * r)) & 1023u);
+    cnt[i] = kWide ? (float)wide_cnt[kWide ? r : 0] : (float)((acc_cnt >> (10 * r)) & 1023u);
   }
+}
+
+// One instantiation of the tap-loop kernel: a launch that needs more than the
+// default 48 KB of dynamic shared memory first raises the kernel's limit to it.
+template <int R, bool kWide>
+static int launch_min_loss(unsigned blocks, dim3 block, size_t smem, cudaStream_t st,
+                           const void* prj, const void* ori, const void* conf,
+                           const void* vis, float thr, void* num, void* den, void* cnt,
+                           int V, int N, int S, int P, int G, int chunks) {
+  if (smem > (size_t)kSmemDefault) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        patch_min_loss_kernel<R, kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  patch_min_loss_kernel<R, kWide><<<blocks, block, smem, st>>>(
+      (const float2*)prj, (const float2*)ori, (const float*)conf, (const float*)vis, thr,
+      (float*)num, (float*)den, (float*)cnt, V, N, S, P, G, chunks);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -296,7 +323,7 @@ int patch_min_loss(const void* prj, const void* ori, const void* conf,
                    const void* vis, float thr, void* num, void* den, void* cnt,
                    int V, int N, int S, int P, void* stream) {
   if ((int64_t)N * S == 0) return (int)cudaGetLastError();
-  if (V > 1023) return (int)cudaErrorInvalidValue;   // 10-bit view counts
+  if (V > (1 << 24)) return (int)cudaErrorInvalidValue;   // counts exact in f32
   // S > 16: one point per warp, R = 3 samples per lane (R = 1 for S <= 32).
   // S <= 16: L >= S lanes per point, at most 16 points per warp: the windows
   // of 32 points (25 KB at P = 49) leave too few warps on an SM to hide the
@@ -307,25 +334,32 @@ int patch_min_loss(const void* prj, const void* ori, const void* conf,
     while (L < S) L *= 2;
     G = std::min(16, 32 / L);
   }
-  // a warp's windows and flags; up to 4 warps a block within 48 KB
+  // a warp's windows and flags; up to 4 warps a block within the default
+  // 48 KB, or, for windows that need more (the refine pass at patch >= 15),
+  // within what the card lets a block opt in to (227 KB on the H100)
+  int dev = 0, optin = kSmemDefault;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const size_t per_warp = (size_t)G * ((P | 1) * sizeof(float4) + sizeof(int));
-  if (per_warp > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
-  const int wpb = (int)std::min<size_t>(kMaxWarpsPerBlock, kSmemLimit / per_warp);
+  const size_t budget = per_warp > (size_t)kSmemDefault ? (size_t)optin : kSmemDefault;
+  if (per_warp > budget) return (int)cudaErrorInvalidValue;
+  const int wpb = (int)std::min<size_t>(kMaxWarpsPerBlock, budget / per_warp);
   const size_t smem = wpb * per_warp;
   const int chunks = (S + 32 / G * R - 1) / (32 / G * R);
   const int64_t warps = (int64_t)((N + G - 1) / G) * chunks;
   const unsigned blocks = (unsigned)((warps + wpb - 1) / wpb);
   const dim3 block(wpb * 32);
   cudaStream_t st = (cudaStream_t)stream;
+  const bool wide = V > 1023;   // 10-bit packed counts up to 1023 views
   if (R == 1)
-    patch_min_loss_kernel<1><<<blocks, block, smem, st>>>(
-        (const float2*)prj, (const float2*)ori, (const float*)conf, (const float*)vis, thr,
-        (float*)num, (float*)den, (float*)cnt, V, N, S, P, G, chunks);
-  else
-    patch_min_loss_kernel<3><<<blocks, block, smem, st>>>(
-        (const float2*)prj, (const float2*)ori, (const float*)conf, (const float*)vis, thr,
-        (float*)num, (float*)den, (float*)cnt, V, N, S, P, G, chunks);
-  return (int)cudaGetLastError();
+    return wide ? launch_min_loss<1, true>(blocks, block, smem, st, prj, ori, conf, vis, thr,
+                                           num, den, cnt, V, N, S, P, G, chunks)
+                : launch_min_loss<1, false>(blocks, block, smem, st, prj, ori, conf, vis,
+                                            thr, num, den, cnt, V, N, S, P, G, chunks);
+  return wide ? launch_min_loss<3, true>(blocks, block, smem, st, prj, ori, conf, vis, thr,
+                                         num, den, cnt, V, N, S, P, G, chunks)
+              : launch_min_loss<3, false>(blocks, block, smem, st, prj, ori, conf, vis, thr,
+                                          num, den, cnt, V, N, S, P, G, chunks);
 }
 
 }  // extern "C"

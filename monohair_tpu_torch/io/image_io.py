@@ -12,7 +12,8 @@ The decode conventions are the reference's:
 
 PNGs are decoded here with zlib and numpy: 8-bit gray or RGB, non-interlaced,
 filter types 0-4 — what cv2.imwrite writes for uint8 images. ``write_png``
-writes the same kinds with filter 0. OpenCV is not used.
+writes the same kinds with filter 0. OpenCV is not used, and there is no JPEG
+codec: reading or writing a .jpg/.JPG raises a ValueError that says so.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ import zlib
 from typing import List, Tuple
 
 import numpy as np
+import torch
+
+from ..ops.resize import png_rgb_to_gray
 
 _SUFFIXES = (".JPG", ".png", ".jpg")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -62,9 +66,18 @@ def _unfilter_paeth(line: bytes, prev: bytes, bpp: int) -> bytearray:
     return cur
 
 
+def check_codec(path: str) -> None:
+    """Raise a ValueError for a JPEG path: the port has no JPEG codec (the
+    JAX package reads and writes .jpg/.JPG captures through OpenCV)."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        raise ValueError(f"{path}: the port has no JPEG codec (PNG only); "
+                         "convert the capture frames to PNG")
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode an 8-bit gray or RGB, non-interlaced PNG -> (H, W) or (H, W, 3)
     uint8, channels in file (RGB) order."""
+    check_codec(path)
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
@@ -121,6 +134,7 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
     """Write an (H, W) gray or (H, W, 3) RGB uint8 image as PNG (filter 0)."""
+    check_codec(path)
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
         raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, got "
@@ -140,11 +154,14 @@ def imread_gray(path: str) -> np.ndarray:
     img = read_png(path)
     if img.ndim == 2:
         return img
-    # libpng's rgb-to-gray as OpenCV asks for it (weights 0.299/0.587 in 15-bit
-    # fixed point, truncated; gray pixels pass unchanged)
-    r, g, b = (img[..., k].astype(np.uint32) for k in range(3))
-    gray = (r * 9797 + g * 19234 + b * 3737) >> 15
-    return np.where((r == g) & (g == b), r, gray).astype(np.uint8)
+    return png_rgb_to_gray(torch.from_numpy(img)).numpy()
+
+
+def imread_rgb(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 in RGB order, as cv2.cvtColor(cv2.imread(path),
+    cv2.COLOR_BGR2RGB) gives it."""
+    img = read_png(path)
+    return np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img
 
 
 def imread_bgr(path: str) -> np.ndarray:
@@ -158,6 +175,14 @@ def imread_bgr(path: str) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # per-view maps
 # ---------------------------------------------------------------------------
+
+def encode_orientation_image(theta: np.ndarray) -> np.ndarray:
+    """Angle in radians [0, pi) -> uint8 degree image (inverse of decode up to
+    the 180-g flip; used when writing best_ori maps, GaborFilter.py:209). The
+    f32 angle is divided and scaled in f32 and truncated, as the JAX package
+    does it, so a bin k can land on k - 1."""
+    return np.clip(theta / math.pi * 180.0, 0, 255).astype(np.uint8)
+
 
 def decode_orientation_image(gray: np.ndarray) -> np.ndarray:
     """(H, W) uint8/float angle-in-degrees image -> (H, W, 2) (sin, cos) vectors."""

@@ -147,11 +147,13 @@ def patch_min_loss_plain(prj_dir: torch.Tensor, ori_patch: torch.Tensor,
 
 
 # the tap-loop kernel's limits, as patch_kernels.cu's launcher sets them: the
-# three counts of a (point, sample) are packed 10 bits each into one int, and
-# a warp's windows live in the default 48 KB of dynamic shared memory
-# (kSmemLimit); the launcher refuses more with cudaErrorInvalidValue
-MAX_VIEWS = 1023
-SMEM_LIMIT = 48 * 1024
+# counts are written as f32, exact up to 2**24 views (up to 1023 views they are
+# packed 10 bits each into one register, beyond that each has its own); a
+# warp's windows live in the default 48 KB of dynamic shared memory, or, when
+# they need more, in what a block may opt in to (227 KB on the H100). The
+# launcher refuses more with cudaErrorInvalidValue.
+MAX_VIEWS = 2 ** 24
+SMEM_OPTIN = 227 * 1024
 
 
 def check_min_loss_limits(V: int, S: int, P: int) -> None:
@@ -162,7 +164,7 @@ def check_min_loss_limits(V: int, S: int, P: int) -> None:
     S > 16 and min(16, 32 / L) for L, the power of two >= S, otherwise."""
     if V > MAX_VIEWS:
         raise ValueError(f"patch_min_loss: the CUDA kernel takes at most {MAX_VIEWS} "
-                         f"views (10-bit packed counts), got {V}")
+                         f"views (counts exact in f32), got {V}")
     G = 1
     if S <= 16:
         L = 1
@@ -170,11 +172,12 @@ def check_min_loss_limits(V: int, S: int, P: int) -> None:
             L *= 2
         G = min(16, 32 // L)
     per_warp = G * ((P | 1) * 16 + 4)
-    if per_warp > SMEM_LIMIT:
+    if per_warp > SMEM_OPTIN:
         raise ValueError(
-            f"patch_min_loss: the CUDA kernel's shared-memory budget is {SMEM_LIMIT} "
-            f"bytes a warp; S={S} samples and P={P} taps need {per_warp} "
-            f"({G} windows of {P | 1} taps x 16 bytes + 4 bytes of flags)")
+            f"patch_min_loss: the CUDA kernel's shared-memory budget is {SMEM_OPTIN} "
+            f"bytes a warp (the H100's opt-in limit of a block); S={S} samples and "
+            f"P={P} taps need {per_warp} ({G} windows of {P | 1} taps x 16 bytes "
+            f"+ 4 bytes of flags)")
 
 
 def patch_min_loss(prj_dir: torch.Tensor, ori_patch: torch.Tensor,

@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 import os
-from typing import List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,12 +33,17 @@ def case_paths(args: Config, save_options: bool = False) -> Config:
     return args
 
 
-def resolve_config(argv: List[str]) -> Config:
-    """CLI -> resolved config (YAML + parents + strict dotted overrides)."""
+def resolve_config(argv: List[str], check: Optional[Callable[[Config], None]] = None
+                   ) -> Config:
+    """CLI -> resolved config (YAML + parents + strict dotted overrides).
+    `check`, when given, sees the config before anything is written."""
     opt_cmd = parse_arguments(argv)
     # strict: a typo'd CLI key raises instead of being silently accepted
     # (the reference prompts interactively, options.py:86-93)
-    return case_paths(set_options(opt_cmd, allow_new=False), save_options=True)
+    args = set_options(opt_cmd, allow_new=False)
+    if check is not None:
+        check(args)
+    return case_paths(args, save_options=True)
 
 
 def split_device(argv: List[str], default: str = "cuda") -> Tuple[str, List[str]]:

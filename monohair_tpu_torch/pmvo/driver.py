@@ -22,18 +22,12 @@ import torch
 
 from ..camera import pixel_index_and_validity, project
 from ..coords import voxel_indices
+from ..ops import exact_f32
 from ..ops.grid_sample import gather_pixels
 from ..ops.neighbors import build_buckets, neighborhood_consensus_direction
 from ..ops.voxelize import canonicalize_down, voxelize_directions
 from .solver import (PMVOMaps, compute_unvisible_points, filter_points,
                      pmvo_forward, pmvo_refine_loss)
-
-
-def exact_f32() -> None:
-    """Keep f32 matmuls and convolutions in full f32 on the card: the camera
-    math feeds rounded pixel indices, and TF32 keeps about 3 decimal digits."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def _dev(x: np.ndarray, maps: PMVOMaps) -> torch.Tensor:

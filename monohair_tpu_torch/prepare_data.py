@@ -1,0 +1,29 @@
+"""Stage 1 entry point of the PyTorch port (its image half):
+
+    python -m monohair_tpu_torch.prepare_data --yaml=configs/reconstruct/<case> \
+        --prepare_data.run_ngp= --prepare_data.fit_bust= [--device=cpu]
+
+Same CLI contract as the root prepare_data.py (dotted config overrides); runs
+on the GPU unless --device=cpu is given. From colmap/images, colmap/
+{transforms,key_frame}.json, the calibration rig, ours/colmap_points.obj and
+Bust/ it writes capture_images/, colmap/base_cam.json, ours/cam_params.json,
+ours/*_tsfm.obj, imgs/<view>/bust_hair_depth.png, render_depth/<view>.npy,
+hair_mask/, mask/, mask_hair/, best_ori/, conf/ and Ori/. The NeRF (run_ngp)
+and the bust fit (fit_bust) are not ported yet: the stage raises when either
+is on.
+"""
+
+import sys
+
+from .pipeline.common import resolve_config, split_device
+from .pipeline.prepare_data_stage import check_ported, run_prepare_data
+
+
+def main(argv):
+    """Run the stage; returns its steps' wall seconds."""
+    device, rest = split_device(argv)
+    return run_prepare_data(resolve_config(rest, check=check_ported), device=device)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,10 +1,12 @@
-"""The four per-view render passes feeding DeepMVSHair (port of
-monohair_tpu/render.py `strands_to_segments` and `render_data`; reference
-Utils/Render_utils.py:269-307): bust_depth, undirectional_map (double-angle
-strand color over black bust), mask (white strands over black bust) and
-hair_depth (strand depth over white bust). Strands and mesh compose by
-z-buffer minimum, as the GL depth test does. Rendering runs on the cameras'
-device; the PNGs go through the port's own writer.
+"""The four per-view render passes feeding DeepMVSHair and the colmap+bust
+depth maps PMVO reads (port of monohair_tpu/render.py; reference
+Utils/Render_utils.py:269-347): bust_depth, undirectional_map (double-angle
+strand color over black bust), mask (white strands over black bust),
+hair_depth (strand depth over white bust), and render_depth/<view>.npy.
+Strands and mesh compose by z-buffer minimum, as the GL depth test does.
+Rendering runs on the cameras' device; the PNGs go through the port's own
+writer. The render_depth/<view>.JPG preview the JAX package writes beside
+each .npy waits for a JPEG codec; nothing reads it.
 """
 
 from __future__ import annotations
@@ -97,4 +99,40 @@ def render_data(cameras: Cameras, names: List[str], strands: Sequence[np.ndarray
             os.makedirs(d, exist_ok=True)
             for k, img in imgs.items():
                 write_png(os.path.join(d, k + ".png"), to_uint8(img))
+    return out
+
+
+def render_bust_hair_depth(cameras: Cameras, names: List[str],
+                           colmap_vertices: np.ndarray, colmap_faces: np.ndarray,
+                           save_root: Optional[str] = None,
+                           image_size: Tuple[int, int] = (1280, 720),
+                           capture_imgs: bool = False,
+                           bust_vertices: Optional[np.ndarray] = None,
+                           bust_faces: Optional[np.ndarray] = None
+                           ) -> Dict[str, np.ndarray]:
+    """Per-view depth of the coarse colmap mesh (+ optional bust), the
+    `render_depth/<view>.npy` maps PMVO consumes (Render_utils.py:310-347).
+
+    Returns {view: (H, W) image in [0,1]}; with capture_imgs writes
+    <save_root>/<view>.npy scaled by 255 as (H, W, 3), else
+    <save_root>/<view>/bust_hair_depth.png.
+    """
+    H, W = image_size
+    out = {}
+    for v, view in enumerate(names):
+        cam = cameras[v]
+        z = rasterize_mesh_depth(cam, colmap_vertices, colmap_faces, (H, W))
+        if bust_vertices is not None:
+            z = torch.minimum(z, rasterize_mesh_depth(cam, bust_vertices, bust_faces, (H, W)))
+        img = compose_depth_to_image(z, background=1.0, depth_range=DEPTH_RANGE).cpu().numpy()
+        out[view] = img
+        if save_root:
+            os.makedirs(save_root, exist_ok=True)
+            if capture_imgs:
+                depth_save = np.repeat(img[..., None] * 255.0, 3, -1).astype(np.float32)
+                np.save(os.path.join(save_root, view + ".npy"), depth_save)
+            else:
+                d = os.path.join(save_root, view)
+                os.makedirs(d, exist_ok=True)
+                write_png(os.path.join(d, "bust_hair_depth.png"), to_uint8(img))
     return out

@@ -11,6 +11,10 @@
 - The full-width field of bench.py's stage-4 benchmark: curved swirl strands
   voxelised into the 256x256x192 occ/ori grids (grow_field), with a scalp cap
   inside the hair shell (grow_scalp_cap).
+- The capture case of tools/make_capture_case.py: an orbit of frames around an
+  analytic head with a striped hair cap, its NeRF transforms, key frame and
+  calibration rig, the head sphere standing in for the NeRF's mesh, and each
+  frame's hair label and silhouette (write_capture_case), stage 1's inputs.
 - The MVS nets' training scene (tools/make_mvs_cases.py): a wig of their
   training family on a 0.095-radius head, 16 ring cameras at NDC focal 2.6
   for 256x256 renders, its closed label grid and the occupancy queries the
@@ -21,6 +25,7 @@ Everything is made from a seed; nothing is read from disk.
 
 from __future__ import annotations
 
+import json
 import math
 import os
 from typing import List, Tuple
@@ -478,25 +483,8 @@ def mvs_train_wig(rng: np.random.Generator, num_strands: int = 2000,
 def mvs_train_head_mesh(subdiv: int = 20) -> Tuple[np.ndarray, np.ndarray]:
     """The training scenes' head sphere as a UV mesh (make_mvs_cases.head_mesh):
     (vertices float32, faces int64)."""
-    th = np.linspace(0, np.pi, subdiv + 1)[1:-1]
-    ph = np.linspace(0, 2 * np.pi, 2 * subdiv, endpoint=False)
-    T, P = np.meshgrid(th, ph, indexing="ij")
-    ring = np.stack([np.sin(T) * np.cos(P), np.cos(T), np.sin(T) * np.sin(P)],
-                    -1).reshape(-1, 3)
-    verts = (np.concatenate([[[0, 1, 0]], ring, [[0, -1, 0]]], 0) * MVS_TRAIN_HEAD_RADIUS
-             + MVS_TRAIN_HEAD_CENTER)
-    nph = len(ph)
-    faces = []
-    for j in range(nph):
-        faces.append([0, 1 + (j + 1) % nph, 1 + j])
-        base = 1 + (len(th) - 1) * nph
-        faces.append([len(verts) - 1, base + j, base + (j + 1) % nph])
-    for i in range(len(th) - 1):
-        for j in range(nph):
-            a = 1 + i * nph + j
-            b = 1 + i * nph + (j + 1) % nph
-            faces += [[a, b, a + nph], [b, b + nph, a + nph]]
-    return verts.astype(np.float32), np.asarray(faces, np.int64)
+    verts, faces = uv_sphere(MVS_TRAIN_HEAD_RADIUS, rings=subdiv, sectors=2 * subdiv)
+    return (verts + MVS_TRAIN_HEAD_CENTER).astype(np.float32), faces
 
 
 def mvs_train_occupancy(strands: List[np.ndarray]) -> np.ndarray:
@@ -540,3 +528,199 @@ def mvs_train_queries(occ: np.ndarray, rng: np.random.Generator, kernel: int = 5
                              np.zeros(len(pts[1]) + len(pts[2]))]).astype(np.int32)
     world = voxel_to_world(torch.from_numpy(np.concatenate(pts))).numpy()
     return world, labels
+
+
+# ---------------------------------------------------------------------------
+# the capture case (tools/make_capture_case.py): stage 1's inputs
+# ---------------------------------------------------------------------------
+
+CAPTURE_FOV_Y = 24.0            # deg; head ~55% of frame height
+CAPTURE_CAM_R_NERF = 6.67       # -> MVS ring radius ~1.10
+CAPTURE_HEAD_R_NERF = 0.72      # -> MVS head radius ~0.119
+CAPTURE_HAIR_POLAR_DEG = 70.0   # hair cap: polar angle < this
+_SKIN = np.array([0.80, 0.62, 0.52])
+_HAIR = np.array([0.23, 0.16, 0.10])
+_BG = 0.92
+_LIGHT = np.array([0.4, 0.7, 0.45]) / np.linalg.norm([0.4, 0.7, 0.45])
+
+
+def capture_orbit_pose(a: float, elev: float = 0.12) -> np.ndarray:
+    """NeRF-frame c2w of an orbit camera at azimuth a looking at the origin."""
+    eye = np.array([math.cos(a), elev, math.sin(a)])
+    eye = eye / np.linalg.norm(eye) * CAPTURE_CAM_R_NERF
+    fwd = -eye / np.linalg.norm(eye)
+    up = np.array([0.0, 1.0, 0.0])
+    right = np.cross(fwd, up)
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.stack([right, np.cross(right, fwd), -fwd], 1)
+    c2w[:3, 3] = eye
+    return c2w
+
+
+def capture_render_view(c2w: np.ndarray, f_pix: float, H: int, W: int):
+    """Analytic lambertian head with a striped hair cap on a light background:
+    (image (H, W, 3) in [0, 1], hair label (H, W) bool, head silhouette (H, W)
+    bool)."""
+    rows, cols = np.meshgrid(np.arange(H, dtype=np.float32) + 0.5,
+                             np.arange(W, dtype=np.float32) + 0.5, indexing="ij")
+    x = (cols - W / 2) / f_pix
+    y = -(rows - H / 2) / f_pix
+    d = np.stack([x, y, -np.ones_like(x)], -1) @ c2w[:3, :3].T
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = c2w[:3, 3]
+    b = d @ o
+    disc = b * b - (o @ o - CAPTURE_HEAD_R_NERF ** 2)
+    hit = disc > 0
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    p = o[None, None] + d * t[..., None]
+    n = p / CAPTURE_HEAD_R_NERF
+    shade = np.clip(n @ _LIGHT, 0.0, 1.0) * 0.75 + 0.25
+    polar = np.degrees(np.arccos(np.clip(n[..., 1], -1.0, 1.0)))
+    az = np.arctan2(n[..., 2], n[..., 0])
+    stripes = 0.55 + 0.45 * np.sin(48.0 * az)          # combed-down texture
+    img = np.full((H, W, 3), _BG, np.float32)
+    hair = hit & (polar < CAPTURE_HAIR_POLAR_DEG)
+    skin = hit & ~hair
+    img[skin] = _SKIN[None] * shade[skin, None]
+    img[hair] = _HAIR[None] * (shade[hair] * stripes[hair])[:, None]
+    return img, hair, hit
+
+
+def uv_sphere(radius: float, rings: int = 48, sectors: int = 96,
+              max_polar_deg: float = 180.0) -> Tuple[np.ndarray, np.ndarray]:
+    """A closed UV sphere at the origin, as tools/make_capture_case.py and
+    tools/make_mvs_cases.py build it (or its cap above max_polar_deg, open at
+    the rim): (vertices (V, 3) float64, faces (F, 3) int64)."""
+    closed = max_polar_deg >= 180.0
+    th = np.linspace(0, math.radians(max_polar_deg), rings + 1)[1:]
+    th = th[:-1] if closed else th
+    ph = np.linspace(0, 2 * math.pi, sectors, endpoint=False)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    ring = np.stack([np.sin(T) * np.cos(P), np.cos(T), np.sin(T) * np.sin(P)], -1)
+    poles = [[[0, -1, 0]]] if closed else []
+    verts = np.concatenate([[[0, 1, 0]], ring.reshape(-1, 3)] + poles, 0)
+    base, south = 1 + (len(th) - 1) * sectors, len(verts) - 1
+    faces = []
+    for j in range(sectors):
+        faces.append([0, 1 + (j + 1) % sectors, 1 + j])
+        if closed:
+            faces.append([south, base + j, base + (j + 1) % sectors])
+    for i in range(len(th) - 1):
+        for j in range(sectors):
+            a = 1 + i * sectors + j
+            b = 1 + i * sectors + (j + 1) % sectors
+            faces += [[a, b, a + sectors], [b, b + sectors, a + sectors]]
+    return verts * radius, np.asarray(faces, np.int64)
+
+
+def capture_mvs_pose(ngp: np.ndarray) -> np.ndarray:
+    """The MVS c2w that stage 1's pose chain gives a frame of NGP pose `ngp`
+    (3x4) when the key frame is frame 0 and the rig is derived through the
+    +1.5 anchor (tools/make_capture_case.py): rotation with its y/z columns
+    negated, translation (t + 1.5) / 2 - 1."""
+    m = np.eye(4)
+    m[:3, :3] = ngp[:, :3]
+    m[:3, 1:3] *= -1
+    m[:3, 3] = (ngp[:, 3] + 1.5) / 2.0 - 1.0
+    return m
+
+
+def capture_config(data_root: str, case: str, H: int, W: int, frame_interval: int,
+                   modnet: str = None, parser: str = None) -> Config:
+    """The capture case's config: synthwig_config's keys with the capture
+    case's data, rig, stage-1 flags and, when given, the hair-parser weights."""
+    root = os.path.join(data_root, case)
+    cfg = synthwig_config(data_root, case)
+    cfg.data["image_size"] = [H, W]
+    cfg.data["frame_interval"] = frame_interval
+    cfg["camera_path"] = os.path.join(root, "calib_cam_params.json")
+    cfg["name"] = "capture"
+    cfg["prepare_data"] = Config({
+        "select_images": True, "process_camera": True, "run_ngp": None,
+        "fit_bust": None, "process_bust": True, "render_depth": True,
+        "process_imgs": True})
+    cfg["segment"] = Config({"modnet_flax": modnet, "parser_flax": parser,
+                             "modnet_width": 1.0, "parser_width": 1.0})
+    cfg.PMVO["patch_size"] = 7
+    return cfg
+
+
+def write_capture_case(data_root: str, case: str = "capture", num_frames: int = 32,
+                       H: int = 720, W: int = 1280, frame_interval: int = 2,
+                       modnet: str = None, parser: str = None) -> dict:
+    """Write stage 1's inputs for an orbit of `num_frames` frames around the
+    analytic head (tools/make_capture_case.py:41-80,156-250, without OpenCV):
+    colmap/images/frame_XXXX.png, colmap/transforms.json, colmap/key_frame.json
+    (frame 0's NGP pose), calib_cam_params.json (the rig: every 2nd frame), the
+    head sphere as ours/colmap_points.obj (through the port's
+    convert_mesh_nerf_to_mvs, standing in for the NeRF's mesh), a Bust/ head
+    sphere and scalp cap, and labels/{hair,hit}/frame_XXXX.png (the hair label
+    and head silhouette of each frame, 0/255).
+
+    Returns {"config": the case's Config, "mvs_poses": {frame: 4x4 MVS c2w}}.
+    """
+    from .coords import nerf_to_ngp
+    from .io.image_io import write_png
+    from .io.mesh_io import save_obj
+    from .nerf.poses import _se3, convert_mesh_nerf_to_mvs, mvs_to_ngp_rot, save_base_cam
+
+    root = os.path.join(data_root, case)
+    for sub in ("colmap/images", "ours", "Bust", "labels/hair", "labels/hit"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    f_pix = (H / 2) / math.tan(math.radians(CAPTURE_FOV_Y) / 2)
+    angles = [2 * math.pi * j / num_frames for j in range(num_frames)]
+    # even frames on the low ring (the MVS rig), odd frames on two raised tiers
+    odd_tiers = (0.6, 1.1)
+    poses = [capture_orbit_pose(a, elev=(0.12 if j % 2 == 0 else odd_tiers[(j // 2) % 2]))
+             for j, a in enumerate(angles)]
+    frames, mvs_poses = [], {}
+    for j, c2w in enumerate(poses):
+        img, hair, hit = capture_render_view(c2w, f_pix, H, W)
+        name = f"frame_{j:04d}"
+        write_png(os.path.join(root, "colmap/images", name + ".png"),
+                  (img * 255).astype(np.uint8))
+        write_png(os.path.join(root, "labels/hair", name + ".png"),
+                  hair.astype(np.uint8) * 255)
+        write_png(os.path.join(root, "labels/hit", name + ".png"),
+                  hit.astype(np.uint8) * 255)
+        frames.append({"file_path": f"images/{name}.png", "transform_matrix": c2w.tolist()})
+    with open(os.path.join(root, "colmap/transforms.json"), "w") as f:
+        json.dump({"camera_angle_x": 2 * math.atan(W / (2 * f_pix)),
+                   "camera_angle_y": math.radians(CAPTURE_FOV_Y),
+                   "fl_x": f_pix, "fl_y": f_pix, "cx": W / 2, "cy": H / 2,
+                   "w": W, "h": H, "frames": frames}, f, indent=1)
+
+    B = [nerf_to_ngp(p) for p in poses]
+    save_base_cam(os.path.join(root, "colmap/key_frame.json"),
+                  [_se3(B[0][:, :3], B[0][:, 3])], [CAPTURE_FOV_Y])
+    for j, b in enumerate(B):
+        mvs_poses[f"frame_{j:04d}"] = capture_mvs_pose(b)
+    # the rig: every 2nd frame, its MVS pose through a +1.5 anchor translation
+    fy_rig = 1920.0 / (3.0 * math.tan(math.radians(CAPTURE_FOV_Y) / 2))
+    ndc = [2 * f_pix / W, 2 * f_pix / H, 0.0, 0.0]
+    cam_list = []
+    for k, j in enumerate(range(0, num_frames, 2)):
+        rot = mvs_to_ngp_rot(B[j][:, :3])
+        trans = (B[j][:, 3] + 1.5) / 2.0 - 1.0
+        cam_list.append({"file": f"{k:03d}", "intrin": [0.0] * 4,
+                         "intrin_op": [fy_rig, fy_rig, 0.0, 0.0], "dist": [0.0] * 5,
+                         "pose": _se3(rot, trans).tolist(), "ndc_prj": ndc})
+    calib_path = os.path.join(root, "calib_cam_params.json")
+    with open(calib_path, "w") as f:
+        json.dump({"cam_list": cam_list}, f, indent=1)
+
+    # the head sphere in the NeRF frame, through the pose chain to the MVS
+    # bust frame: what the coarse NeRF's mesh would be
+    hv, hf = uv_sphere(CAPTURE_HEAD_R_NERF)
+    colmap_dir = os.path.join(root, "colmap")
+    save_obj(os.path.join(root, "ours/colmap_points.obj"),
+             convert_mesh_nerf_to_mvs(hv, colmap_dir, calib_path), hf)
+    # Bust/: the head sphere and its hair cap in the MVS bust frame
+    head_r_mvs = CAPTURE_HEAD_R_NERF * 0.33 / 2.0
+    bv, bf = uv_sphere(head_r_mvs * 0.98)
+    save_obj(os.path.join(root, "Bust/bust_long.obj"), bv - BUST_TO_ORIGIN, bf)
+    sv, sf = uv_sphere(head_r_mvs * 0.98, max_polar_deg=CAPTURE_HAIR_POLAR_DEG)
+    save_obj(os.path.join(root, "Bust/scalp.obj"), sv - BUST_TO_ORIGIN, sf)
+    return {"config": capture_config(data_root, case, H, W, frame_interval, modnet, parser),
+            "mvs_poses": mvs_poses}

@@ -5,7 +5,8 @@ monohair_tpu and tests, every module of monohair_tpu_torch and chip_smoke.py
 import, chip_smoke's stage phase runs on the CPU at a small size, and
 `python -m monohair_tpu_torch.HairGrow --yaml=<case> --device=cpu` writes the
 stage's files on a small written case, as do PMVO and then
-`python -m monohair_tpu_torch.infer_inner` on another."""
+`python -m monohair_tpu_torch.infer_inner` on another, and
+`python -m monohair_tpu_torch.prepare_data` on a small capture case."""
 
 import os
 import subprocess
@@ -84,6 +85,23 @@ GUARDED = textwrap.dedent('''
         assert load_occ_mat(os.path.join(case, "ours/Voxel_hair/Occ3D.mat")).sum() <= raw[:, 6].sum()
         assert load_occ_mat(os.path.join(case, "output/verify/full/Occ3D.mat")).sum() > 100
 
+    # the prepare_data CLI (stage 1's image half) on a 4-frame capture case,
+    # classical masks (no weights named), the NeRF and bust fit switched off
+    with tempfile.TemporaryDirectory() as tmp:
+        from monohair_tpu_torch.synthetic import write_capture_case
+        cfg = write_capture_case(tmp, "cap", num_frames=4, H=48, W=64)["config"]
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        sys.argv = ["prepare_data", "--yaml=" + os.path.join(tmp, "case"), "--device=cpu",
+                    "--prepare_data.run_ngp=", "--prepare_data.fit_bust="]
+        runpy.run_module("monohair_tpu_torch.prepare_data", run_name="__main__")
+        case = os.path.join(tmp, "cap")
+        for sub in ("capture_images", "hair_mask", "mask", "mask_hair", "best_ori", "conf", "Ori"):
+            assert sorted(os.listdir(os.path.join(case, sub))) == ["frame_0001.png",
+                                                                   "frame_0003.png"], sub
+        assert np.load(os.path.join(case, "render_depth", "frame_0001.npy")).shape == (48, 64, 3)
+        assert os.path.exists(os.path.join(case, "imgs", "001", "bust_hair_depth.png"))
+
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("GUARD_OK", len(names))
@@ -103,11 +121,11 @@ def test_port_and_chip_smoke_need_no_jax_cv2_yaml_pil():
 def test_stage_clis_run_on_the_card_unless_told_otherwise(monkeypatch):
     """The stage CLIs pass device "cuda" unless --device is given; only the
     arguments are parsed, so no card is needed."""
-    from monohair_tpu_torch import PMVO, HairGrow, infer_inner
+    from monohair_tpu_torch import PMVO, HairGrow, infer_inner, prepare_data
     for cli, stage in ((HairGrow, "run_hair_grow"), (PMVO, "run_pmvo"),
-                       (infer_inner, "run_infer_inner")):
+                       (infer_inner, "run_infer_inner"), (prepare_data, "run_prepare_data")):
         seen = []
-        monkeypatch.setattr(cli, "resolve_config", lambda argv: argv)
+        monkeypatch.setattr(cli, "resolve_config", lambda argv, **kw: argv)
         monkeypatch.setattr(cli, stage, lambda cfg, device: seen.append((cfg, device)))
         cli.main(["--yaml=configs/reconstruct/synthwig", "--HairGenerate.connect_scalp!"])
         cli.main(["--device=cpu", "--yaml=configs/reconstruct/synthwig"])

@@ -84,19 +84,20 @@ def test_resume_branch_reads_the_near_surface_file_when_present(unfiltered):
 
 
 @pytest.mark.parametrize("V,S,P,limit", [
-    (1024, 90, 49, "at most 1023 views"),
-    (1024, 1, 9, "at most 1023 views"),
-    (16, 1, 225, "shared-memory budget"),    # refine at patch_size 15
-    (16, 2, 193, "shared-memory budget"),
+    (2 ** 24 + 1, 90, 49, "at most 16777216 views"),
+    (2 ** 24 + 1, 1, 9, "at most 16777216 views"),
+    (16, 1, 961, "shared-memory budget"),    # refine at patch_size 31
+    (16, 2, 909, "shared-memory budget"),
+    (16, 90, 14529, "shared-memory budget"),  # one window beyond 227 KB
 ])
 def test_tap_loop_limits_raise_a_named_error(V, S, P, limit):
     with pytest.raises(ValueError, match=limit):
         pk.check_min_loss_limits(V, S, P)
 
 
-@pytest.mark.parametrize("V", [1, 16, 150, 1023])
+@pytest.mark.parametrize("V", [1, 16, 150, 1023, 1100])
 @pytest.mark.parametrize("S,P", [(90, 9), (90, 49), (90, 81), (1, 9), (1, 49), (1, 81),
-                                 (1, 191), (3, 81)])
+                                 (1, 191), (3, 81), (1, 225), (2, 193), (1, 900)])
 def test_tap_loop_limits_pass_the_shipped_shapes(V, S, P):
     pk.check_min_loss_limits(V, S, P)
 
