@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's stages 1 (prepare_data's image half), 2 (PMVO),
-3 (infer_inner) and 4 (HairGrow) on one GPU and check them.
+"""Run the PyTorch/CUDA port's stages 1 (prepare_data, with and without the
+coarse NeRF), 2 (PMVO), 3 (infer_inner) and 4 (HairGrow) on one GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -44,6 +45,19 @@ Phases, each printing a line when it starts and when it ends:
               Gabor bank on the card against the CPU on 2 frames, PMVO's
               loaders on the written maps; seconds per step, per-frame times,
               the host's PNG share and the peak memory
+  9. NeRF     9a: a seeded full-width Fourier field on the card against the
+              CPU (a training step's loss and gradients on given draws within
+              1e-4, a 16384-ray render chunk, a 64^3 block of the density
+              export) with the card's times; 9b: the prepare_data CLI with
+              run_ngp on (fit_bust off) on a fresh 32-frame 1280x720 capture
+              case at the shipped budget (4000 steps of 4096 rays x 64
+              samples, 16 views at 720x1280, a 256^3 export at iso 3.0):
+              colmap/base.obj and ours/colmap_points.obj non-empty with equal
+              vertex counts, the 16 fixed-view PNGs and imgs/NNN/origin.png,
+              shell recall >= 0.8 against the r = 0.72 head sphere; printed:
+              precision, final loss, PSNR of 2 training frames, depth IoU of
+              render_depth from this mesh, seconds per part against bounds,
+              peak memory
 Phase 3 also holds the tap loop at the shapes PR 7's kernel refused (S = 1 at
 P = 225, the refine pass at patch 15; 1100 views).
 
@@ -56,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import math
 import os
@@ -83,8 +98,17 @@ from monohair_tpu_torch.io.mat_io import load_occ_mat, load_ori_mat
 from monohair_tpu_torch.io.voxels_io import load_voxels_dat
 from monohair_tpu_torch.io.yaml_io import dump_yaml
 from monohair_tpu_torch.models.pifu import mvs_projection, occ_decision
+from monohair_tpu_torch.io.mesh_io import load_obj
 from monohair_tpu_torch.mvs.eval import (colmap_guided_queries, deep_mvs_eval, eval_points,
                                         load_mvs_inputs, save_mvs_outputs)
+from monohair_tpu_torch.nerf import pipeline as pipeline_ngp
+from monohair_tpu_torch.nerf import train as nerf_train
+from monohair_tpu_torch.nerf.fourier import FourierField
+from monohair_tpu_torch.nerf.ngp import (as_background, camera_rays, grid_points, nerf_to_unit,
+                                         render_rays)
+from monohair_tpu_torch.nerf.pipeline import ngp_options
+from monohair_tpu_torch.nerf.poses import load_base_cam
+from monohair_tpu_torch.nerf.train import NerfDataset, load_nerf_dataset, psnr, render_image
 from monohair_tpu_torch.ops import _build
 from monohair_tpu_torch.ops import patch_kernels as pk
 from monohair_tpu_torch.ops.gabor import orientation_maps as gabor_maps
@@ -103,15 +127,13 @@ from monohair_tpu_torch.strands import connect as strand_connect
 from monohair_tpu_torch.strands.smooth import smooth_strand_list
 from monohair_tpu_torch.strands.trace import (generate_guide_and_segments, strands_to_list,
                                               trace_bidirectional, trace_from_scalp)
-from monohair_tpu_torch.synthetic import (analytic_head_maps, cameras_numpy,
+from monohair_tpu_torch.synthetic import (CAPTURE_HEAD_R_NERF, analytic_head_maps, cameras_numpy,
                                           curved_strand_batch, grow_bust_mesh, grow_field,
-                                          grow_scalp_cap, hair_shell_points,
-                                          head_camera_list, mvs_train_camera_list,
-                                          mvs_train_head_mesh, mvs_train_occupancy,
-                                          mvs_train_queries, mvs_train_wig,
-                                          MVS_TRAIN_RENDER_SIZE, shell_points,
-                                          swirl_direction, write_capture_case,
-                                          write_synthwig_case)
+                                          grow_scalp_cap, hair_shell_points, head_camera_list,
+                                          mvs_train_camera_list, mvs_train_head_mesh,
+                                          mvs_train_occupancy, mvs_train_queries, mvs_train_wig,
+                                          MVS_TRAIN_RENDER_SIZE, shell_points, swirl_direction,
+                                          write_capture_case, write_synthwig_case)
 
 # Phase 5 point count: a quarter of big_wavy1's 2.1 M raw points.
 FULL_WIDTH_POINTS = 524_288
@@ -1343,6 +1365,276 @@ def phase_prepare_data(dev: torch.device) -> dict:
                 png=png, **outputs, **versus)
 
 
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+NGP_RAYS, NGP_SAMPLES = pipeline_ngp.DEFAULT_RAYS_PER_BATCH, 64   # train_nerf's uniform path
+NGP_RENDER_SAMPLES = 192                                          # render_image's
+NGP_CHUNK = 16384                                                 # render_image's pixels a chunk
+NGP_BLOCK = 64                                                    # 9a's density block, per axis
+NGP_BG = [0.92, 0.92, 0.92]                                       # capture_config's ngp.background
+
+
+def rel_norm_err(card: torch.Tensor, host: torch.Tensor) -> float:
+    return float((card.cpu() - host).norm() / host.norm().clamp_min(1e-30))
+
+
+def ngp_batch(ds: NerfDataset, g: torch.Generator):
+    """One full-width batch of the capture frames with draws from `g` (on the
+    CPU): (ray-batch function of a device, the draws)."""
+    F, H, W = ds.images.shape[:3]
+    draws = nerf_train.draw_step(g, F, H * W, NGP_RAYS, NGP_SAMPLES, True)
+    imgs = np.clip(np.rint(ds.images.reshape(F, H * W, 3) * 255.0), 0, 255).astype(np.uint8)
+
+    def batch(device):
+        dr = nerf_train.StepDraws(*[None if t is None else t.to(device) for t in draws])
+        o, d, target = nerf_train.ray_batch(torch.as_tensor(imgs, device=device),
+                                            torch.as_tensor(ds.c2w, device=device),
+                                            dr.frames, dr.pixels, W, ds.fx, ds.fy, ds.cx, ds.cy)
+        return dr, o, d, target
+    return batch
+
+
+def nerf_card_against_cpu(dev: torch.device, ds: NerfDataset) -> dict:
+    """9a: a seeded full-width Fourier field on both devices: one training
+    step's loss and gradients on one batch of given draws, one render chunk,
+    one 64^3 block of the density export; and the card's times of each."""
+    g = torch.Generator().manual_seed(0)
+    host = FourierField(generator=g)
+    card = copy.deepcopy(host).to(dev)
+    batch = ngp_batch(ds, g)
+    out = {}
+    losses, grads = {}, {}
+    host64 = copy.deepcopy(host).double()
+    for name, field in (("cpu", host), ("card", card), ("cpu64", host64)):
+        device = next(field.parameters()).device
+        dtype = next(field.parameters()).dtype
+        dr, o, d, target = batch(device)
+        dr = nerf_train.StepDraws(*[t.to(dtype) if t is not None and t.is_floating_point()
+                                    else t for t in dr])
+        loss = nerf_train.nerf_loss(field, o.to(dtype), d.to(dtype), target.to(dtype), dr,
+                                    NGP_SAMPLES, as_background(NGP_BG, device).to(dtype))
+        losses[name] = float(loss.detach())
+        grads[name] = torch.autograd.grad(loss, list(field.parameters()))
+    loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    # The gradients of the layers fed by the sin/cos features (trunk.0, skip)
+    # cancel over the batch's 262,144 samples, so an ulp of a feature angle
+    # (up to ~300 rad) moves them by ~1e-3 relative: the CPU's own f32
+    # gradient is that far from float64. Each device's f32 gradient is held
+    # against the CPU's float64 one, within 1e-4 or twice the CPU f32's error.
+    names = [n for n, _ in host.named_parameters()]
+    err = {dev_name: [rel_norm_err(a, b.float()) for a, b in zip(grads[dev_name], grads["cpu64"])]
+           for dev_name in ("cpu", "card")}
+    grad_err = max(rel_norm_err(a, b) for a, b in zip(grads["card"], grads["cpu"]))
+    grad_fail = [n for n, c, h in zip(names, err["card"], err["cpu"]) if c > max(1e-4, 2 * h)]
+    log("9a gradient rel norm err per parameter, card vs CPU f32 / card vs CPU f64 / "
+        "CPU f32 vs CPU f64: " + "; ".join(
+            f"{n} {rel_norm_err(a, b):.2e} / {c:.2e} / {h:.2e}"
+            for n, a, b, c, h in zip(names, grads["card"], grads["cpu"], err["card"], err["cpu"])))
+
+    # one render chunk: the first 16384 pixels of training frame 0, 192 samples
+    H, W = ds.images.shape[1:3]
+    pix = torch.stack(torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij"), -1
+                      ).reshape(-1, 2)[:NGP_CHUNK].float()
+    rendered = {}
+    with torch.no_grad():
+        for name, field in (("cpu", host), ("card", card)):
+            device = next(field.parameters()).device
+            o, d = camera_rays(torch.as_tensor(ds.c2w[0], device=device), ds.fx, ds.fy,
+                               ds.cx, ds.cy, pix.to(device))
+            rendered[name] = render_rays(field, o, d, NGP_RENDER_SAMPLES,
+                                         background=as_background(NGP_BG, device))[:2]
+        rgb_err = float((rendered["card"][0].cpu() - rendered["cpu"][0]).abs().max())
+        depth_err = float(((rendered["card"][1].cpu() - rendered["cpu"][1]).abs()
+                           / rendered["cpu"][1].abs().clamp_min(1.0)).max())
+        # the central 64^3 block of the 256^3 export grid (the head)
+        res = pipeline_ngp.DEFAULT_MESH_RES
+        lo = (res - NGP_BLOCK) // 2
+        block = grid_points(res, pipeline_ngp.DEFAULT_MESH_BOUND).reshape(res, res, res, 3)[
+            lo:lo + NGP_BLOCK, lo:lo + NGP_BLOCK, lo:lo + NGP_BLOCK]
+        pts = torch.as_tensor(block.reshape(-1, 3).copy())
+        sig_cpu = host.density(nerf_to_unit(pts))[0]
+        sig_card = card.density(nerf_to_unit(pts.to(dev)))[0].cpu()
+        sig_err = float(((sig_card - sig_cpu).abs() / sig_cpu.abs().clamp_min(1e-6)).max())
+
+        # card times: a render chunk and the density block (CUDA events)
+        o, d = camera_rays(torch.as_tensor(ds.c2w[0], device=dev), ds.fx, ds.fy, ds.cx,
+                           ds.cy, pix.to(dev))
+        bg = as_background(NGP_BG, dev)
+        out["chunk_ms"] = cuda_time_ms(lambda: render_rays(card, o, d, NGP_RENDER_SAMPLES,
+                                                           background=bg), iters=5, warmup=1)
+        pts_d = nerf_to_unit(pts.to(dev))
+        out["density_block_ms"] = cuda_time_ms(lambda: card.density(pts_d), iters=10)
+
+    # a whole training step on the card: draws, batch, loss, backward, optimiser
+    F = len(ds.images)
+    imgs = torch.as_tensor(np.clip(np.rint(ds.images.reshape(F, H * W, 3) * 255.0), 0, 255)
+                           .astype(np.uint8), device=dev)
+    c2w = torch.as_tensor(ds.c2w, device=dev)
+    params = list(card.parameters())
+    opt = nerf_train.OptaxAdam(params, 1e-3, pipeline_ngp.DEFAULT_TRAIN_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def step():
+        dr = nerf_train.draw_step(gen, F, H * W, NGP_RAYS, NGP_SAMPLES, True)
+        o, d, target = nerf_train.ray_batch(imgs, c2w, dr.frames, dr.pixels, W, ds.fx, ds.fy,
+                                            ds.cx, ds.cy)
+        loss = nerf_train.nerf_loss(card, o, d, target, dr, NGP_SAMPLES, bg)
+        opt.step(torch.autograd.grad(loss, params))
+
+    out["step_ms"] = cuda_time_ms(step, iters=20, warmup=3)
+    out["step_busy"] = device_profile(step, "one full-width NeRF training step", top=12)
+    fps = card.flops_per_sample()
+    out["step_bound_ms"] = 3 * fps * (NGP_RAYS * NGP_SAMPLES + nerf_train.SPARSITY_POINTS) \
+        / H100_F32_FLOPS * 1e3
+    out["chunk_bound_ms"] = fps * NGP_CHUNK * NGP_RENDER_SAMPLES / H100_F32_FLOPS * 1e3
+    log(f"9a card vs CPU, seeded full-width Fourier field: train-step loss rel err "
+        f"{loss_err:.3g}, worst parameter gradient rel norm err {grad_err:.3g} (against the "
+        f"CPU's float64: card {max(err['card']):.3g}, CPU f32 {max(err['cpu']):.3g}); render chunk "
+        f"({NGP_CHUNK} rays x {NGP_RENDER_SAMPLES}) rgb max abs err {rgb_err:.3g}, depth max "
+        f"rel err {depth_err:.3g}; {NGP_BLOCK}^3 density block max rel err {sig_err:.3g}")
+    log(f"9a card times: training step {out['step_ms']:.3f} ms (bound "
+        f"{out['step_bound_ms']:.3f} ms at 67 TFLOP/s f32), render chunk "
+        f"{out['chunk_ms']:.3f} ms (bound {out['chunk_bound_ms']:.3f} ms), density block "
+        f"{out['density_block_ms']:.3f} ms")
+    if loss_err > 1e-4 or grad_fail or rgb_err > 1e-4 or depth_err > 1e-4 or sig_err > 1e-4:
+        raise AssertionError(f"the NeRF on the card disagrees with its CPU path "
+                             f"(gradients of {grad_fail})")
+    return dict(out, loss_err=loss_err, grad_err=grad_err, rgb_err=rgb_err,
+                depth_err=depth_err, density_err=sig_err,
+                grad_err64=max(err["card"]), cpu_grad_err64=max(err["cpu"]))
+
+
+def shell_recall_precision(verts: np.ndarray, res: int, bound: float, radius: float):
+    """tests/test_ngp_stage.py's recall at the export resolution (the share of
+    the voxels within 1.5 voxels of the sphere covered by a vertex's voxel
+    dilated by one), and the share of vertices within 2 voxels of the sphere."""
+    vox = 2 * bound / res
+    ax = np.linspace(-bound, bound, res)
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    shell = np.abs(np.sqrt(X ** 2 + Y ** 2 + Z ** 2) - radius) < 1.5 * vox
+    vi = np.clip(np.round((verts + bound) / (2 * bound) * (res - 1)), 0, res - 1).astype(int)
+    pred = np.zeros((res,) * 3, bool)
+    pred[vi[:, 0], vi[:, 1], vi[:, 2]] = True
+    for axis in range(3):
+        pred |= np.roll(pred, 1, axis) | np.roll(pred, -1, axis)
+    recall = float((pred & shell).sum() / shell.sum())
+    precision = float(np.mean(np.abs(np.linalg.norm(verts, axis=1) - radius) < 2 * vox))
+    return recall, precision
+
+
+def phase_ngp(dev: torch.device) -> dict:
+    """Phase 9: stage 1 with the NeRF on, through its CLI, on a fresh capture
+    case (32 frames at 1280x720) at the shipped budget; 9a before it."""
+    exact_f32()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ngp_") as tmp:
+        written = write_capture_case(tmp, "capture", CAPTURE_FRAMES, *CAPTURE_SIZE,
+                                     frame_interval=CAPTURE_INTERVAL,
+                                     modnet=SEGMENT_WEIGHTS["modnet"],
+                                     parser=SEGMENT_WEIGHTS["bisenet"])
+        cfg = written["config"]
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        case = os.path.join(tmp, "capture")
+        colmap = os.path.join(case, "colmap")
+        ds = load_nerf_dataset(os.path.join(colmap, "transforms.json"),
+                               os.path.join(colmap, "images"))
+        with Phase("9a NeRF card vs CPU"):
+            versus = nerf_card_against_cpu(dev, ds)
+        torch.cuda.empty_cache()
+        with open(os.path.join(case, "ours", "colmap_points.obj"), "rb") as f:
+            analytic = f.read()
+        kept = {}
+        real_train, real_stage = pipeline_ngp.train_ngp, pipeline_ngp.run_ngp_stage
+
+        def train_kept(args, device="cuda"):
+            kept["train"] = real_train(args, device)
+            return kept["train"]
+
+        def stage_kept(args, device="cuda"):
+            kept["seconds"] = real_stage(args, device)
+            return kept["seconds"]
+
+        pipeline_ngp.train_ngp, pipeline_ngp.run_ngp_stage = train_kept, stage_kept
+        torch.cuda.reset_peak_memory_stats(dev)
+        pk.reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            steps = prepare_cli.main(["--yaml=" + os.path.join(tmp, "case"),
+                                      "--prepare_data.run_ngp", "--prepare_data.fit_bust="])
+        finally:
+            pipeline_ngp.train_ngp, pipeline_ngp.run_ngp_stage = real_train, real_stage
+        wall = time.perf_counter() - t
+        launches = dict(pk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        field, losses, _ = kept["train"]
+        sub = kept["seconds"]
+
+        # 9b's gates on the files
+        nerf_v, nerf_f = load_obj(os.path.join(colmap, "base.obj"))
+        mvs_v, mvs_f = load_obj(os.path.join(case, "ours", "colmap_points.obj"))
+        with open(os.path.join(case, "ours", "colmap_points.obj"), "rb") as f:
+            replaced = f.read() != analytic
+        views = len(load_base_cam(os.path.join(colmap, "base_cam.json"))[0])
+        shots = [os.path.join(case, "trainning_images", "capture_images", "%03d.png" % i)
+                 for i in range(views)]
+        origins = [os.path.join(case, "imgs", "%03d" % i, "origin.png") for i in range(views)]
+        H, W = cfg.infer_inner["render_size"]
+        missing = [p for p in shots + origins if not os.path.exists(p)]
+        shapes = {read_png(p).shape for p in shots + origins if os.path.exists(p)}
+        recall, precision = shell_recall_precision(nerf_v, pipeline_ngp.DEFAULT_MESH_RES,
+                                                   pipeline_ngp.DEFAULT_MESH_BOUND,
+                                                   CAPTURE_HEAD_R_NERF)
+        # printed, not gated: the fit on two training frames, depth from this mesh
+        bg = NGP_BG
+        psnrs = []
+        for i in (0, 1):
+            rgb, _ = render_image(field, ds.c2w[i], *ds.images.shape[1:3], ds.fx, ds.fy,
+                                  ds.cx, ds.cy, background=bg)
+            psnrs.append(psnr(rgb, ds.images[i]))
+        kept_frames = sorted(f[:-4] for f in os.listdir(os.path.join(case, "capture_images")))
+        depth_iou = [iou(np.load(os.path.join(case, "render_depth", n + ".npy"))[..., 0] < 255.0,
+                         read_png(os.path.join(case, "labels", "hit", n + ".png")) > 127)
+                     for n in kept_frames]
+    steps_n = int(ngp_options(cfg).get("train_steps", pipeline_ngp.DEFAULT_TRAIN_STEPS))
+    fps = field.flops_per_sample()
+    view_bound = fps * H * W * NGP_RENDER_SAMPLES / H100_F32_FLOPS
+    out = dict(steps=steps, sub=sub, wall=wall, launches=launches, peak_bytes=peak,
+               recall=recall, precision=precision, final_loss=losses[-1], psnr=psnrs,
+               depth_iou_min=min(depth_iou), depth_iou_mean=float(np.mean(depth_iou)),
+               train_ms_per_step=sub["train"] / steps_n * 1e3,
+               view_s=sub["render"] / views, view_bound_s=view_bound,
+               triangles=len(nerf_f), **versus)
+    log(f"stage 1 with the NeRF on cuda: {wall:.3f} s through the CLI; seconds per step "
+        f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; run_ngp's parts "
+        f"{json.dumps({k: round(v, 4) for k, v in sub.items()})}; peak device memory "
+        f"{peak / 2**30:.3f} GiB; kernel launches {launches} (the NeRF has no CUDA kernel)")
+    log(f"run_ngp: {steps_n} steps in {sub['train']:.3f} s = {out['train_ms_per_step']:.3f} "
+        f"ms a step (9a's steady step {versus['step_ms']:.3f} ms, bound "
+        f"{versus['step_bound_ms']:.3f} ms); {views} views at {W}x{H} in {sub['render']:.3f} s "
+        f"= {out['view_s']:.4f} s a view (bound {view_bound:.4f} s); density "
+        f"{sub['density']:.3f} s; marching (host C++) {sub['marching']:.3f} s; meshes saved "
+        f"in {sub['save_meshes']:.3f} s")
+    log(f"run_ngp mesh: {len(nerf_f)} triangles, shell recall {recall:.4f}, precision (vertices "
+        f"within 2 voxels of the r={CAPTURE_HEAD_R_NERF} shell) {precision:.4f}; final loss "
+        f"{losses[-1]:.6f} (curve {[round(x, 6) for x in losses]}); PSNR of frames 0 and 1 "
+        f"{psnrs[0]:.3f} / {psnrs[1]:.3f} dB; depth IoU of render_depth from this mesh with "
+        f"the head silhouettes min {min(depth_iou):.6f} mean {np.mean(depth_iou):.6f}")
+    print(smi_line(), flush=True)
+    if not (len(nerf_f) and len(mvs_v) == len(nerf_v) and np.array_equal(mvs_f, nerf_f)
+            and replaced):
+        raise AssertionError(f"run_ngp's meshes: base.obj {len(nerf_v)} vertices, "
+                             f"colmap_points.obj {len(mvs_v)}, replaced {replaced}")
+    if missing or shapes != {(H, W, 3)} or views != 16:
+        raise AssertionError(f"run_ngp's {views} fixed views: shapes {shapes}, "
+                             f"missing {missing}")
+    if recall < 0.8:
+        raise AssertionError(f"run_ngp's mesh misses the head: shell recall {recall:.4f}")
+    return out
+
+
 KERNEL_META = {
     "patch_gather": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
                          replaces="monohair_tpu/ops/pallas_kernels.py:188"),
@@ -1375,8 +1667,10 @@ def main(argv=None) -> int:
     stage3 = phase_stage3(dev, grow.pop("voxel_strands"), opts.profile)
     with Phase("8 prepare_data"):
         stage1 = phase_prepare_data(dev)
+    with Phase("9 prepare_data with the NeRF"):
+        ngp = phase_ngp(dev)
     by_path = {"pmvo": width["launches"], "infer_inner_fuse": stage3["stage"]["launches"],
-               "prepare_data": stage1["launches"]}
+               "prepare_data": stage1["launches"], "prepare_data_ngp": ngp["launches"]}
     kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:
         with Phase("profile"):

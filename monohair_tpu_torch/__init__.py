@@ -9,7 +9,7 @@ library only. Entry points run on ``cuda`` unless the caller passes
 versions that CPU tensors take.
 
 Ported so far, each with its ``python -m monohair_tpu_torch.<stage>`` entry
-point: stage 1's image half (``prepare_data`` without the NeRF and the bust
+point: stage 1 (``prepare_data``, with the coarse NeRF, without the bust
 fit), stage 2 (``PMVO``), stage 3 (``infer_inner``) and stage 4
 (``HairGrow``).
 """

@@ -18,10 +18,35 @@ def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """Parse an OBJ file -> (vertices (V,3) float64, faces (F,3) int64).
 
     Handles `v x y z` and `f a b c` / `f a/b/c ...` lines; polygons are
-    fan-triangulated. Ignores normals/uvs/materials.
+    fan-triangulated. Ignores normals/uvs/materials. A file of `v x y z` and
+    `f a b c` records only (as save_obj writes it) is parsed in bulk.
     """
+    plain = _load_plain_triangles(path)
+    if plain is not None:
+        return plain
     v, fa, _, _ = load_obj_with_uv(path)
     return v, fa
+
+
+def _load_plain_triangles(path: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(vertices, faces) of an OBJ whose vertex and face records are all
+    `v x y z` and `f a b c` with positive indices (other records ignored, no
+    texture coordinates), else None."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if any(line.startswith("vt ") for line in lines):
+        return None
+    vtok = " ".join(line[2:] for line in lines if line.startswith("v ")).split()
+    fjoined = " ".join(line[2:] for line in lines if line.startswith("f "))
+    ftok = fjoined.split()
+    nv = sum(line.startswith("v ") for line in lines)
+    nf = sum(line.startswith("f ") for line in lines)
+    if len(vtok) != 3 * nv or len(ftok) != 3 * nf or "/" in fjoined:
+        return None
+    faces = np.array(ftok, dtype=np.int64).reshape(-1, 3)
+    if len(faces) and faces.min() < 1:
+        return None
+    return np.array(vtok, dtype=np.float64).reshape(-1, 3), faces - 1
 
 
 def load_obj_with_uv(path: str):
@@ -61,13 +86,20 @@ def load_obj_with_uv(path: str):
     return v, fa, uv, fuv
 
 
-def save_obj(path: str, vertices: np.ndarray, faces: Optional[np.ndarray] = None) -> None:
+def save_obj(path: str, vertices: np.ndarray, faces: Optional[np.ndarray] = None,
+             rows: int = 65536) -> None:
+    """`v x y z` lines (%.8f) then 1-based `f a b c` lines, formatted
+    `rows` records at a time."""
     with open(path, "w") as f:
-        for v in vertices:
-            f.write(f"v {v[0]:.8f} {v[1]:.8f} {v[2]:.8f}\n")
+        _write_records(f, "v %.8f %.8f %.8f\n", np.asarray(vertices, np.float64), rows)
         if faces is not None:
-            for face in faces:
-                f.write(f"f {face[0] + 1} {face[1] + 1} {face[2] + 1}\n")
+            _write_records(f, "f %d %d %d\n", np.asarray(faces, np.int64) + 1, rows)
+
+
+def _write_records(f, fmt: str, table: np.ndarray, rows: int) -> None:
+    for beg in range(0, len(table), rows):
+        part = table[beg:beg + rows]
+        f.write((fmt * len(part)) % tuple(part.reshape(-1).tolist()))
 
 
 def sample_mesh_surface(vertices: np.ndarray, faces: np.ndarray, num_points: int,

@@ -1,2 +1,3 @@
-"""NeRF-side plumbing of stage 1. Only the pose chain is ported so far; the
-NeRF itself (the Fourier, hash and dense fields, training, marching) is not."""
+"""Stage 1's coarse NeRF (run_ngp) and its pose chain: the Fourier, hash and
+dense fields, the renderer and occupancy grid, training, the mesh export
+through marching tetrahedra, the COLMAP converter."""

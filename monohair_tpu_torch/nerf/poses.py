@@ -1,6 +1,5 @@
 """Pose plumbing between the MVS calibration rig, the NGP camera-path frame,
-and NeRF transforms.json (port of monohair_tpu/nerf/poses.py, numpy float64;
-``auto_key_frame`` waits for the NeRF).
+and NeRF transforms.json (port of monohair_tpu/nerf/poses.py, numpy float64).
 
 Equivalent of Utils/ingp_utils.py: the fixed 16-view rig poses are re-anchored
 on a single "key frame" (the NGP pose of the front view), capture-image MVS
@@ -21,7 +20,7 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 from scipy.spatial.transform import Rotation as R
@@ -180,3 +179,29 @@ def convert_mesh_nerf_to_mvs(vertices_nerf: np.ndarray, data_folder: str,
     v = (anchor[:3, :3] @ v.T + anchor[:3, 3:4]).T
     v = v / 2.0 - 1.0
     return v - BUST_TO_ORIGIN
+
+
+def auto_key_frame(data_folder: str, camera_path: str,
+                   front_image: Optional[str] = None) -> str:
+    """Automate the reference's interactive key-frame pick (readme TODO).
+
+    Choose the capture pose closest to the rig's front view direction (or the
+    named image) and write key_frame.json with its NGP pose.
+    """
+    xforms, fov = load_transforms_json(os.path.join(data_folder, "transforms.json"))
+    names = list(xforms)
+    if front_image is not None and front_image in xforms:
+        pick = front_image
+    else:
+        # front = camera whose viewing direction best matches the average
+        # look-at of all captures toward the scene center
+        centers = np.stack([xforms[n][:3, 3] for n in names])
+        center = centers.mean(0)
+        dirs = np.stack([-xforms[n][:3, 2] for n in names])  # NeRF forward = -z
+        to_center = center - centers
+        to_center /= np.maximum(np.linalg.norm(to_center, axis=-1, keepdims=True), 1e-9)
+        pick = names[int(np.argmax(np.sum(dirs * to_center, -1)))]
+    m = nerf_to_ngp(xforms[pick])
+    path = os.path.join(data_folder, "key_frame.json")
+    save_base_cam(path, [_se3(m[:, :3], m[:, 3])], [fov])
+    return path

@@ -4,14 +4,16 @@ monohair_tpu/pipeline/prepare_data_stage.py; reference prepare_data.py :36-184).
 Sub-steps (each gated by a config flag, idempotent over the case dir):
   select_images  — per-interval sharpest frame by Laplacian variance
   process_camera — 16 fixed NGP views + per-capture-image MVS poses
+  run_ngp        — the coarse NeRF: train, 16 fixed-view renders, the mesh
+                   colmap/base.obj and ours/colmap_points.obj (nerf/pipeline.py)
   process_bust   — transform bust/scalp meshes by the fitted model_tsfm
   render_depth   — colmap-mesh depth maps for every capture view
   process_imgs   — hair segmentation masks + Gabor orientation/confidence
 
-Not ported yet (ROADMAP §1): run_ngp (the coarse NeRF that writes
-ours/colmap_points.obj) and fit_bust (the SMPL-X fit that writes model_tsfm.dat
-and Bust/). A run with either flag on raises before any file is written; with
-both off, ours/colmap_points.obj and Bust/ are read from the case directory.
+Not ported yet (ROADMAP §1): fit_bust (the SMPL-X fit that writes
+model_tsfm.dat and Bust/). A run with it on raises before any file is
+written; with it off, Bust/ is read from the case directory, and with run_ngp
+off, so is ours/colmap_points.obj.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from ..io.mesh_io import load_obj
 from ..ops.resize import bgr_to_gray, laplacian_variance
 from ..render import render_bust_hair_depth
 
-NOT_PORTED = ("run_ngp", "fit_bust")
+NOT_PORTED = ("fit_bust",)
 
 
 def check_ported(args: Config) -> None:
@@ -45,7 +47,7 @@ def check_ported(args: Config) -> None:
             f"prepare_data: {', '.join(on)} is not ported to monohair_tpu_torch yet "
             "(ROADMAP §1); switch it off with "
             + " ".join(f"--prepare_data.{k}=" for k in on)
-            + " and put ours/colmap_points.obj and Bust/ in the case directory")
+            + " and put Bust/ in the case directory")
 
 
 def frame_sharpness(path: str, device="cuda") -> float:
@@ -129,6 +131,11 @@ def run_prepare_data(args: Config, device="cuda") -> Dict[str, float]:
         shutil.copyfile(os.path.join(colmap_dir, "cam_params.json"),
                         os.path.join(root, "ours", "cam_params.json"))
         lap("process_camera")
+
+    if args.prepare_data.run_ngp:
+        from ..nerf import pipeline as ngp_pipeline
+        ngp_pipeline.run_ngp_stage(args, device)
+        lap("run_ngp")
 
     if args.prepare_data.process_bust:
         from ..bustfit.transforms import process_bust_meshes

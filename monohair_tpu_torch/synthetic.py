@@ -642,6 +642,9 @@ def capture_config(data_root: str, case: str, H: int, W: int, frame_interval: in
         "process_imgs": True})
     cfg["segment"] = Config({"modnet_flax": modnet, "parser_flax": parser,
                              "modnet_width": 1.0, "parser_width": 1.0})
+    # scene metadata, not budget: the NeRF composites the backdrop behind the
+    # volume, as configs/reconstruct/bigsynth.yaml sets it
+    cfg["ngp"] = Config({"background": [_BG] * 3})
     cfg.PMVO["patch_size"] = 7
     return cfg
 

@@ -6,7 +6,8 @@ import, chip_smoke's stage phase runs on the CPU at a small size, and
 `python -m monohair_tpu_torch.HairGrow --yaml=<case> --device=cpu` writes the
 stage's files on a small written case, as do PMVO and then
 `python -m monohair_tpu_torch.infer_inner` on another, and
-`python -m monohair_tpu_torch.prepare_data` on a small capture case."""
+`python -m monohair_tpu_torch.prepare_data` on a small capture case, once with
+the NeRF off and once with it on at a tiny budget."""
 
 import os
 import subprocess
@@ -45,6 +46,7 @@ GUARDED = textwrap.dedent('''
     import os, runpy, tempfile
     import numpy as np
     from monohair_tpu_torch.io.hair_io import load_hair
+    from monohair_tpu_torch.io.image_io import read_png
     from monohair_tpu_torch.io.mat_io import save_occ_ori_mat
     from monohair_tpu_torch.io.yaml_io import dump_yaml
     from monohair_tpu_torch.synthetic import make_wig, wig_grids, write_synthwig_case
@@ -102,6 +104,30 @@ GUARDED = textwrap.dedent('''
         assert np.load(os.path.join(case, "render_depth", "frame_0001.npy")).shape == (48, 64, 3)
         assert os.path.exists(os.path.join(case, "imgs", "001", "bust_hair_depth.png"))
 
+    # the prepare_data CLI with the NeRF on at a tiny budget (full-width
+    # Fourier field, 3 steps), the steps after it off
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_capture_case(tmp, "cap", num_frames=4, H=24, W=32)["config"]
+        cfg.ngp.update(train_steps=3, rays_per_batch=64, mesh_resolution=12,
+                       marching_cubes_density_thresh=1.0)
+        cfg.infer_inner["render_size"] = [16, 8]
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        sys.argv = ["prepare_data", "--yaml=" + os.path.join(tmp, "case"), "--device=cpu",
+                    "--prepare_data.run_ngp", "--prepare_data.fit_bust=",
+                    "--prepare_data.process_bust=", "--prepare_data.render_depth=",
+                    "--prepare_data.process_imgs=", "--ngp.train_steps=4"]
+        runpy.run_module("monohair_tpu_torch.prepare_data", run_name="__main__")
+        from monohair_tpu_torch.io.mesh_io import load_obj
+        case = os.path.join(tmp, "cap")
+        for view in ("000", "001"):
+            shot = read_png(os.path.join(case, "trainning_images", "capture_images", view + ".png"))
+            assert shot.shape == (16, 8, 3), shot.shape
+            assert os.path.exists(os.path.join(case, "imgs", view, "origin.png"))
+        nerf_v, nerf_f = load_obj(os.path.join(case, "colmap", "base.obj"))
+        mvs_v, mvs_f = load_obj(os.path.join(case, "ours", "colmap_points.obj"))
+        assert len(nerf_v) == len(mvs_v) and np.array_equal(nerf_f, mvs_f)
+
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("GUARD_OK", len(names))
@@ -132,3 +158,23 @@ def test_stage_clis_run_on_the_card_unless_told_otherwise(monkeypatch):
         assert seen == [(["--yaml=configs/reconstruct/synthwig",
                           "--HairGenerate.connect_scalp!"], "cuda"),
                         (["--yaml=configs/reconstruct/synthwig"], "cpu")]
+
+
+def test_the_nerf_runs_on_the_card_unless_told_otherwise(monkeypatch):
+    """prepare_data hands its device to run_ngp_stage, whose own default, like
+    train_ngp's, is the card; only the arguments are looked at."""
+    import inspect
+    from monohair_tpu_torch import prepare_data
+    from monohair_tpu_torch.config import Config
+    from monohair_tpu_torch.nerf import pipeline
+    for fn in (pipeline.run_ngp_stage, pipeline.train_ngp, pipeline.make_field):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    flags = dict.fromkeys(("select_images", "process_camera", "fit_bust", "process_bust",
+                           "render_depth", "process_imgs"), False)
+    cfg = Config({"data": {"root": "unused"}, "prepare_data": dict(flags, run_ngp=True)})
+    seen = []
+    monkeypatch.setattr(prepare_data, "resolve_config", lambda argv, **kw: cfg)
+    monkeypatch.setattr(pipeline, "run_ngp_stage", lambda args, device: seen.append(device))
+    prepare_data.main(["--yaml=unused"])
+    prepare_data.main(["--yaml=unused", "--device=cpu"])
+    assert seen == ["cuda", "cpu"]

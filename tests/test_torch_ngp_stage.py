@@ -1,0 +1,200 @@
+"""The port's run_ngp stage (monohair_tpu_torch/nerf/pipeline.py) on
+tests/test_ngp_stage.py's mini case: an analytic head ball orbited by 8
+views at 96x96, the reduced Fourier field (32 features, 32 wide, depth 3)
+through the real make_field registry, 1500 steps of 128 rays.
+
+Held: the port's own run_ngp_stage reaches shell recall >= 0.8 at the export
+resolution, as the JAX stage's test requires of it; its export half on the
+port's trained weights against the JAX stage on the same weights (the JAX
+package's train_nerf monkeypatched to return them): the same triangle count
+and faces, vertices within 1e-5 on >= 99.9% of coordinates and within 1e-3
+on all, the fixed-view PNGs equal on >= 99.9% of values and within one step;
+auto_key_frame and colmap_to_transforms write the JAX package's files.
+
+Why not every vertex within 1e-5: the densities of the two packages differ in
+the last places of f32 (~1e-5 relative, the MLP's products summed in other
+orders), and a vertex sits at u = (iso - a) / (b - a) along its edge, so on an
+edge whose two densities nearly tie the difference is amplified (measured:
+263 of 776,988 coordinates above 1e-5, the largest 2.1e-4, on this field's
+fog at 24^3)."""
+
+import json
+import os
+import shutil
+
+import jax  # noqa: F401  (jax before torch: importing torch first can deadlock)
+import numpy as np
+import pytest
+import torch
+
+from monohair_tpu_torch.config import Config
+from monohair_tpu_torch.io.image_io import read_png
+from monohair_tpu_torch.io.mesh_io import load_obj
+from monohair_tpu_torch.nerf import pipeline
+from monohair_tpu_torch.nerf.fourier import FourierField
+from tests.test_ngp_stage import HEAD_R, HH, WW, _build_case
+
+torch.set_num_threads(1)
+MESH_RES = 48
+
+
+def small_make_field(real):
+    def make(kind, device="cuda", generator=None):
+        field, tv, lr = real(kind, device, generator)
+        if kind == "fourier":
+            field = FourierField(num_features=32, hidden=32, depth=3, geo_feat=7,
+                                 sparsity_weight=field.sparsity_weight,
+                                 generator=torch.Generator(device).manual_seed(0),
+                                 device=device)
+        return field, tv, lr
+    return make
+
+
+def stage_config(root, calib):
+    return {"data": {"root": root, "image_size": [HH, WW]},
+            "camera_path": calib,
+            "infer_inner": {"render_size": [48, 64]},
+            "ngp": {"train_steps": 1500, "rays_per_batch": 128,
+                    "mesh_resolution": MESH_RES, "background": [0.92, 0.92, 0.92],
+                    "log_every": 500,
+                    # the JAX stage's TPU knobs: accepted, no effect
+                    "scan_block": 4, "sync_every": 4, "use_remat": True}}
+
+
+def shell_recall(verts, res, bound, radius):
+    """tests/test_ngp_stage.py's measure: the share of the voxels within 1.5
+    voxels of the sphere that a mesh vertex's voxel, dilated by one, covers."""
+    vox = 2 * bound / res
+    ax = np.linspace(-bound, bound, res)
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    shell = np.abs(np.sqrt(X ** 2 + Y ** 2 + Z ** 2) - radius) < 1.5 * vox
+    vi = np.clip(np.round((verts + bound) / (2 * bound) * (res - 1)), 0, res - 1).astype(int)
+    pred = np.zeros((res,) * 3, bool)
+    pred[vi[:, 0], vi[:, 1], vi[:, 2]] = True
+    for axis in range(3):
+        pred |= np.roll(pred, 1, axis) | np.roll(pred, -1, axis)
+    return (pred & shell).sum() / shell.sum()
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """The port's run_ngp_stage on the mini case; the trained field kept."""
+    root = str(tmp_path_factory.mktemp("ngp") / "case")
+    calib = _build_case(root)
+    kept = {}
+    real_train = pipeline.train_ngp
+
+    def keep(args, device="cuda"):
+        kept["out"] = real_train(args, device)
+        return kept["out"]
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(pipeline, "make_field", small_make_field(pipeline.make_field))
+    mp.setattr(pipeline, "train_ngp", keep)
+    try:
+        seconds = pipeline.run_ngp_stage(Config(stage_config(root, calib)), device="cpu")
+    finally:
+        mp.undo()
+    return root, calib, kept["out"], seconds
+
+
+def test_port_stage_writes_an_on_surface_mesh(trained):
+    root, _, (field, losses, occ), seconds = trained
+    assert occ is None and losses[-1] < losses[0]
+    assert set(seconds) == {"train", "render", "density", "marching", "save_meshes"}
+    verts, faces = load_obj(os.path.join(root, "colmap/base.obj"))
+    assert len(verts) > 0 and len(faces) > 0
+    mvs_verts, mvs_faces = load_obj(os.path.join(root, "ours/colmap_points.obj"))
+    assert len(mvs_verts) == len(verts) and np.array_equal(mvs_faces, faces)
+    for i in ("000", "001"):
+        assert read_png(os.path.join(root, "trainning_images/capture_images", i + ".png")
+                        ).shape == (48, 64, 3)
+        assert os.path.exists(os.path.join(root, "imgs", i, "origin.png"))
+    recall = shell_recall(verts, MESH_RES, pipeline.DEFAULT_MESH_BOUND, HEAD_R)
+    assert recall >= 0.8, f"coarse mesh misses the surface: recall={recall:.3f}"
+
+
+def flax_variables_of(field):
+    """The port's FourierField state as the JAX package's flax variables."""
+    params = {}
+    for name, p in field.state_dict().items():
+        module, leaf = name.rsplit(".", 1)
+        module = module.replace("trunk.", "trunk_")
+        params.setdefault(module, {})["kernel" if leaf == "weight" else "bias"] = (
+            p.numpy().T if leaf == "weight" else p.numpy())
+    return {"params": params}
+
+
+def test_export_half_matches_the_jax_stage(trained, tmp_path, monkeypatch):
+    from monohair_tpu.config import Config as JaxConfig
+    from monohair_tpu.nerf import pipeline as jpipe
+    from monohair_tpu.nerf.fourier import FourierField as JaxFourier
+    root, calib, (field, _, _), _ = trained
+    port, ref = str(tmp_path / "port"), str(tmp_path / "ref")
+    for d in (port, ref):
+        shutil.copytree(root, d, ignore=shutil.ignore_patterns(
+            "trainning_images", "imgs", "ours", "base.obj"))
+    jfield = JaxFourier(num_features=32, hidden=32, depth=3, geo_feat=7)
+    variables = jax.tree_util.tree_map(np.asarray, flax_variables_of(field))
+    monkeypatch.setattr(jpipe, "train_nerf",
+                        lambda ds, **kw: (jfield, variables, [0.0], None))
+    # a coarser export than the fixture's: the mini field's unseen corners are
+    # fog, and its ~600k triangles at 48^3 cost seconds of OBJ text a file
+    cfg = stage_config(ref, calib)
+    cfg["ngp"]["mesh_resolution"] = 24
+    jpipe.run_ngp_stage(JaxConfig(cfg))
+    cfg["data"]["root"] = port
+    pipeline.export_ngp(Config(cfg), field)
+    for name in ("colmap/base.obj", "ours/colmap_points.obj"):
+        v, f = load_obj(os.path.join(port, name))
+        jv, jf = load_obj(os.path.join(ref, name))
+        assert len(f) == len(jf) > 100, name
+        np.testing.assert_array_equal(f, jf)
+        err = np.abs(v - jv)
+        assert np.mean(err > 1e-5) <= 1e-3 and err.max() <= 1e-3, (name, err.max())
+    for i in ("000", "001"):
+        for sub in ("trainning_images/capture_images/%s.png" % i, "imgs/%s/origin.png" % i):
+            a = read_png(os.path.join(port, sub)).astype(int)
+            b = read_png(os.path.join(ref, sub)).astype(int)
+            assert a.shape == b.shape == (48, 64, 3)
+            assert np.mean(a == b) >= 0.999 and np.abs(a - b).max() <= 1, sub
+
+
+def test_key_frame_and_colmap_conversion_write_the_jax_files(trained, tmp_path):
+    from monohair_tpu.nerf import colmap as jcolmap
+    from monohair_tpu.nerf import poses as jposes
+    from monohair_tpu_torch.nerf import colmap, poses
+    root = trained[0]
+    for mod, d in ((poses, tmp_path / "port"), (jposes, tmp_path / "ref")):
+        d.mkdir()
+        shutil.copy(os.path.join(root, "colmap/transforms.json"), d)
+        mod.auto_key_frame(str(d), trained[1])
+    a = json.load(open(tmp_path / "port" / "key_frame.json"))
+    b = json.load(open(tmp_path / "ref" / "key_frame.json"))
+    assert a == b
+    for mod, d in ((poses, tmp_path / "port"), (jposes, tmp_path / "ref")):
+        mod.auto_key_frame(str(d), trained[1], front_image="frame_0003")
+    assert (json.load(open(tmp_path / "port" / "key_frame.json"))
+            == json.load(open(tmp_path / "ref" / "key_frame.json")))
+    # a COLMAP text model of three cameras (comments, a 2D-point line each)
+    model = tmp_path / "model"
+    model.mkdir()
+    (model / "cameras.txt").write_text(
+        "# Camera list\n1 PINHOLE 640 480 500.5 498.0 320.1 239.7\n"
+        "2 SIMPLE_RADIAL 640 480 510.0 320.0 240.0 0.01\n")
+    rng = np.random.default_rng(0)
+    lines = ["# Image list"]
+    for k in range(3):
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        t = rng.normal(size=3)
+        pose = " ".join(repr(float(x)) for x in np.concatenate([q, t]))
+        lines.append(f"{k + 1} {pose} {1 + k % 2} img_{k}.png")
+        lines.append("12.5 33.1 -1 40.2 11.0 7")
+    (model / "images.txt").write_text("\n".join(lines) + "\n")
+    out = colmap.colmap_to_transforms(str(model), str(tmp_path / "port.json"))
+    want = jcolmap.colmap_to_transforms(str(model), str(tmp_path / "ref.json"))
+    assert out == want
+    assert open(tmp_path / "port.json").read() == open(tmp_path / "ref.json").read()
+    assert colmap.read_cameras_txt(str(model / "cameras.txt")) == \
+        jcolmap.read_cameras_txt(str(model / "cameras.txt"))

@@ -9,8 +9,8 @@ on >= 99.5%). The whole stage on a 4-frame capture case at 96x128 with the
 shipped hair-parser weights, file by file: the same frames, cameras, meshes,
 depth maps; hair_mask/ and mask/ within 1 LSB (uint8 truncation of floats);
 Gabor bins equal on >= 99% of the pixels with nonzero written confidence and
-within one bin there (2 once encoded), conf within 1 LSB. Also the stage's own rules: run_ngp
-or fit_bust left on raises before any file is written, and a JPEG capture
+within one bin there (2 once encoded), conf within 1 LSB. Also the stage's own rules: fit_bust
+left on raises before any file is written (with run_ngp on too), and a JPEG capture
 raises a ValueError that names the missing codec."""
 
 import json
@@ -227,15 +227,19 @@ def write_yaml(cfg, path):
 
 @pytest.mark.parametrize("flag", ["run_ngp", "fit_bust"])
 def test_unported_steps_raise_before_any_file_is_written(small_case, tmp_path, flag):
+    """fit_bust on raises before any file is written, also beside run_ngp
+    (ported), and the message names fit_bust only."""
     from monohair_tpu_torch import prepare_data
     shutil.copytree(small_case[0], tmp_path / "cap")
     before = sorted(p for p, _, _ in os.walk(tmp_path))
     cfg = stage_config(small_case)
     cfg.data["root"] = str(tmp_path)
     cfg.prepare_data[flag] = True
+    cfg.prepare_data["fit_bust"] = True
     write_yaml(cfg, str(tmp_path / "case"))
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP.*--prepare_data\.{flag}="):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*--prepare_data\.fit_bust=") as err:
         prepare_data.main(["--yaml=" + str(tmp_path / "case"), "--device=cpu"])
+    assert "run_ngp" not in str(err.value)
     assert sorted(p for p, _, _ in os.walk(tmp_path)) == before
     assert not os.path.exists(tmp_path / "cap" / "capture_images")
 
