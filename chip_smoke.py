@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's stages 1 (prepare_data, with and without the
-coarse NeRF), 2 (PMVO), 3 (infer_inner) and 4 (HairGrow) on one GPU and check
-them.
+coarse NeRF and the bust fit), 2 (PMVO), 3 (infer_inner) and 4 (HairGrow) on
+one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -58,6 +58,26 @@ Phases, each printing a line when it starts and when it ends:
               precision, final loss, PSNR of 2 training frames, depth IoU of
               render_depth from this mesh, seconds per part against bounds,
               peak memory
+ 10. bust fit 10a: FAN (2DFAN-4 at its published width, seeded random
+              weights) on the 16 rig frames of a fresh phase-8 case, its
+              heatmaps on the card against the CPU on 2 frames (1e-4 of the
+              largest heat), ms a frame; the four annotation backends
+              (MODNet matte, FAN landmarks, iris, BiSeNet parse) on a copy of
+              the case and the formats they write. 10b: the case through
+              select_images and process_camera, a synthetic SMPL-X at the
+              official sizes (10,475 vertices, 20,908 faces, 55 joints) whose
+              template the known similarity carries onto the capture head,
+              annotations written from truth; fit_losses and its gradients on
+              the card against the CPU (terms 1e-4 relative, gradients 1e-3 of
+              their norm), the steady step time and busy share; then the
+              prepare_data CLI with fit_bust, process_bust and render_depth on
+              (2000 iterations, fewer when they would pass FIT_BUDGET_S): the
+              fitted head's similarity within 1 degree, 1% and 0.005 of the
+              truth, the landmark vertices within 0.01 and 5x closer than at
+              the start, model_tsfm[_semantic].dat at the root, Bust/ and
+              ours/*_tsfm.obj non-empty, bust depth in every rig view;
+              printed: model_tsfm.dat's own share of the rotation, seconds
+              per step, ms a fit step, the loss curve, depth IoU, peak memory
 Phase 3 also holds the tap loop at the shapes PR 7's kernel refused (S = 1 at
 P = 225, the refine pass at patch 15; 1100 views).
 
@@ -74,6 +94,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -85,6 +106,9 @@ import torch
 from monohair_tpu_torch import HairGrow as grow_cli, PMVO as pmvo_cli
 from monohair_tpu_torch import infer_inner as infer_cli
 from monohair_tpu_torch import prepare_data as prepare_cli
+from monohair_tpu_torch.bustfit import optimize as bust_optimize
+from monohair_tpu_torch.bustfit import pipeline as bust_pipeline
+from monohair_tpu_torch.bustfit.transforms import load_model_tsfm
 from monohair_tpu_torch.camera import Cameras
 from monohair_tpu_torch.config import Config
 from monohair_tpu_torch.constants import BUST_TO_ORIGIN, VOXEL_MAX, VOXEL_MIN, VOXEL_SIZE
@@ -119,7 +143,12 @@ from monohair_tpu_torch.pipeline.infer_inner_stage import load_net, occ_margin
 from monohair_tpu_torch.pipeline.pmvo_stage import run_pmvo
 from monohair_tpu_torch.render import (render_data, render_view, strands_to_segments,
                                        upload_segments)
-from monohair_tpu_torch.segment.runners import MattingRunner, ParsingRunner
+from monohair_tpu_torch.ops.resize import resize_linear
+from monohair_tpu_torch.segment.annotations import AnnotationProcessor, default_backends
+from monohair_tpu_torch.segment.convert import save_flax_npz
+from monohair_tpu_torch.segment.fan import FAN, decode_heatmaps
+from monohair_tpu_torch.segment.runners import (LandmarkRunner, MattingRunner, ParsingRunner,
+                                                face_box_from_mask)
 from monohair_tpu_torch.pmvo import solver
 from monohair_tpu_torch.pmvo.driver import (auto_chunk, exact_f32, filter_raw_points,
                                             optimize_points, refine_and_voxelize)
@@ -127,13 +156,15 @@ from monohair_tpu_torch.strands import connect as strand_connect
 from monohair_tpu_torch.strands.smooth import smooth_strand_list
 from monohair_tpu_torch.strands.trace import (generate_guide_and_segments, strands_to_list,
                                               trace_bidirectional, trace_from_scalp)
-from monohair_tpu_torch.synthetic import (CAPTURE_HEAD_R_NERF, analytic_head_maps, cameras_numpy,
+from monohair_tpu_torch.synthetic import (CAPTURE_HEAD_R_NERF, SMPLX_OFFICIAL,
+                                          analytic_head_maps, cameras_numpy,
                                           curved_strand_batch, grow_bust_mesh, grow_field,
                                           grow_scalp_cap, hair_shell_points, head_camera_list,
                                           mvs_train_camera_list, mvs_train_head_mesh,
                                           mvs_train_occupancy, mvs_train_queries, mvs_train_wig,
                                           MVS_TRAIN_RENDER_SIZE, shell_points, swirl_direction,
-                                          write_capture_case, write_synthwig_case)
+                                          write_bust_fit_assets, write_capture_case,
+                                          write_synthwig_case)
 
 # Phase 5 point count: a quarter of big_wavy1's 2.1 M raw points.
 FULL_WIDTH_POINTS = 524_288
@@ -1635,6 +1666,305 @@ def phase_ngp(dev: torch.device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+FIT_ITERS = 2000                 # run_bust_fit's default (optimize.iter)
+FIT_BUDGET_S = 240.0             # the fit's share of the smoke run's time limit
+FIT_TIMED_STEPS = 20             # steady steps timed with CUDA events
+FAN_CHECK_FRAMES = 2             # frames whose heatmaps are held card against CPU
+
+
+def fan_checkpoint(path: str) -> None:
+    """2DFAN-4 at its published width (4 modules of depth 4, 256 features)
+    with seeded random weights and running statistics, as a flax tree."""
+    torch.manual_seed(0)
+    net = FAN(num_modules=4, depth=4, width=1.0)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    save_flax_npz(net, path)
+
+
+def write_fit_case(tmp: str):
+    """Phase 8's capture case (32 frames at 1280x720, the shipped hair-parser
+    weights) through select_images and process_camera, then the bust fit's
+    synthetic assets and annotations at the official SMPL-X sizes. Returns
+    (config, case dir, truth)."""
+    written = write_capture_case(tmp, "capture", CAPTURE_FRAMES, *CAPTURE_SIZE,
+                                 frame_interval=CAPTURE_INTERVAL,
+                                 modnet=SEGMENT_WEIGHTS["modnet"],
+                                 parser=SEGMENT_WEIGHTS["bisenet"])
+    cfg, case = written["config"], os.path.join(tmp, "capture")
+    with open(os.path.join(tmp, "case.yaml"), "w") as f:
+        f.write(dump_yaml(cfg.to_dict()))
+    prepare_cli.main(["--yaml=" + os.path.join(tmp, "case"), "--prepare_data.run_ngp=",
+                      "--prepare_data.fit_bust=", "--prepare_data.process_bust=",
+                      "--prepare_data.render_depth=", "--prepare_data.process_imgs="])
+    truth = write_bust_fit_assets(case, cfg, written["mvs_poses"], *CAPTURE_SIZE,
+                                  sizes=SMPLX_OFFICIAL, iters=FIT_ITERS)
+    return cfg, case, truth
+
+
+def stage_args(cfg: Config, case: str) -> Config:
+    """The stage's resolved config for a written case (data.root = the case)."""
+    args = Config(json.loads(json.dumps(cfg.to_dict())))
+    args.data["root"] = case
+    return args
+
+
+def phase_fan(dev: torch.device, case: str, cfg: Config, tmp: str) -> dict:
+    """10a: FAN at its published width with seeded random weights on the case's
+    16 rig frames: heatmaps on the card against the CPU on 2 frames, ms a
+    frame; then the four annotation backends on a copy of the case and the
+    formats of what they write."""
+    ckpt = os.path.join(tmp, "fan.npz")
+    fan_checkpoint(ckpt)
+    files = sorted(os.listdir(os.path.join(case, "capture_images")))
+    rgb = np.stack([read_png(os.path.join(case, "capture_images", f)) for f in files])
+    boxes = np.stack([face_box_from_mask(read_png(os.path.join(case, "labels", "hit", f)) / 255.0)
+                      for f in files])
+    heat = {}
+    for device in ("cpu", dev):
+        runner = LandmarkRunner(ckpt, device=device)
+        heat[str(device)] = runner.heatmaps(torch.as_tensor(rgb[:FAN_CHECK_FRAMES], device=device),
+                                            boxes[:FAN_CHECK_FRAMES]).cpu()
+    cpu_heat = heat["cpu"]
+    heat_err = float((heat[str(dev)] - cpu_heat).abs().max() / cpu_heat.abs().max())
+    same_argmax = float((decode_heatmaps(heat[str(dev)].permute(0, 2, 3, 1).numpy())
+                         == decode_heatmaps(cpu_heat.permute(0, 2, 3, 1).numpy())).mean())
+    frames = torch.as_tensor(rgb, device=dev)
+    with torch.inference_mode():
+        crops = torch.stack([resize_linear(f.permute(2, 0, 1)[None], (256, 256))[0]
+                             for f in frames]).float() / 255.0
+        fan_ms = cuda_time_ms(lambda: runner.net(crops), iters=5, warmup=1) / len(files)
+    lmk = runner.landmarks(frames, boxes)
+    log(f"10a FAN (2DFAN-4, random weights) card vs CPU on {FAN_CHECK_FRAMES} frames: heatmap "
+        f"max abs err {heat_err:.3g} of the largest heat, decoded landmarks equal on "
+        f"{same_argmax:.4f}; {fan_ms:.3f} ms a frame at a batch of {len(files)} "
+        f"(CUDA events); landmarks {lmk.shape}")
+    print(smi_line(), flush=True)
+    if heat_err > 1e-4 or not np.isfinite(lmk).all():
+        raise AssertionError(f"FAN on the card disagrees with its CPU path ({heat_err})")
+
+    # the four annotation backends on a copy of the case
+    copy_dir = os.path.join(tmp, "annotate")
+    shutil.copytree(os.path.join(case, "capture_images"), os.path.join(copy_dir, "capture_images"))
+    acfg = stage_args(cfg, copy_dir)
+    acfg.segment.update(fan_flax=ckpt, fan_modules=4, fan_depth=4, fan_width=1.0)
+    t = time.perf_counter()
+    status = AnnotationProcessor(copy_dir, backends=default_backends(acfg, dev)).run()
+    annotate_s = time.perf_counter() - t
+    opt = os.path.join(copy_dir, "optimize")
+    bad = []
+    for f in files:
+        stem = f[:-4]
+        rgba = read_png(os.path.join(opt, "matting", f))
+        if rgba.shape != (*CAPTURE_SIZE, 4) or not np.array_equal(rgba[..., :3], read_png(
+                os.path.join(case, "capture_images", f))):
+            bad.append(("matting", f, rgba.shape))
+        if np.loadtxt(os.path.join(opt, "landmark2d", stem + ".txt")).shape != (68, 2):
+            bad.append(("landmark2d", f))
+        iris = np.loadtxt(os.path.join(opt, "iris", stem + ".txt"))
+        if iris.shape != (2, 3) or not (iris[:, 2] == 1).all():
+            bad.append(("iris", f, iris.shape))
+        cls = read_png(os.path.join(opt, "face_parsing", f))
+        if cls.shape != CAPTURE_SIZE or cls.dtype != np.uint8 or cls.max() > 18:
+            bad.append(("face_parsing", f, cls.shape))
+    log(f"10a annotation backends on {len(files)} frames in {annotate_s:.3f} s: {status}; "
+        f"formats: RGBA matte, (68, 2) landmarks, (2, 3) iris, uint8 classes "
+        f"({'all as expected' if not bad else bad[:4]})")
+    if bad or set(status.values()) != {"computed"}:
+        raise AssertionError(f"annotation backends: {status}, {bad[:4]}")
+    return dict(heat_err=heat_err, fan_ms=fan_ms, annotate_s=annotate_s)
+
+
+def similarity_of(src: np.ndarray, dst: np.ndarray):
+    """Umeyama: (s, R, t) with dst ~ s R src + t, least squares."""
+    ms, md = src.mean(0), dst.mean(0)
+    a, b = src - ms, dst - md
+    U, S, Vt = np.linalg.svd(b.T @ a / len(src))
+    d = np.sign(np.linalg.det(U @ Vt))
+    D = np.diag([1.0, 1.0, d])
+    R = U @ D @ Vt
+    s = float(np.trace(np.diag(S) @ D) / (a ** 2).sum(1).mean())
+    return s, R, md - s * R @ ms
+
+
+def rotation_deg(R: np.ndarray) -> float:
+    return float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1.0, 1.0))))
+
+
+def fit_card_against_cpu(args: Config, dev: torch.device) -> dict:
+    """10b: fit_losses and its gradients at one seeded state on the card and on
+    the CPU; then the card's steady step time and busy share."""
+    rng = np.random.default_rng(0)
+    problems = {str(d): bust_pipeline.load_fit_problem(args, d) for d in ("cpu", dev)}
+    prob = problems["cpu"]
+    model = prob.model
+    n_tex = prob.tex_model.n_tex
+    leaves = [rng.normal(size=model.num_betas) * 0.1, rng.normal(size=model.num_expr) * 0.1,
+              rng.normal(size=n_tex) * 0.1, rng.normal(size=(prob.frames, 9, 3)) * 0.1,
+              rng.normal(size=(model.num_joints, 3)) * 0.01, rng.normal(size=3) * 0.02,
+              rng.normal(size=3) * 0.005, np.float32(0.02)]
+    terms, grads = {}, {}
+    for name, p in problems.items():
+        params, _, _ = bust_optimize.fit_setup(
+            p.model, p.cameras, p.image_size, p.targets, p.lmk_ids, p.iris_ids, p.tex_model,
+            FIT_ITERS, sil_scale=p.sil_scale,
+            start=bust_optimize.fit_params_from_numpy(leaves, name))
+        for x in params:
+            x.requires_grad_(True)
+        m = p.model._replace(faces=torch.as_tensor(p.model.faces, device=p.model.device))
+        dvc = p.model.device
+        t = bust_optimize.fit_losses(
+            m, params, p.cameras, p.image_size, p.targets, p.lmk_ids, p.iris_ids,
+            torch.as_tensor(bust_optimize.default_init_pose(model.num_joints), device=dvc),
+            torch.as_tensor(bust_optimize.free_joint_mask(model.num_joints, True), device=dvc),
+            p.tex_model, bust_optimize.DEFAULT_WEIGHTS, sil_scale=p.sil_scale)
+        terms[name] = {k: float(v.detach()) for k, v in t.items()}
+        g = torch.autograd.grad(bust_optimize.total_loss(t), list(params), allow_unused=True)
+        grads[name] = [torch.zeros_like(x) if gx is None else gx for x, gx in zip(params, g)]
+    card = str(dev)
+    term_err = max(abs(terms[card][k] - v) / max(abs(v), 1e-12) for k, v in terms["cpu"].items())
+    grad_err = {f: rel_norm_err(a, b) for f, a, b in
+                zip(bust_optimize.FitParams._fields, grads[card], grads["cpu"])
+                if float(b.norm()) > 0}
+    log(f"10b fit_losses card vs CPU at a seeded state ({prob.frames} views, "
+        f"{len(model.faces)} faces): terms max rel err {term_err:.3g} "
+        f"({json.dumps({k: round(v, 6) for k, v in terms[card].items()})}); gradient rel norm "
+        f"err per leaf {json.dumps({k: float(f'{v:.3g}') for k, v in grad_err.items()})}")
+
+    p = problems[card]
+    params, opt, loss_fn = bust_optimize.fit_setup(
+        p.model, p.cameras, p.image_size, p.targets, p.lmk_ids, p.iris_ids, p.tex_model,
+        FIT_ITERS, sil_scale=p.sil_scale)
+    step_ms = cuda_time_ms(lambda: bust_optimize.fit_step(params, opt, loss_fn),
+                           iters=FIT_TIMED_STEPS, warmup=3)
+    busy = device_profile(lambda: bust_optimize.fit_step(params, opt, loss_fn),
+                          "one bust-fit step (16 views, 20,908 faces)", top=12)
+    if term_err > 1e-4 or max(grad_err.values()) > 1e-3:
+        raise AssertionError(f"the bust fit on the card disagrees with its CPU path: terms "
+                             f"{term_err}, gradients {grad_err}")
+    return dict(term_err=term_err, grad_err=max(grad_err.values()), step_ms=step_ms,
+                busy=busy)
+
+
+def phase_bust_fit(dev: torch.device) -> dict:
+    """Phase 10: the FAN checks (10a), then the prepare_data CLI with fit_bust,
+    process_bust and render_depth on (10b) on a fresh capture case with the
+    synthetic SMPL-X at the official sizes and annotations from truth."""
+    exact_f32()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bust_") as tmp:
+        cfg, case, truth = write_fit_case(tmp)
+        with Phase("10a FAN and the annotation backends"):
+            fan = phase_fan(dev, case, cfg, tmp)
+        torch.cuda.empty_cache()
+        args = stage_args(cfg, case)
+        versus = fit_card_against_cpu(args, dev)
+        iters = min(FIT_ITERS, int(FIT_BUDGET_S * 1e3 / versus["step_ms"]))
+        if iters < FIT_ITERS:
+            log(f"10b: the fit runs {iters} of its {FIT_ITERS} iterations (at "
+                f"{versus['step_ms']:.3f} ms a step, {FIT_ITERS} would take "
+                f"{FIT_ITERS * versus['step_ms'] / 1e3:.1f} s)")
+        cfg.optimize["iter"] = iters
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        kept = {}
+        real = bust_pipeline.run_bust_fit
+
+        def fit_kept(a, device="cuda"):
+            kept["fit"] = real(a, device)
+            return kept["fit"]
+
+        bust_pipeline.run_bust_fit = fit_kept
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        pk.reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            steps = prepare_cli.main(["--yaml=" + os.path.join(tmp, "case"),
+                                      "--prepare_data.select_images=",
+                                      "--prepare_data.process_camera=",
+                                      "--prepare_data.run_ngp=", "--prepare_data.fit_bust",
+                                      "--prepare_data.process_bust",
+                                      "--prepare_data.render_depth",
+                                      "--prepare_data.process_imgs="])
+        finally:
+            bust_pipeline.run_bust_fit = real
+        wall = time.perf_counter() - t
+        launches = dict(pk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        fit = kept["fit"]
+
+        # 10b's gates on the files
+        opt = os.path.join(case, "optimize")
+        tsfm = load_model_tsfm(os.path.join(opt, "model_tsfm.dat"))
+        sem = np.fromfile(os.path.join(opt, "model_tsfm_semantic.dat"), np.float32)
+        verts, _ = load_obj(os.path.join(opt, "final_template.obj"))
+        verts = verts + BUST_TO_ORIGIN
+        Vh = truth["head_count"]
+        s, R, tr = similarity_of(truth["template"][:Vh].astype(np.float64), verts[:Vh])
+        S = truth["similarity"]
+        s_true = float(np.cbrt(np.linalg.det(S[:3, :3])))
+        rot_err = rotation_deg(R @ (S[:3, :3] / s_true).T)
+        scale_err = abs(s / s_true - 1)
+        transl_err = float(np.abs(tr - S[:3, 3]).max())
+        m_s = float(np.cbrt(np.linalg.det(tsfm[:3, :3])))
+        tsfm_rot_deg = rotation_deg(tsfm[:3, :3] / m_s)
+        true_rot_deg = rotation_deg(S[:3, :3] / s_true)
+        lmk_ids = truth["lmk_ids"]
+        err = np.linalg.norm(verts[lmk_ids] - truth["landmark_truth"], axis=1)
+        err0 = np.linalg.norm(truth["template"][lmk_ids] - truth["landmark_truth"], axis=1)
+        files = {name: os.path.getsize(os.path.join(case, name)) if os.path.exists(
+            os.path.join(case, name)) else -1 for name in (
+            "model_tsfm.dat", "model_tsfm_semantic.dat", "optimize/final_template.obj",
+            "optimize/fit_losses.txt", "Bust/bust_long.obj", "Bust/flame_bust.obj",
+            "Bust/scalp.obj", "ours/bust_long_tsfm.obj", "ours/scalp_tsfm.obj",
+            "ours/flame_bust_tsfm.obj")}
+        kept_frames = sorted(f[:-4] for f in os.listdir(os.path.join(case, "capture_images")))
+        depth_iou = [iou(np.load(os.path.join(case, "render_depth", n + ".npy"))[..., 0] < 255.0,
+                         read_png(os.path.join(case, "labels", "hit", n + ".png")) > 127)
+                     for n in kept_frames]
+        with open(cfg.camera_path) as f:
+            rig_views = len(json.load(f)["cam_list"])
+        bust_depth = [os.path.exists(os.path.join(case, "imgs", "%03d" % i, "bust_hair_depth.png"))
+                      for i in range(rig_views)]
+    ms_per_step = fit["fit_s"] / fit["iters"] * 1e3
+    log(f"stage 1 with the bust fit on cuda: {wall:.3f} s through the CLI; seconds per step "
+        f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; peak device memory "
+        f"{peak / 2**30:.3f} GiB; kernel launches {launches} (the bust fit has no CUDA kernel)")
+    log(f"10b fit: {fit['iters']} iterations over {fit['frames']} frames in {fit['fit_s']:.3f} s "
+        f"= {ms_per_step:.3f} ms a step in the stage; steady {versus['step_ms']:.3f} ms a step "
+        f"(CUDA events over {FIT_TIMED_STEPS}), {FIT_ITERS} steps projected "
+        f"{FIT_ITERS * versus['step_ms'] / 1e3:.1f} s; device busy share of a step "
+        f"{versus['busy']:.4f}; loss curve {[round(x, 5) for x in fit['losses']]}")
+    log(f"10b result: fitted head similarity vs truth: rotation {rot_err:.4f} deg, scale "
+        f"{scale_err:.5f}, translation {transl_err:.5f}; model_tsfm.dat {tsfm.tolist()} holds "
+        f"{tsfm_rot_deg:.3f} of the {true_rot_deg:.3f} deg rotation (the rest is in the root "
+        f"and neck joints), scale {m_s:.5f} (true {s_true:.5f}), semantic {sem.tolist()}; "
+        f"landmark vertices max err {err.max():.6f} mean {err.mean():.6f} (start max "
+        f"{err0.max():.6f}, {err0.max() / max(err.max(), 1e-12):.1f}x closer); files {files}; "
+        f"depth IoU of render_depth with the head silhouettes min {min(depth_iou):.6f} "
+        f"mean {np.mean(depth_iou):.6f}; bust_hair_depth.png in {sum(bust_depth)} of {rig_views} "
+        f"rig views")
+    print(smi_line(), flush=True)
+    if not np.isfinite(tsfm).all() or rot_err > 1.0 or scale_err > 0.01 or transl_err > 0.005:
+        raise AssertionError(f"the fitted similarity misses the truth: rotation {rot_err} deg, "
+                             f"scale {scale_err}, translation {transl_err}")
+    if err.max() > 0.01 or err.max() * 5 > err0.max():
+        raise AssertionError(f"landmark vertices {err.max()} from the truth (start {err0.max()})")
+    if min(files.values()) <= 0 or not all(bust_depth):
+        raise AssertionError(f"the bust fit's files: {files}, bust depth {bust_depth}")
+    return dict(steps=steps, wall=wall, launches=launches, peak_bytes=peak, fit=fit,
+                ms_per_step=ms_per_step, rot_err=rot_err, scale_err=scale_err,
+                transl_err=transl_err, lmk_err=float(err.max()), **versus, **fan)
+
+
 KERNEL_META = {
     "patch_gather": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
                          replaces="monohair_tpu/ops/pallas_kernels.py:188"),
@@ -1669,8 +1999,11 @@ def main(argv=None) -> int:
         stage1 = phase_prepare_data(dev)
     with Phase("9 prepare_data with the NeRF"):
         ngp = phase_ngp(dev)
+    with Phase("10 prepare_data with the bust fit"):
+        bust = phase_bust_fit(dev)
     by_path = {"pmvo": width["launches"], "infer_inner_fuse": stage3["stage"]["launches"],
-               "prepare_data": stage1["launches"], "prepare_data_ngp": ngp["launches"]}
+               "prepare_data": stage1["launches"], "prepare_data_ngp": ngp["launches"],
+               "prepare_data_bust": bust["launches"]}
     kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:
         with Phase("profile"):

@@ -10,9 +10,11 @@ The decode conventions are the reference's:
 - masks binarize at 50/255 (PMVO_utils.py:297-313), read from channel 0 of the
   BGR image as cv2.imread returns it
 
-PNGs are decoded here with zlib and numpy: 8-bit gray or RGB, non-interlaced,
-filter types 0-4 — what cv2.imwrite writes for uint8 images. ``write_png``
-writes the same kinds with filter 0. OpenCV is not used, and there is no JPEG
+PNGs are decoded here with zlib and numpy: 8-bit gray, gray+alpha, RGB or
+RGBA, non-interlaced, filter types 0-4 — what cv2.imwrite writes for uint8
+images. ``write_png`` writes the same kinds with filter 0. Channels stay in
+file order (RGB, RGBA); cv2 hands the JAX package BGR and BGRA, and its
+``[..., 2::-1]`` slices are ``[..., :3]`` here. OpenCV is not used, and there is no JPEG
 codec: reading or writing a .jpg/.JPG raises a ValueError that says so.
 """
 
@@ -31,7 +33,8 @@ from ..ops.resize import png_rgb_to_gray
 
 _SUFFIXES = (".JPG", ".png", ".jpg")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3}  # PNG colour type -> samples per pixel
+_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # PNG colour type -> samples per pixel
+_COLOUR_TYPE = {v: k for k, v in _CHANNELS.items()}
 
 
 def _find(path_no_ext: str) -> str:
@@ -75,8 +78,8 @@ def check_codec(path: str) -> None:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit gray or RGB, non-interlaced PNG -> (H, W) or (H, W, 3)
-    uint8, channels in file (RGB) order."""
+    """Decode an 8-bit gray, gray+alpha, RGB or RGBA non-interlaced PNG ->
+    (H, W) or (H, W, C) uint8 with C = 2, 3 or 4, channels in file order."""
     check_codec(path)
     with open(path, "rb") as f:
         data = f.read()
@@ -98,7 +101,7 @@ def read_png(path: str) -> np.ndarray:
     width, height, depth, color, _, _, interlace = header
     if depth != 8 or color not in _CHANNELS or interlace != 0:
         raise NotImplementedError(
-            f"{path}: only 8-bit gray/RGB non-interlaced PNGs are supported "
+            f"{path}: only 8-bit gray/GA/RGB/RGBA non-interlaced PNGs are supported "
             f"(bit depth {depth}, colour type {color}, interlace {interlace})")
     bpp = _CHANNELS[color]
     stride = width * bpp
@@ -133,14 +136,16 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
-    """Write an (H, W) gray or (H, W, 3) RGB uint8 image as PNG (filter 0)."""
+    """Write an (H, W) gray or (H, W, C) uint8 image, C = 2 (gray+alpha),
+    3 (RGB) or 4 (RGBA), as PNG (filter 0)."""
     check_codec(path)
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
-        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, got "
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] not in (2, 3, 4)):
+        raise ValueError(f"write_png takes (H, W) or (H, W, 2|3|4) uint8, got "
                          f"{img.dtype} {img.shape}")
     height, width = img.shape[:2]
-    color = 0 if img.ndim == 2 else 2
+    color = _COLOUR_TYPE[1 if img.ndim == 2 else img.shape[2]]
     rows = np.concatenate([np.zeros((height, 1), np.uint8), img.reshape(height, -1)], 1)
     with open(path, "wb") as f:
         f.write(_PNG_SIGNATURE)
@@ -149,24 +154,32 @@ def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
         f.write(_chunk(b"IEND", b""))
 
 
+def _without_alpha(img: np.ndarray) -> np.ndarray:
+    """Drop a gray+alpha or RGBA image's alpha, as cv2.imread does without
+    IMREAD_UNCHANGED: (H, W) gray or (H, W, 3) RGB."""
+    if img.ndim == 3 and img.shape[2] in (2, 4):
+        img = img[..., :-1]
+    return img[..., 0] if img.ndim == 3 and img.shape[2] == 1 else img
+
+
 def imread_gray(path: str) -> np.ndarray:
     """(H, W) uint8, as cv2.imread(path, cv2.IMREAD_GRAYSCALE) gives it."""
-    img = read_png(path)
+    img = _without_alpha(read_png(path))
     if img.ndim == 2:
         return img
-    return png_rgb_to_gray(torch.from_numpy(img)).numpy()
+    return png_rgb_to_gray(torch.from_numpy(np.ascontiguousarray(img))).numpy()
 
 
 def imread_rgb(path: str) -> np.ndarray:
     """(H, W, 3) uint8 in RGB order, as cv2.cvtColor(cv2.imread(path),
     cv2.COLOR_BGR2RGB) gives it."""
-    img = read_png(path)
+    img = _without_alpha(read_png(path))
     return np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img
 
 
 def imread_bgr(path: str) -> np.ndarray:
     """(H, W, 3) uint8 in BGR order, as cv2.imread(path) gives it."""
-    img = read_png(path)
+    img = _without_alpha(read_png(path))
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, -1)
     return img[..., ::-1]

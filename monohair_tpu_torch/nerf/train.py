@@ -10,8 +10,9 @@ JAX package's draws, so that only the draws differ between the packages,
 never the arithmetic).
 
 The optimiser is optax's chain(clip_by_global_norm(10), adam(
-exponential_decay(lr, total_steps or steps, 0.1))) written out (``OptaxAdam``):
-torch.optim's Adam and clip_grad_norm_ round and clip otherwise.
+exponential_decay(lr, total_steps or steps, 0.1))) written out
+(``optim.OptaxAdam``): torch.optim's Adam and clip_grad_norm_ round and clip
+otherwise.
 
 The JAX loop's TPU-only knobs (scan_block, sync_every, use_remat and the
 platform_limits shape asserts) guard the TPU's fault boundaries and have no
@@ -29,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from ..io.image_io import check_codec, read_png
+from ..optim import OptaxAdam
 from .ngp import (as_background, camera_rays, init_occupancy_grid, render_rays,
                   render_rays_occ, update_occupancy_grid)
 
@@ -99,56 +101,6 @@ def draw_step(generator: torch.Generator, num_frames: int, num_pixels: int, rays
                 if sparse else None),
         occ_jitter=(torch.rand((occ_resolution ** 3, 3), generator=generator, device=dev)
                     if occ_resolution else None))
-
-
-class OptaxAdam:
-    """optax.chain(clip_by_global_norm(10), adam(exponential_decay(lr,
-    transition_steps, 0.1))) over a list of parameters, as optax computes it:
-    - the global norm g over every gradient; each gradient becomes
-      (grad / g) * 10 unless g < 10;
-    - mu = (1 - b1) grad + b1 mu, nu = (1 - b2) grad^2 + b2 nu, bias-corrected
-      by 1 - b^count with count counted from 1 (b1 0.9, b2 0.999);
-    - the update mu_hat / (sqrt(nu_hat) + 1e-8), scaled by
-      -lr * 0.1^(k / transition_steps) at k = the steps taken before this one
-      (so the first step uses lr), continuous, not staircase.
-    The scalars are f32, as in optax."""
-
-    MAX_NORM, B1, B2, EPS, DECAY_RATE = 10.0, 0.9, 0.999, 1e-8, 0.1
-
-    def __init__(self, params: Sequence[torch.Tensor], lr: float, transition_steps: int):
-        self.params = list(params)
-        self.lr, self.transition_steps = lr, transition_steps
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
-
-    def learning_rate(self, count: int) -> float:
-        f32 = np.float32
-        p = f32(count) / f32(self.transition_steps)
-        return float(f32(self.lr) * np.power(f32(self.DECAY_RATE), p))
-
-    @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
-        grads = list(grads)
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = g_norm < self.MAX_NORM
-        grads = [torch.where(keep, g, (g / g_norm) * self.MAX_NORM) for g in grads]
-        b1, b2 = self.B1, self.B2
-        self.mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
-                                     torch._foreach_mul(self.mu, b1))
-        self.nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
-                                     torch._foreach_mul(self.nu, b2))
-        count_inc = self.count + 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(b1) ** f32(count_inc))
-        bc2 = float(f32(1) - f32(b2) ** f32(count_inc))
-        mu_hat = torch._foreach_div(self.mu, bc1)
-        nu_hat = torch._foreach_div(self.nu, bc2)
-        denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.EPS)
-        updates = torch._foreach_div(mu_hat, denom)
-        step_size = -self.learning_rate(self.count)
-        torch._foreach_add_(self.params, torch._foreach_mul(updates, step_size))
-        self.count = count_inc
 
 
 def huber_loss(pred: torch.Tensor, target: torch.Tensor, delta: float) -> torch.Tensor:

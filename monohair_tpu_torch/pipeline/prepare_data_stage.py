@@ -1,4 +1,4 @@
-"""Stage 1 — data preparation, its image half (port of
+"""Stage 1 — data preparation (port of
 monohair_tpu/pipeline/prepare_data_stage.py; reference prepare_data.py :36-184).
 
 Sub-steps (each gated by a config flag, idempotent over the case dir):
@@ -6,14 +6,14 @@ Sub-steps (each gated by a config flag, idempotent over the case dir):
   process_camera — 16 fixed NGP views + per-capture-image MVS poses
   run_ngp        — the coarse NeRF: train, 16 fixed-view renders, the mesh
                    colmap/base.obj and ours/colmap_points.obj (nerf/pipeline.py)
+  fit_bust       — the SMPL-X bust fit (bustfit/pipeline.py): annotations,
+                   optimize/model_tsfm.dat, the root copies and Bust/
   process_bust   — transform bust/scalp meshes by the fitted model_tsfm
   render_depth   — colmap-mesh depth maps for every capture view
   process_imgs   — hair segmentation masks + Gabor orientation/confidence
 
-Not ported yet (ROADMAP §1): fit_bust (the SMPL-X fit that writes
-model_tsfm.dat and Bust/). A run with it on raises before any file is
-written; with it off, Bust/ is read from the case directory, and with run_ngp
-off, so is ours/colmap_points.obj.
+With fit_bust off, Bust/ and model_tsfm.dat are read from the case
+directory; with run_ngp off, so is ours/colmap_points.obj.
 """
 
 from __future__ import annotations
@@ -34,21 +34,6 @@ from ..io.image_io import (encode_orientation_image, imread_gray, imread_rgb,
 from ..io.mesh_io import load_obj
 from ..ops.resize import bgr_to_gray, laplacian_variance
 from ..render import render_bust_hair_depth
-
-NOT_PORTED = ("fit_bust",)
-
-
-def check_ported(args: Config) -> None:
-    """Raise NotImplementedError, before any work, when a step that the port
-    does not have yet is enabled."""
-    on = [k for k in NOT_PORTED if args.prepare_data.get(k)]
-    if on:
-        raise NotImplementedError(
-            f"prepare_data: {', '.join(on)} is not ported to monohair_tpu_torch yet "
-            "(ROADMAP §1); switch it off with "
-            + " ".join(f"--prepare_data.{k}=" for k in on)
-            + " and put Bust/ in the case directory")
-
 
 def frame_sharpness(path: str, device="cuda") -> float:
     """cv2.Laplacian(cvtColor(imread(path), BGR2GRAY), CV_64F).var()."""
@@ -98,9 +83,42 @@ def process_images(root: str, image_folder: str = "capture_images",
         write_png(os.path.join(root, "Ori", f), (color * 255).astype(np.uint8))
 
 
+def promote_fit_artifacts(args: Config) -> None:
+    """Copy the bust fit's outputs up to the case root and build Bust/ from the
+    fitted template (prepare_data.py:127-140): model_tsfm[_semantic].dat at
+    the root, then bust_long/flame_bust/scalp meshes cut from
+    optimize/final_template.obj. Nothing more in wig mode (no fitted
+    template): process_bust then falls back to the identity."""
+    root = args.data.root
+    opt = os.path.join(root, "optimize")
+    for f in ("model_tsfm.dat", "model_tsfm_semantic.dat"):
+        src = os.path.join(opt, f)
+        if os.path.exists(src):
+            shutil.copyfile(src, os.path.join(root, f))
+    tmpl = os.path.join(opt, "final_template.obj")
+    if not os.path.exists(tmpl):
+        return
+    bf = args.get("bustfit", {}) or {}
+    bust_root = os.path.join(root, "Bust")
+    os.makedirs(bust_root, exist_ok=True)
+    verts, faces = load_obj(tmpl)
+    from ..bustfit.scalp import cut_bust_long, extract_flame_bust, extract_scalp
+    cut_bust_long(verts, faces, os.path.join(bust_root, "bust_long.obj"),
+                  y_cut=float(bf.get("bust_cut_y", -0.6)))
+    flame_tmpl = bf.get("flame_template", "assets/data/head_template.obj")
+    flame_ids = bf.get("flame_vertex_ids", "assets/data/SMPL-X__FLAME_vertex_ids.npy")
+    scalp_mask = bf.get("scalp_mask", "assets/data/scalp_mask.png")
+    if os.path.exists(flame_ids) and os.path.exists(flame_tmpl):
+        extract_flame_bust(verts, flame_ids, flame_tmpl,
+                           os.path.join(bust_root, "flame_bust.obj"))
+        if os.path.exists(scalp_mask):
+            ids = np.load(flame_ids)
+            extract_scalp(flame_tmpl, scalp_mask, os.path.join(bust_root, "scalp.obj"),
+                          verts_override=verts[ids])
+
+
 def run_prepare_data(args: Config, device="cuda") -> Dict[str, float]:
     """Run the enabled steps on `device`; returns each step's wall seconds."""
-    check_ported(args)
     root = args.data.root
     seconds: Dict[str, float] = {}
     t0 = time.perf_counter()
@@ -136,6 +154,12 @@ def run_prepare_data(args: Config, device="cuda") -> Dict[str, float]:
         from ..nerf import pipeline as ngp_pipeline
         ngp_pipeline.run_ngp_stage(args, device)
         lap("run_ngp")
+
+    if args.prepare_data.get("fit_bust"):
+        from ..bustfit.pipeline import run_bust_fit
+        run_bust_fit(args, device)
+        promote_fit_artifacts(args)
+        lap("fit_bust")
 
     if args.prepare_data.process_bust:
         from ..bustfit.transforms import process_bust_meshes

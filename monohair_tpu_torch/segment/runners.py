@@ -1,5 +1,5 @@
-"""Inference runners of the segmentation nets (port of the matting and parsing
-halves of monohair_tpu/segment/runners.py), on tensors on any device.
+"""Inference runners of the segmentation and landmark nets (port of
+monohair_tpu/segment/runners.py), on tensors on any device.
 
 The reference's protocols, with OpenCV's resizes written out
 (``ops/resize.py``) in the same order and of the same kinds:
@@ -12,6 +12,10 @@ The reference's protocols, with OpenCV's resizes written out
    left/right class swap, the three mean-fused logits resized back (linear)
    and summed, divided by 3 and resized to the frame (cubic); argmax per pixel
    (calc_masks.py:67-124).
+ - LandmarkRunner: FAN on square face crops. Each box is cut from the uint8
+   frame into a zero-padded square, resized linearly (fixed point) to 256,
+   scaled to [0, 1]; the last module's heatmaps decode on the host to the
+   sub-pixel argmax and map back to frame pixels (dataprocess.py:327-373).
 
 Frames are (N, H, W, 3) uint8 RGB tensors; outputs stay on their device.
 """
@@ -20,11 +24,13 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.resize import resize_area, resize_cubic, resize_linear
 from .bisenet import HAIR_CLASS, BiSeNet
 from .convert import load_flax_npz
+from .fan import FAN, decode_heatmaps
 from .modnet import MODNet
 
 # CelebAMask-HQ left/right pairs swapped under horizontal flip
@@ -119,3 +125,53 @@ class ParsingRunner:
         if matte is not None:
             hair = hair * matte
         return (hair * 255.0 + 0.5).to(torch.uint8)
+
+
+class LandmarkRunner:
+    def __init__(self, ckpt_path: str, width: float = 1.0, num_modules: int = 4,
+                 depth: int = 4, crop_size: int = 256, device="cuda"):
+        self.net = load_flax_npz(FAN(num_modules=num_modules, depth=depth, width=width),
+                                 ckpt_path).to(device)
+        self.crop_size = crop_size
+        self.device = torch.device(device)
+
+    @torch.inference_mode()
+    def heatmaps(self, images: torch.Tensor, boxes: np.ndarray) -> torch.Tensor:
+        """images (N, H, W, 3) uint8 RGB; boxes (N, 4) [x0, y0, x1, y1] ->
+        the last module's (N, 68, h, w) heatmaps of the square crops."""
+        cs = self.crop_size
+        crops = []
+        for im, (x0, y0, x1, y1) in zip(images, np.asarray(boxes).astype(int)):
+            side = max(x1 - x0, y1 - y0, 1)
+            pad = torch.zeros((side, side, 3), dtype=im.dtype, device=im.device)
+            sx0, sy0 = max(x0, 0), max(y0, 0)
+            sx1, sy1 = min(x0 + side, im.shape[1]), min(y0 + side, im.shape[0])
+            if sx1 > sx0 and sy1 > sy0:
+                pad[sy0 - y0:sy1 - y0, sx0 - x0:sx1 - x0] = im[sy0:sy1, sx0:sx1]
+            crops.append(resize_linear(pad.permute(2, 0, 1)[None], (cs, cs))[0])
+        x = torch.stack(crops).to(self.device).float() / 255.0
+        return self.net(x)[-1]
+
+    def landmarks(self, images: torch.Tensor, boxes: np.ndarray) -> np.ndarray:
+        """-> (N, 68, 2) float32 landmark pixels (x, y) in the frames."""
+        heat = self.heatmaps(images, boxes).permute(0, 2, 3, 1).cpu().numpy()
+        pts = decode_heatmaps(heat)                        # heatmap px (x, y)
+        hm = heat.shape[1]
+        out = np.zeros_like(pts)
+        for i, (x0, y0, x1, y1) in enumerate(np.asarray(boxes).astype(int)):
+            side = max(x1 - x0, y1 - y0, 1)
+            out[i] = pts[i] * (side / hm) + (x0, y0)
+        return out
+
+
+def face_box_from_mask(mask: np.ndarray, thresh: float = 0.5) -> np.ndarray:
+    """Square crop box from a person/skin mask (the stand-in for the
+    reference's SFD face detector): the mask's bbox, squared about its centre."""
+    ys, xs = np.nonzero(mask > thresh)
+    if len(ys) == 0:
+        h, w = mask.shape
+        return np.array([0, 0, w, h], np.float32)
+    x0, x1, y0, y1 = xs.min(), xs.max() + 1, ys.min(), ys.max() + 1
+    side = max(x1 - x0, y1 - y0)
+    cx, cy = (x0 + x1) / 2, (y0 + y1) / 2
+    return np.array([cx - side / 2, cy - side / 2, cx + side / 2, cy + side / 2], np.float32)

@@ -727,3 +727,174 @@ def write_capture_case(data_root: str, case: str = "capture", num_frames: int = 
     save_obj(os.path.join(root, "Bust/scalp.obj"), sv - BUST_TO_ORIGIN, sf)
     return {"config": capture_config(data_root, case, H, W, frame_interval, modnet, parser),
             "mvs_poses": mvs_poses}
+
+
+# ---------------------------------------------------------------------------
+# the capture case's bust fit: a synthetic SMPL-X model and annotations from
+# truth (tools/make_capture_case.py:82-111,242-255, at the official sizes)
+# ---------------------------------------------------------------------------
+
+# the SMPL-X kinematic tree (55 joints: body 0-21, jaw 22, eyes 23-24, hands)
+SMPLX_PARENTS = np.array([-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17,
+                          18, 19, 15, 15, 15, 20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34,
+                          35, 20, 37, 38, 21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50,
+                          21, 52, 53])
+# official sizes: 10,475 vertices, 20,908 faces, 300 + 100 shape/expression
+# dirs, 54 x 9 pose dirs. The head sphere (72 latitude rings x 144 sectors)
+# takes 10,370 vertices and 20,736 faces, a hidden inner sphere (2 x 43) the
+# other 172 faces, and 17 vertices stay unused.
+SMPLX_OFFICIAL = dict(head_rings=73, head_sectors=144, inner_rings=3, inner_sectors=43,
+                      num_verts=10475)
+# a small model of the same layout for the tests on the CPU
+SMPLX_SMALL = dict(head_rings=13, head_sectors=24, inner_rings=3, inner_sectors=6,
+                   num_verts=320)
+# the similarity that carries the model's template onto the capture head:
+# ~5 degrees of rotation, ~1 cm of translation, scale 1.05
+BUST_TRUE_ROT = np.array([0.05, -0.04, 0.06])
+BUST_TRUE_TRANSL = np.array([0.006, -0.005, 0.006])
+BUST_TRUE_SCALE = 1.05
+CAPTURE_HEAD_R_MVS = CAPTURE_HEAD_R_NERF * 0.33 / 2.0
+
+
+def rotation_from_axis_angle(r: np.ndarray) -> np.ndarray:
+    """float64 Rodrigues of one axis-angle vector."""
+    angle = float(np.linalg.norm(r))
+    if angle == 0.0:
+        return np.eye(3)
+    k = r / angle
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + math.sin(angle) * K + (1 - math.cos(angle)) * K @ K
+
+
+def bust_true_similarity() -> np.ndarray:
+    """The 4x4 that the bust fit should export as model_tsfm.dat."""
+    m = np.eye(4)
+    m[:3, :3] = BUST_TRUE_SCALE * rotation_from_axis_angle(BUST_TRUE_ROT)
+    m[:3, 3] = BUST_TRUE_TRANSL
+    return m
+
+
+def uv_sphere_uvs(rings: int, sectors: int) -> np.ndarray:
+    """Per-vertex (u, v) of uv_sphere(r, rings, sectors): u = azimuth / 2pi,
+    v = 1 - polar / pi (the poles at v = 1 and 0)."""
+    th = np.linspace(0, math.pi, rings + 1)[1:-1]
+    ph = np.linspace(0, 2 * math.pi, sectors, endpoint=False)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    uv = np.concatenate([[[0.5, 1.0]], np.stack([P.ravel() / (2 * math.pi),
+                                                 1.0 - T.ravel() / math.pi], -1), [[0.5, 0.0]]])
+    return uv
+
+
+def synthetic_smplx(rng: np.random.Generator, sizes: dict = SMPLX_OFFICIAL) -> dict:
+    """An SMPL-X npz's arrays in the official key layout, whose head sphere is
+    the capture head carried by the inverse of bust_true_similarity(): head
+    vertices skin to the head joint (15) with no pose dirs, so the template
+    posed at the fit's start pose and carried by the similarity is the
+    capture head to ~1e-6. Also returns the head's vertex count, its faces and
+    the true head vertices (MVS frame)."""
+    head_v, head_f = uv_sphere(CAPTURE_HEAD_R_MVS, sizes["head_rings"], sizes["head_sectors"])
+    inner_v, inner_f = uv_sphere(CAPTURE_HEAD_R_MVS * 0.6, sizes["inner_rings"],
+                                 sizes["inner_sectors"])
+    Vh, V, J = len(head_v), sizes["num_verts"], len(SMPLX_PARENTS)
+    spare = V - Vh - len(inner_v)
+    true = np.concatenate([head_v, inner_v, np.zeros((spare, 3))])     # spares at the centre
+    S = bust_true_similarity()
+    template = (true - S[:3, 3]) @ np.linalg.inv(S[:3, :3]).T          # S^-1(true)
+    faces = np.concatenate([head_f, inner_f + Vh])
+    weights = np.zeros((V, J), np.float32)
+    weights[:Vh, 15] = 1.0                              # head joint
+    weights[Vh:Vh + len(inner_v), 12] = 1.0             # neck
+    weights[Vh + len(inner_v):, 0] = 1.0
+    Jr = np.zeros((J, V), np.float32)
+    for j in range(J):
+        ids = rng.choice(V, 16, replace=False)
+        Jr[j, ids] = rng.random(16) + 0.1
+    Jr /= Jr.sum(-1, keepdims=True)
+    dirs = np.zeros((V, 3, 400), np.float32)
+    dirs[..., :300] = rng.normal(size=(V, 3, 300)).astype(np.float32) * 0.002
+    dirs[..., 300:] = rng.normal(size=(V, 3, 100)).astype(np.float32) * 0.001
+    posedirs = (rng.normal(size=(V, 3, (J - 1) * 9)) * 1e-3).astype(np.float32)
+    posedirs[:Vh] = 0.0
+    return dict(npz=dict(v_template=template.astype(np.float32), f=faces.astype(np.int64),
+                         J_regressor=Jr, weights=weights,
+                         kintree_table=np.stack([SMPLX_PARENTS, np.arange(J)]),
+                         shapedirs=dirs, posedirs=posedirs),
+                head_count=Vh, head_faces=head_f, true_verts=true)
+
+
+def _project_rc(ndc: np.ndarray, c2w: np.ndarray, pts: np.ndarray, H: int, W: int):
+    """The bust fit's project_to_pixels in float64: (row, col) of (N, 3)."""
+    cam = (pts - c2w[:3, 3]) @ c2w[:3, :3]
+    u = ndc[0] * cam[:, 0] / cam[:, 2] + ndc[2]
+    v = ndc[1] * cam[:, 1] / cam[:, 2] + ndc[3]
+    return np.stack([(v + 1.0) * 0.5 * H, (-u + 1.0) * 0.5 * W], -1)
+
+
+def write_bust_fit_assets(case_root: str, cfg: Config, mvs_poses: dict, H: int, W: int,
+                          sizes: dict = SMPLX_OFFICIAL, iters: int = 2000,
+                          seed: int = 0) -> dict:
+    """The bust fit's inputs for a capture case (write_capture_case's
+    `mvs_poses`), in <case_root>/assets and <case_root>/optimize:
+    SMPLX_SYNTH.npz (synthetic_smplx), landmark_vertex_ids.npy (68 head
+    vertices), head_template.obj (the head sphere with UVs, the FLAME
+    template), flame_vertex_ids.npy (the head's ids), scalp_mask.png (red over
+    the hair cap, polar angle < 70 degrees), and every frame's annotations
+    written from truth, so that the annotation step reports them cached:
+    landmark2d/ (the landmark vertices of the true head, projected as the fit
+    projects them), iris/ (vertices 9503 and 10049, or two head vertices on a
+    smaller model), matting/ (the frame with the labels/hit silhouette as
+    alpha) and face_parsing/ (class 17 on labels/hair, 1 on the rest of hit).
+    Sets cfg's bustfit and optimize keys. Returns {"similarity": the true 4x4,
+    "landmark_truth": (68, 3) true landmark vertices (MVS frame),
+    "lmk_ids", "template": (V, 3) template, "head_count": the head's
+    vertex count (the first vertices)}."""
+    from .io.image_io import read_png, write_png
+
+    rng = np.random.default_rng(seed)
+    assets = os.path.join(case_root, "assets")
+    opt = os.path.join(case_root, "optimize")
+    for sub in ("landmark2d", "iris", "matting", "face_parsing"):
+        os.makedirs(os.path.join(opt, sub), exist_ok=True)
+    os.makedirs(assets, exist_ok=True)
+    model = synthetic_smplx(rng, sizes)
+    np.savez(os.path.join(assets, "SMPLX_SYNTH.npz"), **model["npz"])
+    Vh, true = model["head_count"], model["true_verts"]
+    lmk_ids = np.sort(rng.choice(Vh, 68, replace=False)).astype(np.int64)
+    np.save(os.path.join(assets, "landmark_vertex_ids.npy"), lmk_ids)
+    iris_ids = np.array([9503, 10049]) if Vh > 10049 else np.array([Vh // 3, 2 * Vh // 3])
+    # the FLAME template: the head sphere's topology with UVs
+    uv = uv_sphere_uvs(sizes["head_rings"], sizes["head_sectors"])
+    with open(os.path.join(assets, "head_template.obj"), "w") as f:
+        f.write("".join(f"v {p[0]:.8f} {p[1]:.8f} {p[2]:.8f}\n" for p in true[:Vh]))
+        f.write("".join(f"vt {t[0]:.8f} {t[1]:.8f}\n" for t in uv))
+        f.write("".join("f {0}/{0} {1}/{1} {2}/{2}\n".format(*(k + 1)) for k in model["head_faces"]))
+    np.save(os.path.join(assets, "flame_vertex_ids.npy"), np.arange(Vh, dtype=np.int64))
+    mask = np.zeros((256, 256, 3), np.uint8)
+    mask[:int(256 * CAPTURE_HAIR_POLAR_DEG / 180.0), :, 0] = 255      # v > 1 - 70/180
+    write_png(os.path.join(assets, "scalp_mask.png"), mask)
+
+    f_pix = (H / 2) / math.tan(math.radians(CAPTURE_FOV_Y) / 2)
+    ndc = np.array([2 * f_pix / W, 2 * f_pix / H, 0.0, 0.0])
+    for name, c2w in sorted(mvs_poses.items()):
+        rc = _project_rc(ndc, c2w, true[lmk_ids], H, W)
+        np.savetxt(os.path.join(opt, "landmark2d", name + ".txt"), rc[:, ::-1])
+        irc = _project_rc(ndc, c2w, true[iris_ids], H, W)
+        np.savetxt(os.path.join(opt, "iris", name + ".txt"),
+                   np.concatenate([irc[:, ::-1], np.ones((2, 1))], 1))
+        img = read_png(os.path.join(case_root, "colmap", "images", name + ".png"))
+        hit = read_png(os.path.join(case_root, "labels", "hit", name + ".png")) > 127
+        hair = read_png(os.path.join(case_root, "labels", "hair", name + ".png")) > 127
+        write_png(os.path.join(opt, "matting", name + ".png"),
+                  np.dstack([img, hit.astype(np.uint8) * 255]))
+        cls = np.where(hair, 17, np.where(hit, 1, 0)).astype(np.uint8)
+        write_png(os.path.join(opt, "face_parsing", name + ".png"), cls)
+    cfg["bustfit"] = Config({
+        "smplx_model": os.path.join(assets, "SMPLX_SYNTH.npz"),
+        "landmark_vertex_ids": os.path.join(assets, "landmark_vertex_ids.npy"),
+        "flame_template": os.path.join(assets, "head_template.obj"),
+        "flame_vertex_ids": os.path.join(assets, "flame_vertex_ids.npy"),
+        "scalp_mask": os.path.join(assets, "scalp_mask.png"),
+        "bust_cut_y": -0.4})
+    cfg["optimize"] = Config({"iter": iters})
+    return {"similarity": bust_true_similarity(), "landmark_truth": true[lmk_ids],
+            "lmk_ids": lmk_ids, "template": model["npz"]["v_template"], "head_count": Vh}

@@ -7,7 +7,8 @@ import, chip_smoke's stage phase runs on the CPU at a small size, and
 stage's files on a small written case, as do PMVO and then
 `python -m monohair_tpu_torch.infer_inner` on another, and
 `python -m monohair_tpu_torch.prepare_data` on a small capture case, once with
-the NeRF off and once with it on at a tiny budget."""
+the NeRF off, once with it on at a tiny budget, and once with the bust fit on
+(the synthetic SMPL-X, a few steps)."""
 
 import os
 import subprocess
@@ -128,6 +129,27 @@ GUARDED = textwrap.dedent('''
         mvs_v, mvs_f = load_obj(os.path.join(case, "ours", "colmap_points.obj"))
         assert len(nerf_v) == len(mvs_v) and np.array_equal(nerf_f, mvs_f)
 
+    # the prepare_data CLI with the bust fit on (3 steps) on a 4-frame capture
+    # case with the synthetic SMPL-X at its small sizes and annotations from truth
+    with tempfile.TemporaryDirectory() as tmp:
+        from monohair_tpu_torch.synthetic import SMPLX_SMALL, write_bust_fit_assets
+        out = write_capture_case(tmp, "cap", num_frames=4, H=24, W=32)
+        cfg = out["config"]
+        write_bust_fit_assets(os.path.join(tmp, "cap"), cfg, out["mvs_poses"], 24, 32,
+                              sizes=SMPLX_SMALL, iters=3)
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        sys.argv = ["prepare_data", "--yaml=" + os.path.join(tmp, "case"), "--device=cpu",
+                    "--prepare_data.run_ngp=", "--prepare_data.fit_bust",
+                    "--prepare_data.render_depth=", "--prepare_data.process_imgs="]
+        runpy.run_module("monohair_tpu_torch.prepare_data", run_name="__main__")
+        case = os.path.join(tmp, "cap")
+        for name in ("model_tsfm.dat", "model_tsfm_semantic.dat", "optimize/final_template.obj",
+                     "optimize/fit_losses.txt", "Bust/bust_long.obj", "Bust/flame_bust.obj",
+                     "Bust/scalp.obj", "ours/bust_long_tsfm.obj"):
+            assert os.path.getsize(os.path.join(case, name)) > 0, name
+        assert np.isfinite(np.fromfile(os.path.join(case, "model_tsfm.dat"), np.float32)).all()
+
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("GUARD_OK", len(names))
@@ -175,6 +197,31 @@ def test_the_nerf_runs_on_the_card_unless_told_otherwise(monkeypatch):
     seen = []
     monkeypatch.setattr(prepare_data, "resolve_config", lambda argv, **kw: cfg)
     monkeypatch.setattr(pipeline, "run_ngp_stage", lambda args, device: seen.append(device))
+    prepare_data.main(["--yaml=unused"])
+    prepare_data.main(["--yaml=unused", "--device=cpu"])
+    assert seen == ["cuda", "cpu"]
+
+
+def test_the_bust_fit_runs_on_the_card_unless_told_otherwise(monkeypatch):
+    """prepare_data hands its device to run_bust_fit, whose own default, like
+    that of everything it builds on the device, is the card; only the
+    arguments are looked at."""
+    import inspect
+    from monohair_tpu_torch import prepare_data
+    from monohair_tpu_torch.bustfit import pipeline, smplx, texture
+    from monohair_tpu_torch.config import Config
+    from monohair_tpu_torch.pipeline import prepare_data_stage
+    from monohair_tpu_torch.segment import annotations, runners
+    for fn in (pipeline.run_bust_fit, pipeline.load_fit_problem, smplx.load_smplx_npz,
+               texture.load_flame_tex, annotations.default_backends, runners.LandmarkRunner):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    flags = dict.fromkeys(("select_images", "process_camera", "run_ngp", "process_bust",
+                           "render_depth", "process_imgs"), False)
+    cfg = Config({"data": {"root": "unused"}, "prepare_data": dict(flags, fit_bust=True)})
+    seen = []
+    monkeypatch.setattr(prepare_data, "resolve_config", lambda argv, **kw: cfg)
+    monkeypatch.setattr(pipeline, "run_bust_fit", lambda args, device: seen.append(device))
+    monkeypatch.setattr(prepare_data_stage, "promote_fit_artifacts", lambda args: None)
     prepare_data.main(["--yaml=unused"])
     prepare_data.main(["--yaml=unused", "--device=cpu"])
     assert seen == ["cuda", "cpu"]

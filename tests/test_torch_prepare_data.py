@@ -9,9 +9,9 @@ on >= 99.5%). The whole stage on a 4-frame capture case at 96x128 with the
 shipped hair-parser weights, file by file: the same frames, cameras, meshes,
 depth maps; hair_mask/ and mask/ within 1 LSB (uint8 truncation of floats);
 Gabor bins equal on >= 99% of the pixels with nonzero written confidence and
-within one bin there (2 once encoded), conf within 1 LSB. Also the stage's own rules: fit_bust
-left on raises before any file is written (with run_ngp on too), and a JPEG capture
-raises a ValueError that names the missing codec."""
+within one bin there (2 once encoded), conf within 1 LSB. The CLI with fit_bust on
+against the JAX stage on a small case with the synthetic SMPL-X. Also the stage's
+own rule: a JPEG capture raises a ValueError that names the missing codec."""
 
 import json
 import math
@@ -225,23 +225,74 @@ def write_yaml(cfg, path):
         f.write(dump_yaml(cfg.to_dict()))
 
 
-@pytest.mark.parametrize("flag", ["run_ngp", "fit_bust"])
-def test_unported_steps_raise_before_any_file_is_written(small_case, tmp_path, flag):
-    """fit_bust on raises before any file is written, also beside run_ngp
-    (ported), and the message names fit_bust only."""
+def bust_fit_case(tmp_path, iters=30):
+    """A 4-frame capture case at 48x64 with the bust fit's synthetic assets at
+    the small SMPL-X sizes, in two copies (port, ref) whose configs name their
+    own assets."""
+    from monohair_tpu_torch.synthetic import SMPLX_SMALL, write_bust_fit_assets
+    port, ref = tmp_path / "port", tmp_path / "ref"
+    out = write_capture_case(str(port), "cap", num_frames=4, H=48, W=64)
+    cfg = out["config"]
+    truth = write_bust_fit_assets(str(port / "cap"), cfg, out["mvs_poses"], 48, 64,
+                                  sizes=SMPLX_SMALL, iters=iters)
+    cfg.prepare_data.update(fit_bust=True, run_ngp=None, process_imgs=False)
+    shutil.copytree(port, ref)
+    write_yaml(cfg, str(port / "case"))
+    jcfg = JaxConfig(json.loads(json.dumps(cfg.to_dict()).replace(str(port), str(ref))))
+    return str(port), str(ref), jcfg, truth
+
+
+def test_cli_with_fit_bust_matches_jax(tmp_path):
+    """The prepare_data CLI with fit_bust on (30 steps), beside select_images,
+    process_camera, process_bust and render_depth, on the CPU, against the JAX
+    stage on a copy: optimize/ and the root copies within the tolerances of
+    tests/test_torch_bustfit_stage.py, Bust/ and ours/*_tsfm.obj with the same
+    faces and vertices within 1e-4 (cut from final_template.obj), the depth
+    maps as test_whole_stage_matches_jax holds them."""
+    from monohair_tpu.pipeline.prepare_data_stage import run_prepare_data as jax_stage
     from monohair_tpu_torch import prepare_data
-    shutil.copytree(small_case[0], tmp_path / "cap")
-    before = sorted(p for p, _, _ in os.walk(tmp_path))
-    cfg = stage_config(small_case)
-    cfg.data["root"] = str(tmp_path)
-    cfg.prepare_data[flag] = True
-    cfg.prepare_data["fit_bust"] = True
-    write_yaml(cfg, str(tmp_path / "case"))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*--prepare_data\.fit_bust=") as err:
-        prepare_data.main(["--yaml=" + str(tmp_path / "case"), "--device=cpu"])
-    assert "run_ngp" not in str(err.value)
-    assert sorted(p for p, _, _ in os.walk(tmp_path)) == before
-    assert not os.path.exists(tmp_path / "cap" / "capture_images")
+    from monohair_tpu_torch.bustfit.transforms import load_model_tsfm
+    from monohair_tpu_torch.io.mesh_io import load_obj
+    port, ref, jcfg, truth = bust_fit_case(tmp_path)
+    steps = prepare_data.main(["--yaml=" + os.path.join(port, "case"), "--device=cpu"])
+    assert list(steps) == ["select_images", "process_camera", "fit_bust", "process_bust",
+                           "render_depth"]
+    jcfg.data["root"] = os.path.join(jcfg.data.root, jcfg.data.case)
+    jax_stage(jcfg)
+    port, ref = os.path.join(port, "cap"), os.path.join(ref, "cap")
+    a = load_model_tsfm(os.path.join(port, "optimize", "model_tsfm.dat"))
+    b = load_model_tsfm(os.path.join(ref, "optimize", "model_tsfm.dat"))
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)
+    for name in ("model_tsfm.dat", "model_tsfm_semantic.dat"):
+        with open(os.path.join(port, name), "rb") as f, \
+                open(os.path.join(port, "optimize", name), "rb") as g:
+            assert f.read() == g.read(), name
+    sa, sb = (np.fromfile(os.path.join(d, "model_tsfm_semantic.dat"), np.float32)
+              for d in (port, ref))
+    np.testing.assert_allclose(sa[[0, 1, 2, 6]], sb[[0, 1, 2, 6]], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(sa[3:6], sb[3:6], rtol=0, atol=0.05)
+    la, lb = (np.loadtxt(os.path.join(d, "optimize", "fit_losses.txt")) for d in (port, ref))
+    np.testing.assert_allclose(la, lb, rtol=1e-3)
+    assert la[-1] < 0.5 * la[0]
+    for name in ("optimize/final_template.obj", "Bust/bust_long.obj", "Bust/flame_bust.obj",
+                 "Bust/scalp.obj", "ours/bust_long_tsfm.obj", "ours/scalp_tsfm.obj",
+                 "ours/flame_bust_tsfm.obj"):
+        va, fa = load_obj(os.path.join(port, name))
+        vb, fb = load_obj(os.path.join(ref, name))
+        assert len(fa) > 0, name
+        np.testing.assert_array_equal(fa, fb, err_msg=name)
+        np.testing.assert_allclose(va, vb, rtol=0, atol=1e-4, err_msg=name)
+    # the fit moved the landmark vertices toward the true head
+    v, _ = load_obj(os.path.join(port, "optimize", "final_template.obj"))
+    from monohair_tpu_torch.constants import BUST_TO_ORIGIN
+    err = np.linalg.norm(v[truth["lmk_ids"]] + BUST_TO_ORIGIN - truth["landmark_truth"], axis=1)
+    err0 = np.linalg.norm(truth["template"][truth["lmk_ids"]] - truth["landmark_truth"], axis=1)
+    assert err.mean() < 0.8 * err0.mean()
+    for f in sorted(os.listdir(os.path.join(port, "render_depth"))):
+        if f.endswith(".npy"):
+            x, y = (np.load(os.path.join(d, "render_depth", f)) for d in (port, ref))
+            assert ((x < 255) == (y < 255)).mean() >= 0.995
+            assert (np.abs(x - y) <= 1e-4).mean() >= 0.99
 
 
 def test_jpeg_capture_raises_a_named_codec_error(small_case, tmp_path):
