@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's stages 1 (prepare_data, with and without the
-coarse NeRF and the bust fit), 2 (PMVO), 3 (infer_inner) and 4 (HairGrow) on
+coarse NeRF and the bust fit), 2 (PMVO), 3 (infer_inner) and 4 (HairGrow), the
+MVS nets' training (train_mvs) and the one-process pipeline (run_pipeline) on
 one GPU and check them.
 
     python3 chip_smoke.py
@@ -78,8 +79,30 @@ Phases, each printing a line when it starts and when it ends:
               ours/*_tsfm.obj non-empty, bust depth in every rig view;
               printed: model_tsfm.dat's own share of the rotation, seconds
               per step, ms a fit step, the loss curve, depth IoU, peak memory
+ 11. train    the MVS nets' training at full width (OccAttn and OriAttn, 16
+              views) on their training family (4 cases of 16 ring views
+              rendered at 256x256, Occ3D/Ori3D from the wigs), batches of 4096
+              points: 11a a training step and one Adam step on the card
+              against the CPU in float64 from the same state (loss 1e-4 relative,
+              gradients 1e-3 of their norm, BatchNorm running stats 1e-4,
+              parameters within 1e-6 on >= 98% of the elements); 11b the
+              steady ms a step (CUDA events over 20), the busy share and top
+              operations (torch.profiler on one step), peak memory; 11c the
+              train_mvs CLI on the 4 cases (1000 steps, fewer when they would
+              pass TRAIN_BUDGET_S), then --resume for one more evaluation:
+              stats_occ.txt's 6 columns, the mean loss of the last 50 steps
+              below the first 50's, occ.npz and load_net's net equal to the
+              resumed run's final state, and its val F1 through deep_mvs_eval
+              at least 0.7; steps/s
+ 12. pipeline the run_pipeline CLI on the card: (a) a fresh 16-view synthwig
+              case (phase 7d's, prepare_data's steps off) under 7d's gates
+              and the synthwig strand checks on full/connected_strands.hair;
+              (b) the 16-frame 96x128 capture case (prepare_data's image half,
+              run_ngp and fit_bust off) through to full/connected_strands.hair;
+              metrics.jsonl holds stage/<name>/seconds for the four stages
 Phase 3 also holds the tap loop at the shapes PR 7's kernel refused (S = 1 at
-P = 225, the refine pass at patch 15; 1100 views).
+P = 225, the refine pass at patch 15; 1100 views), and times the gather's
+library call (one advanced-index gather with its indices built beforehand).
 
 Before the last line it prints one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}, printed only when every phase passed.
@@ -106,6 +129,8 @@ import torch
 from monohair_tpu_torch import HairGrow as grow_cli, PMVO as pmvo_cli
 from monohair_tpu_torch import infer_inner as infer_cli
 from monohair_tpu_torch import prepare_data as prepare_cli
+from monohair_tpu_torch import run_pipeline as pipeline_cli
+from monohair_tpu_torch import train_mvs as train_cli
 from monohair_tpu_torch.bustfit import optimize as bust_optimize
 from monohair_tpu_torch.bustfit import pipeline as bust_pipeline
 from monohair_tpu_torch.bustfit.transforms import load_model_tsfm
@@ -118,13 +143,14 @@ from monohair_tpu_torch.io.hair_io import load_hair, strands_from_flat
 from monohair_tpu_torch.io.image_io import (imread_gray, load_depth_maps, load_masks,
                                             load_orientation_and_confidence, read_png,
                                             write_png)
-from monohair_tpu_torch.io.mat_io import load_occ_mat, load_ori_mat
+from monohair_tpu_torch.io.mat_io import load_occ_mat, load_ori_mat, save_occ_ori_mat
 from monohair_tpu_torch.io.voxels_io import load_voxels_dat
 from monohair_tpu_torch.io.yaml_io import dump_yaml
-from monohair_tpu_torch.models.pifu import mvs_projection, occ_decision
+from monohair_tpu_torch.models.pifu import OccAttn, OriAttn, mvs_projection, occ_decision
 from monohair_tpu_torch.io.mesh_io import load_obj
 from monohair_tpu_torch.mvs.eval import (colmap_guided_queries, deep_mvs_eval, eval_points,
                                         load_mvs_inputs, save_mvs_outputs)
+from monohair_tpu_torch.mvs.train import create_state, loss_and_grads, train_step
 from monohair_tpu_torch.nerf import pipeline as pipeline_ngp
 from monohair_tpu_torch.nerf import train as nerf_train
 from monohair_tpu_torch.nerf.fourier import FourierField
@@ -132,10 +158,11 @@ from monohair_tpu_torch.nerf.ngp import (as_background, camera_rays, grid_points
                                          render_rays)
 from monohair_tpu_torch.nerf.pipeline import ngp_options
 from monohair_tpu_torch.nerf.poses import load_base_cam
-from monohair_tpu_torch.nerf.train import NerfDataset, load_nerf_dataset, psnr, render_image
+from monohair_tpu_torch.nerf.train import NerfDataset, load_nerf_dataset, render_image
 from monohair_tpu_torch.ops import _build
 from monohair_tpu_torch.ops import patch_kernels as pk
 from monohair_tpu_torch.ops.gabor import orientation_maps as gabor_maps
+from monohair_tpu_torch.ops.voxelize import voxelize_directions
 from monohair_tpu_torch.pipeline.common import case_paths
 from monohair_tpu_torch.pipeline.hair_grow_stage import (run_hair_grow, scalp_seeds,
                                                          voxel_strands_to_world)
@@ -144,6 +171,7 @@ from monohair_tpu_torch.pipeline.pmvo_stage import run_pmvo
 from monohair_tpu_torch.render import (render_data, render_view, strands_to_segments,
                                        upload_segments)
 from monohair_tpu_torch.ops.resize import resize_linear
+from monohair_tpu_torch.utils.metrics import OccMetric, psnr
 from monohair_tpu_torch.segment.annotations import AnnotationProcessor, default_backends
 from monohair_tpu_torch.segment.convert import save_flax_npz
 from monohair_tpu_torch.segment.fan import FAN, decode_heatmaps
@@ -353,12 +381,22 @@ def phase_kernels(dev: torch.device) -> dict:
         raise AssertionError(f"patch_gather: {bad} elements differ from the plain version")
     ms = cuda_time_ms(lambda: pk.patch_gather(padded, rc, patch))
     plain_ms = cuda_time_ms(lambda: pk.patch_gather_plain(padded, rc, patch))
+    # the library call: the plain version's last line, one advanced-index
+    # gather, with its index tensors built beforehand
+    offs = torch.arange(patch, device=dev)
+    rows = rc[..., 0:1].long() + offs.repeat_interleave(patch)
+    cols = rc[..., 1:2].long() + offs.repeat(patch)
+    views = torch.arange(V, device=dev)[:, None, None]
+    if not torch.equal(padded[views, rows, cols], out_k):
+        raise AssertionError("patch_gather: the library gather differs from the kernel")
+    library_ms = cuda_time_ms(lambda: padded[views, rows, cols])
     bound_ms, bound_by = gather_bound(padded, rc, patch)
     log(f"patch_gather V={V} N={N} p={patch}: bit-exact; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"plain {plain_ms:.4f} ms, library (padded[views, rows, cols]) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
     results["patch_gather"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by)
-    del padded, out_k, out_p
+                                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    del padded, out_k, out_p, rows, cols
 
     # checked on random, tied and near-tie windows; the table's time is the
     # forward's (S=90) on random and tied windows
@@ -380,7 +418,8 @@ def phase_kernels(dev: torch.device) -> dict:
             log(f"patch_min_loss timed (random, tied windows): kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             results["patch_min_loss"] = dict(ms=ms, plain_ms=plain_ms,
-                                             bound_ms=bound_ms, bound_by=bound_by)
+                                             bound_ms=bound_ms, bound_by=bound_by,
+                                             library_ms=None)
             del args
     # the limits lifted in PR 8: the refine pass at patch 15 (S = 1, P = 225,
     # 57,664 bytes of windows a warp: more than the default 48 KB of shared
@@ -954,8 +993,9 @@ def phase_mvs(dev: torch.device, inputs, queries: np.ndarray, margin: float, net
 
 def precision_recall(pred: np.ndarray, truth: np.ndarray) -> tuple:
     """(precision, recall, F1) of boolean predictions against labels."""
-    tp = float((pred & truth).sum())
-    p, r = tp / max(float(pred.sum()), 1.0), tp / max(float(truth.sum()), 1.0)
+    metric = OccMetric()
+    metric.update(pred, truth)
+    p, r = metric.precision(), metric.recall()
     return p, r, 2 * p * r / max(p + r, 1e-12)
 
 
@@ -1071,6 +1111,17 @@ def phase_infer_inner(case_root: str, device: str, render_size, eval_vsize: floa
     steps.update(infer_cli.main(argv + ["--infer_inner.render_data!",
                                         f"--mvs.occ_logit_margin={margin!r}"]))
     launches = dict(pk.LAUNCHES)
+    checked = check_fused_case(case, device, launches, steps)
+    grow_cli.main(argv)
+    checked["hair"] = check_hair_outputs(os.path.join(case, "output", "verify", "full"))
+    return dict(steps=steps, launches=launches, margin=margin, **checked)
+
+
+def check_fused_case(case: str, device: str, launches: dict, steps: dict) -> dict:
+    """Phase 7d's gates on a synthwig case after stage 3: the 4 maps of every
+    view, raw.npy and voxels.dat consistent, full/ grids of the full shape,
+    an interior fused (MVS-positive queries, coarse.npy, more voxels in full/
+    than in refine/), and every kernel launched on the card."""
     full = os.path.join(case, "output", "verify", "full")
     views = sorted(os.listdir(os.path.join(case, "imgs")))
     pngs = sum(os.path.exists(os.path.join(case, "imgs", v, f"{m}.png"))
@@ -1085,7 +1136,7 @@ def phase_infer_inner(case_root: str, device: str, render_size, eval_vsize: floa
     log(f"stage 3 on synthwig: {len(views)} views, {pngs} maps; {len(raw)} queries, "
         f"{count} MVS-positive, {len(coarse)} of them fused as interior; full/ {full_n} "
         f"occupied voxels (refine/ {refine_n}); steps "
-        f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; fuse launches {launches}")
+        f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; launches {launches}")
     if (pngs != 4 * MVS_VIEWS or count != int(raw[:, 6].sum()) or not np.isfinite(raw).all()
             or occ.shape != (256, 256, 192) or not np.isfinite(ori).all()):
         raise AssertionError("stage 3: missing or wrong outputs")
@@ -1093,11 +1144,8 @@ def phase_infer_inner(case_root: str, device: str, render_size, eval_vsize: floa
         raise AssertionError(f"stage 3: the fuse took no interior: {count} MVS-positive, "
                              f"{len(coarse)} fused, full/ {full_n} voxels, refine/ {refine_n}")
     if device != "cpu" and min(launches.values()) == 0:
-        raise AssertionError(f"the fuse did not launch every kernel: {launches}")
-    grow_cli.main(argv)
-    hair = check_hair_outputs(full)
-    return dict(steps=steps, launches=launches, hair=hair, margin=margin,
-                mvs_positive=count, fused=len(coarse), full_voxels=full_n,
+        raise AssertionError(f"not every kernel was launched: {launches}")
+    return dict(mvs_positive=count, fused=len(coarse), full_voxels=full_n,
                 refine_voxels=refine_n)
 
 
@@ -1965,6 +2013,302 @@ def phase_bust_fit(dev: torch.device) -> dict:
                 transl_err=transl_err, lmk_err=float(err.max()), **versus, **fan)
 
 
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+TRAIN_CASES = 4                  # cases of the nets' training family the CLI trains on
+TRAIN_BATCH = 4096               # train_mvs's --batch
+TRAIN_LR = 1e-4                  # train_mvs's --lr
+TRAIN_STEPS = 1000               # the CLI's steps, fewer when they would pass TRAIN_BUDGET_S
+TRAIN_BUDGET_S = 40.0            # the CLI's share of the smoke run's time limit
+TRAIN_EVAL_EVERY = 100           # the CLI's --eval_every
+TRAIN_TIMED_STEPS = 20           # steady steps timed with CUDA events
+TRAIN_MIN_F1 = 0.7               # 11c's val F1 floor: an all-occupied guess scores ~0.51
+TRAIN_NETS = {"occ": OccAttn, "ori": OriAttn}
+
+
+def write_train_cases(root: str, dev: torch.device) -> str:
+    """TRAIN_CASES cases of the shipped nets' training family
+    (tools/make_mvs_cases.py): the wigs of seeds 1000.., the four maps of 16
+    ring views rendered at 256x256 by the port's renderer into
+    <root>/data/caseNNN/imgs, ours/Occ3D.mat the closed wig volume and
+    ours/Ori3D.mat its voxelised strand tangents. Returns the cam_params.json
+    that serves every case."""
+    cam_list = mvs_train_camera_list(MVS_VIEWS)
+    ndc, w2c = cameras_numpy(cam_list)
+    names = [c["file"] for c in cam_list]
+    calib = os.path.join(root, "cam_params.json")
+    save_cam_params(calib, names, ndc, np.linalg.inv(w2c))
+    cams = Cameras.from_json_list(cam_list, dev)
+    head_v, head_f = mvs_train_head_mesh()
+    for c in range(TRAIN_CASES):
+        strands = mvs_train_wig(np.random.default_rng(1000 + c))
+        case = os.path.join(root, "data", f"case{c:03d}")
+        render_data(cams, names, strands, head_v, head_f, MVS_TRAIN_RENDER_SIZE,
+                    os.path.join(case, "imgs"))
+        pts = torch.from_numpy(np.concatenate([s[:-1] for s in strands]))
+        tangents = torch.from_numpy(np.concatenate([s[1:] - s[:-1] for s in strands]))
+        _, ori = voxelize_directions(pts, tangents)
+        save_occ_ori_mat(os.path.join(case, "ours"), mvs_train_occupancy(strands), ori.numpy())
+    return calib
+
+
+def train_card_against_cpu(kind: str, entry: dict, dev: torch.device) -> dict:
+    """11a and 11b for one net: both states drawn by flax_init from one seed
+    (the same weights), one batch of TRAIN_BATCH training points of a case;
+    loss_and_grads and one Adam step on the card in f32 held against the same
+    on the CPU in float64 (the CPU's own f32 gradients of the ori net sit
+    further from float64 than the card's: tools/mvs_train_precision.py);
+    then the card's steady step time, its profile and its peak memory."""
+    rng = np.random.default_rng(1)
+    pts, targets = entry["train_dev"]
+    sel = (train_cli.balanced_batch(entry, rng, TRAIN_BATCH) if kind == "occ"
+           else rng.integers(0, len(pts), TRAIN_BATCH))
+    idx = torch.as_tensor(sel, device=dev)
+    batch = {"cuda": (entry["inputs"].imgs, entry["inputs"].w2c, entry["inputs"].ndc,
+                      pts[idx], targets[idx])}
+    batch["cpu"] = tuple(t.to("cpu", torch.float64) if t.is_floating_point() else t.cpu()
+                         for t in batch["cuda"])
+    states, out = {}, {}
+    for where, device, dtype in (("cuda", dev, torch.float32),
+                                 ("cpu", torch.device("cpu"), torch.float64)):
+        model = TRAIN_NETS[kind](num_views=MVS_VIEWS).to(device, dtype)
+        states[where] = create_state(model, torch.Generator().manual_seed(0), TRAIN_LR,
+                                     TRAIN_STEPS)
+        t = time.perf_counter()
+        loss, grads = loss_and_grads(states[where], *batch[where])
+        states[where].opt.step(grads)
+        if where == "cuda":
+            torch.cuda.synchronize(dev)
+        out[where] = dict(loss=float(loss), grads=[g.double().cpu() for g in grads],
+                          seconds=time.perf_counter() - t,
+                          state={k: v.double().cpu() for k, v in
+                                 states[where].model.state_dict().items()})
+    card, host = out["cuda"], out["cpu"]
+    loss_err = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    g_card, g_host = (torch.cat([g.flatten() for g in o["grads"]]) for o in (card, host))
+    grad_err = float(torch.linalg.norm(g_card - g_host) / torch.linalg.norm(g_host))
+    stats_err = max(float((card["state"][k] - host["state"][k]).abs().max())
+                    for k in host["state"] if k.endswith(("running_mean", "running_var")))
+    names = set(states["cpu"].param_names())
+    close = total = 0
+    for k in names:
+        d = (card["state"][k] - host["state"][k]).abs()
+        close += int((d <= 1e-6).sum())
+        total += d.numel()
+    log(f"11a {kind}: a training step of {TRAIN_BATCH} points on {MVS_VIEWS} views of "
+        f"{MVS_TRAIN_RENDER_SIZE[0]}x{MVS_TRAIN_RENDER_SIZE[1]}, card against CPU from the "
+        f"same state (the CPU in float64): loss {card['loss']:.7f} vs {host['loss']:.7f} "
+        f"(rel err {loss_err:.3g}), "
+        f"gradients within {grad_err:.3g} of their norm, BatchNorm running stats within "
+        f"{stats_err:.3g}, parameters after one Adam step within 1e-6 on "
+        f"{close / total * 100:.4f}% of {total} elements (CPU float64 step "
+        f"{host['seconds']:.2f} s)")
+    if not (loss_err <= 1e-4 and grad_err <= 1e-3 and stats_err <= 1e-4
+            and close >= 0.98 * total):
+        raise AssertionError(f"11a {kind}: the card's training step disagrees with the CPU's")
+
+    state = states["cuda"]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_time_ms(lambda: train_step(state, *batch["cuda"]), iters=TRAIN_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy = device_profile(lambda: train_step(state, *batch["cuda"]),
+                          f"one {kind} training step", top=12)
+    log(f"11b {kind}: {ms:.3f} ms a steady step (CUDA events over {TRAIN_TIMED_STEPS}), "
+        f"busy share {busy:.4f}, peak device memory {peak / 2**30:.3f} GiB")
+    return dict(loss_err=loss_err, grad_err=grad_err, stats_err=stats_err,
+                params_close=close / total, ms=ms, busy=busy, peak_bytes=peak)
+
+
+def phase_train(dev: torch.device) -> dict:
+    """Phase 11: the MVS nets' training at full width (OccAttn and OriAttn,
+    16 views) on their training family: 11a/11b per net, then 11c the
+    train_mvs CLI on TRAIN_CASES cases, --resume, and its occ.npz through
+    infer_inner's load_net and deep_mvs_eval."""
+    exact_f32()
+    torch.cuda.empty_cache()
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t = time.perf_counter()
+        calib = write_train_cases(tmp, dev)
+        log(f"11: {TRAIN_CASES} training cases written in {time.perf_counter() - t:.2f} s")
+        data = os.path.join(tmp, "data")
+        for kind in TRAIN_NETS:
+            store = train_cli.CaseStore(data, calib, kind, 0.1, device=dev)
+            entry = store.get(store.cases[0])
+            with Phase(f"11a/11b {kind}"):
+                result[kind] = train_card_against_cpu(kind, entry, dev)
+            del store, entry
+        torch.cuda.empty_cache()
+        with Phase("11c train_mvs CLI"):
+            pk.reset_launch_counts()
+            result["cli"] = train_cli_run(tmp, calib, dev, result["occ"]["ms"])
+            result["launches"] = dict(pk.LAUNCHES)
+    return result
+
+
+def train_cli_run(tmp: str, calib: str, dev: torch.device, step_ms: float) -> dict:
+    """11c: python -m monohair_tpu_torch.train_mvs's main on the cases, for
+    TRAIN_STEPS steps or the multiple of TRAIN_EVAL_EVERY that fits
+    TRAIN_BUDGET_S at 11b's step time (at least two evaluations); then
+    --resume for one evaluation more. Gates: stats_occ.txt's 6 finite columns
+    and its rows, the mean loss of the last 50 steps below the first 50's, the
+    written occ.npz and load_net's net equal to the resumed run's final state,
+    and that net's F1 on 4096 val points through deep_mvs_eval at least
+    TRAIN_MIN_F1."""
+    steps = min(TRAIN_STEPS, int(TRAIN_BUDGET_S * 1e3 / step_ms))
+    steps = max(steps // TRAIN_EVAL_EVERY, 2) * TRAIN_EVAL_EVERY
+    out = os.path.join(tmp, "ckpt")
+    argv = [f"--data_root={os.path.join(tmp, 'data')}", f"--calib={calib}", "--kind=occ",
+            f"--batch={TRAIN_BATCH}", f"--lr={TRAIN_LR}", f"--eval_every={TRAIN_EVAL_EVERY}",
+            f"--out={out}", f"--max_cached_cases={TRAIN_CASES}", f"--device={dev.type}"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    run = train_cli.main(argv + [f"--steps={steps}"])
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = np.asarray(run["losses"])
+    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+    stats = np.loadtxt(os.path.join(out, "stats_occ.txt"), ndmin=2)
+    rows = len(stats)
+    resumed = train_cli.main(argv + [f"--steps={steps + TRAIN_EVAL_EVERY}", "--resume"])
+    stats = np.loadtxt(os.path.join(out, "stats_occ.txt"), ndmin=2)
+    log(f"11c: train_mvs on {TRAIN_CASES} cases: {steps} steps of {TRAIN_BATCH} points in "
+        f"{run['seconds']:.2f} s of training loop ({len(losses) / run['seconds']:.3f} steps/s; "
+        f"{wall:.2f} s with the case loads), peak device memory {peak / 2**30:.3f} GiB; "
+        f"mean loss of the first 50 steps {first:.5f}, of the last 50 {last:.5f}; "
+        f"--resume from step {resumed['start']} for {len(resumed['losses'])} steps; "
+        f"stats_occ.txt rows {rows} -> {len(stats)}, the last "
+        f"{' '.join(f'{x:.4f}' for x in stats[-1])}")
+    if (stats.shape[1] != 6 or not np.isfinite(stats).all() or rows != steps // TRAIN_EVAL_EVERY
+            or len(stats) != rows + 1 or resumed["start"] != steps):
+        raise AssertionError(f"11c: stats_occ.txt {stats.shape}, rows {rows}, resumed at "
+                             f"{resumed['start']}")
+    if not last < first:
+        raise AssertionError(f"11c: the loss did not fall: {first} -> {last}")
+    net = load_net(Config({"mvs": {"occ_model_path": os.path.join(out, "occ.npz")}}), "occ",
+                   MVS_VIEWS, dev)
+    trained = resumed["state"].model.state_dict()
+    loaded = net.state_dict()
+    with np.load(os.path.join(out, "occ.npz")) as saved:
+        stale = [k for k in trained
+                 if not (k in saved and k in loaded
+                         and np.array_equal(saved[k], trained[k].cpu().numpy())
+                         and torch.equal(loaded[k].cpu(), trained[k].cpu()))]
+        extra = set(saved.files) ^ set(trained)
+    if stale or extra or set(loaded) != set(trained):
+        raise AssertionError(f"11c: occ.npz or load_net's net is not the resumed run's final "
+                             f"state: {len(stale)} tensors differ ({stale[:4]}), keys "
+                             f"{sorted(extra)[:4]}")
+    entry = train_cli.CaseStore(os.path.join(tmp, "data"), calib, "occ", 0.1,
+                                device=dev).get("case000")
+    pts, labels = entry["val"]
+    pts, labels = pts[:TRAIN_BATCH], labels[:TRAIN_BATCH]
+    _, orients, occ = deep_mvs_eval(entry["inputs"], net, load_net(MVS_CFG, "ori", MVS_VIEWS, dev),
+                                    query_points=pts, batch=TRAIN_BATCH)
+    p, r, f1 = precision_recall(occ > 0.5, labels > 0)
+    log(f"11c: the written occ.npz equals the resumed run's final state in all "
+        f"{len(trained)} tensors, and load_net's net holds it; through deep_mvs_eval on "
+        f"{len(pts)} val points of case000: {occ.mean() * 100:.2f}% occupied, precision "
+        f"{p:.4f}, recall {r:.4f}, F1 {f1:.4f} (labels {(labels > 0).mean() * 100:.2f}% "
+        f"occupied; floor {TRAIN_MIN_F1})")
+    if occ.shape != (len(pts),) or not np.isfinite(orients).all():
+        raise AssertionError("11c: the trained net's outputs are wrong")
+    if not f1 >= TRAIN_MIN_F1:
+        raise AssertionError(f"11c: the trained net's val F1 {f1:.4f} < {TRAIN_MIN_F1}")
+    return dict(steps=steps, seconds=run["seconds"], steps_per_s=len(losses) / run["seconds"],
+                wall=wall, peak_bytes=peak, loss_first=first, loss_last=last,
+                last_row=stats[-1].tolist(), precision=p, recall=r, f1=f1)
+
+
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+
+PIPELINE_STAGES = ("prepare_data", "pmvo", "infer_inner", "hair_grow")
+PREPARE_STEPS = ("select_images", "process_camera", "run_ngp", "fit_bust", "process_bust",
+                 "render_depth", "process_imgs")
+CAPTURE_SMALL = dict(num_frames=16, H=96, W=128)   # tools/check_capture_camera_roll.py's case
+
+
+def check_stage_metrics(output_path: str) -> dict:
+    """metrics.jsonl holds stage/<name>/seconds for the four stages, in order."""
+    with open(os.path.join(output_path, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    names = [line["name"] for line in lines]
+    if names != [f"stage/{s}/seconds" for s in PIPELINE_STAGES]:
+        raise AssertionError(f"metrics.jsonl holds {names}")
+    return {line["name"].split("/")[1]: line["value"] for line in lines}
+
+
+def phase_pipeline(dev: torch.device, margin: float) -> dict:
+    """Phase 12: python -m monohair_tpu_torch.run_pipeline's main on the card,
+    (a) on a fresh 16-view synthwig case (phase 7d's: the shipped nets at 7d's
+    median margin, the depth maps at camera depth 1.08 from the start, here
+    for PMVO too), prepare_data's steps off, under phase 7d's gates and the
+    synthwig strand checks on full/connected_strands.hair; (b) on the small
+    capture case (prepare_data's image half with the shipped hair-parser
+    weights, run_ngp and fit_bust off, random nets: the case has 8 rig views)
+    through to full/connected_strands.hair. Launches are counted over (a) and
+    (b); (a) alone must launch every kernel."""
+    exact_f32()
+    torch.cuda.empty_cache()
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as tmp:
+        cfg = write_synthwig_case(tmp, num_views=MVS_VIEWS)
+        cfg["prepare_data"] = dict.fromkeys(PREPARE_STEPS, False)
+        cfg.PMVO["infer_inner"] = True
+        cfg.mvs.update(occ_model_path=MVS_WEIGHTS["occ"], ori_model_path=MVS_WEIGHTS["ori"],
+                       eval_vsize=EVAL_VSIZE, occ_logit_margin=margin)
+        cfg.infer_inner["render_size"] = list(RENDER_SIZE)
+        case = os.path.join(tmp, "synthwig")
+        depth_dir = os.path.join(case, "render_depth")
+        for name in os.listdir(depth_dir):
+            shape = np.load(os.path.join(depth_dir, name)).shape
+            np.save(os.path.join(depth_dir, name), np.full(shape, 1.08 / 2 * 255, np.float32))
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        pk.reset_launch_counts()
+        t = time.perf_counter()
+        steps = pipeline_cli.main(["--yaml=" + os.path.join(tmp, "case"),
+                                   f"--device={dev.type}"])
+        wall = time.perf_counter() - t
+        launches = dict(pk.LAUNCHES)
+        seconds = check_stage_metrics(os.path.join(case, "output", "verify"))
+        flat = {k: v for stage in steps.values() for k, v in stage.items()}
+        checked = check_fused_case(case, dev.type, launches, flat)
+        checked["hair"] = check_hair_outputs(os.path.join(case, "output", "verify", "full"))
+        log(f"12a run_pipeline on synthwig: {wall:.2f} s, stage seconds {seconds}")
+        result["synthwig"] = dict(wall=wall, seconds=seconds, steps=steps, **checked)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_capture_") as tmp:
+        cfg = write_capture_case(tmp, "cap", **CAPTURE_SMALL, modnet=SEGMENT_WEIGHTS["modnet"],
+                                 parser=SEGMENT_WEIGHTS["bisenet"])["config"]
+        cfg.PMVO["infer_inner"] = True
+        cfg.infer_inner["render_size"] = [96, 64]
+        cfg.mvs["eval_vsize"] = 0.02
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        t = time.perf_counter()
+        pipeline_cli.main(["--yaml=" + os.path.join(tmp, "case"), f"--device={dev.type}",
+                           "--prepare_data.run_ngp=", "--prepare_data.fit_bust="])
+        wall = time.perf_counter() - t
+        out = os.path.join(tmp, "cap", "output", "capture")
+        seconds = check_stage_metrics(out)
+        segments, points = load_hair(os.path.join(out, "full", "connected_strands.hair"))
+        surface = np.load(os.path.join(out, "optimize", "surface.npy"))
+        log(f"12b run_pipeline on the capture case ({CAPTURE_SMALL}): {wall:.2f} s, stage "
+            f"seconds {seconds}; PMVO kept {len(surface)} surface points; "
+            f"full/connected_strands.hair {len(segments)} strands, {len(points)} points")
+        if len(segments) == 0 or not np.isfinite(points).all():
+            raise AssertionError("12b: the capture case grew no strands")
+        result["capture"] = dict(wall=wall, seconds=seconds, surface=len(surface),
+                                 strands=len(segments))
+    result["launches"] = dict(pk.LAUNCHES)
+    return result
+
+
 KERNEL_META = {
     "patch_gather": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
                          replaces="monohair_tpu/ops/pallas_kernels.py:188"),
@@ -2001,9 +2345,14 @@ def main(argv=None) -> int:
         ngp = phase_ngp(dev)
     with Phase("10 prepare_data with the bust fit"):
         bust = phase_bust_fit(dev)
+    with Phase("11 train"):
+        train = phase_train(dev)
+    with Phase("12 run_pipeline"):
+        pipeline = phase_pipeline(dev, stage3["stage"]["margin"])
     by_path = {"pmvo": width["launches"], "infer_inner_fuse": stage3["stage"]["launches"],
                "prepare_data": stage1["launches"], "prepare_data_ngp": ngp["launches"],
-               "prepare_data_bust": bust["launches"]}
+               "prepare_data_bust": bust["launches"], "train_mvs": train["launches"],
+               "run_pipeline": pipeline["launches"]}
     kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:
         with Phase("profile"):
@@ -2011,7 +2360,7 @@ def main(argv=None) -> int:
     line = [dict(name=name, **KERNEL_META[name],
                  launches=sum(counts[name] for counts in by_path.values()),
                  launches_by_path={path: counts[name] for path, counts in by_path.items()},
-                 library_ms=None, **kernels[name]) for name in KERNEL_META]
+                 **kernels[name]) for name in KERNEL_META]
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -105,6 +105,22 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping, vit_prefix: str
     return sd
 
 
+def adam_state_from_flax(opt_state, batch_stats: Mapping, vit_prefix: str,
+                         param_names) -> dict:
+    """optax.adam's state of a flax OccAttn/OriAttn (numpy leaves) -> the
+    moments in the reference's torch naming, as `OptaxAdam` holds them:
+    {"mu": {name: array}, "nu": {name: array}, "count": int} over
+    `param_names` (the net's parameters, not its BatchNorm buffers). The
+    moments have the parameters' tree, so they take the parameters' layout
+    changes."""
+    adam = next(s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu"))
+    moments = {}
+    for key in ("mu", "nu"):
+        sd = state_dict_from_flax(getattr(adam, key), batch_stats, vit_prefix)
+        moments[key] = OrderedDict((name, sd[name]) for name in param_names)
+    return dict(moments, count=int(np.asarray(adam.count)))
+
+
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A weights file in the reference's naming -> CPU tensors: a ``.npz`` (as
     tools/export_mvs_weights.py writes) or a torch ``.pth`` (its
@@ -128,14 +144,19 @@ def load_weights(model: torch.nn.Module, state_dict: Mapping) -> torch.nn.Module
 
 def weights_path(path: str) -> str:
     """The file that holds the weights of a configured model path: the path
-    itself for a file; for an orbax tree (a directory, as train_mvs.py writes
-    them) the ``.npz`` beside it, which tools/export_mvs_weights.py writes."""
-    if not os.path.isdir(path):
+    itself for a file; for an orbax tree (a directory, as the JAX package's
+    train_mvs.py writes them) the ``.npz`` beside it, which
+    tools/export_mvs_weights.py writes, as does the port's train_mvs (without
+    the directory). A path that is neither, and has no ``.npz`` beside it,
+    comes back as it is."""
+    if os.path.isfile(path):
         return path
     npz = path.rstrip("/") + ".npz"
-    if not os.path.exists(npz):
+    if os.path.exists(npz):
+        return npz
+    if os.path.isdir(path):
         raise FileNotFoundError(
             f"{path} is an orbax tree, which the PyTorch port does not read; "
             f"write {npz} from it with `python tools/export_mvs_weights.py "
             f"{path}` (that tool needs JAX and orbax)")
-    return npz
+    return path

@@ -10,9 +10,11 @@ point batches (pifu_attn.py:240-256).
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.grid_sample import grid_sample_views
@@ -81,6 +83,13 @@ class OccAttn(_PifuBase):
     def forward_with_feat(self, feats, pts_world, pts_view, sample_coord):
         return self._fuse(feats, pts_world, pts_view, sample_coord)
 
+    @staticmethod
+    def loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Cross-entropy (pifu_attn.py:185,216): the mean over the points of
+        -log_softmax(logits)[label]."""
+        logp = F.log_softmax(logits, -1)
+        return -torch.mean(torch.gather(logp, -1, labels.long()[:, None]))
+
 
 class OriAttn(_PifuBase):
     """Unit 3-vector orientation head (pifu_attn.py:259-371). Returns (N, 3)."""
@@ -91,20 +100,29 @@ class OriAttn(_PifuBase):
         out = self._fuse(feats, pts_world, pts_view, sample_coord)
         return out / torch.linalg.norm(out, dim=-1, keepdim=True).clamp_min(1e-12)
 
+    @staticmethod
+    def loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        """Sign-agnostic L1 (pifu_attn.py:327-331): the mean over the points of
+        min(mean |pred - gt|, mean |pred + gt|)."""
+        pos = torch.mean(torch.abs(pred - gt), -1)
+        neg = torch.mean(torch.abs(pred + gt), -1)
+        return torch.mean(torch.minimum(pos, neg))
 
-@torch.no_grad()
-def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+
+def _fill(model: nn.Module, generator: torch.Generator, draw_matrix) -> nn.Module:
     """Fresh weights drawn from `generator` (on the CPU), whatever the global
-    seed: convolution and linear weights uniform in +-1/sqrt(fan_in) (torch's
-    default bound), biases 0; norms scale 1, shift 0, running stats 0 and 1;
-    the cls token, position table and re-attention mix standard normal."""
+    seed, in named_parameters order: the cls token, position table and
+    re-attention mix standard normal; every other weight of 2 or more
+    dimensions from draw_matrix(p, fan_in) with flax's fan-in (kernel area x
+    input channels; a transposed convolution's input is its deep side,
+    torch's dim 0); biases 0; norms scale 1, shift 0, running stats 0 and 1."""
+    transposed = {id(m.weight) for m in model.modules() if isinstance(m, nn.ConvTranspose2d)}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("cls_token", "pos_embedding", "reattn_weights"):
             new = torch.randn(p.shape, generator=generator)
         elif p.ndim >= 2:
-            bound = p[0].numel() ** -0.5          # torch's fan_in: size(1) * kernel area
-            new = (torch.rand(p.shape, generator=generator) * 2 - 1) * bound
+            new = draw_matrix(p, p[:, 0].numel() if id(p) in transposed else p[0].numel())
         elif leaf == "weight":
             new = torch.ones(p.shape)
         else:
@@ -114,6 +132,39 @@ def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
         if isinstance(m, nn.BatchNorm2d):
             m.reset_running_stats()
     return model
+
+
+@torch.no_grad()
+def random_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """`_fill` with weights uniform in +-1/sqrt(p[0].numel()) (torch's default
+    bound for convolutions and linear layers; for a transposed convolution,
+    its output channels x kernel area)."""
+    def uniform(p, fan_in):
+        bound = p[0].numel() ** -0.5
+        return (torch.rand(p.shape, generator=generator) * 2 - 1) * bound
+
+    return _fill(model, generator, uniform)
+
+
+def _lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's lecun_normal: a normal truncated to +-2 standard deviations,
+    scaled to variance 1 / fan_in (std sqrt(1/fan_in) / 0.8796..., the
+    truncated unit normal's std), drawn as jax.random.truncated_normal draws
+    it: erfinv of a uniform between the bounds' CDF values."""
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64) * (hi - lo) + lo
+    unit = math.sqrt(2.0) * torch.erfinv(u)
+    return (unit * (math.sqrt(1.0 / fan_in) / 0.87962566103423978)).float()
+
+
+@torch.no_grad()
+def flax_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """`_fill` with the distributions of the JAX package's trainer
+    (monohair_tpu/mvs/train.py::create_state, flax's defaults): convolution,
+    transposed-convolution and linear weights lecun_normal over flax's
+    fan-in; normal(1.0) for the cls token, position table and re-attention
+    mix (vit.py:42,99,107)."""
+    return _fill(model, generator, lambda p, fan_in: _lecun_normal(p.shape, fan_in, generator))
 
 
 def mvs_projection(w2c: torch.Tensor, ndc: torch.Tensor, pts: torch.Tensor

@@ -240,8 +240,3 @@ def render_image(field: nn.Module, c2w: np.ndarray, H: int, W: int, fx: float, f
     rgb = torch.cat(rgb)[:H * W].cpu().numpy()
     depth = torch.cat(depth)[:H * W].cpu().numpy()
     return rgb.reshape(H, W, 3), depth.reshape(H, W)
-
-
-def psnr(img: np.ndarray, ref: np.ndarray) -> float:
-    mse = float(np.mean((img - ref) ** 2))
-    return -10.0 * np.log10(max(mse, 1e-12))

@@ -1,5 +1,6 @@
 """optax's Adam chains written out in torch, for the loops whose rates and step
-counts were tuned on optax (the NeRF's training, the bust fit).
+counts were tuned on optax (the NeRF's training, the bust fit, the MVS nets'
+training).
 
 torch.optim's Adam and clip_grad_norm_ round and clip otherwise: the bias
 corrections, the learning-rate schedule and the clip's scale are computed here
@@ -14,24 +15,43 @@ import numpy as np
 import torch
 
 
+def cosine_decay_lr(lr: float, decay_steps: int, count: int, alpha: float = 0.0,
+                    exponent: float = 1.0) -> float:
+    """optax.cosine_decay_schedule(lr, decay_steps, alpha, exponent) at `count`,
+    in f32 as optax 0.2.6 computes it:
+    lr * ((1 - alpha) * (0.5 * (1 + cos(pi * min(count, T) / T))) ** exponent + alpha).
+    The cosine is the correctly rounded one; XLA's f32 cosine is not always,
+    so a step's rate can differ from optax's by one f32 ulp."""
+    f32 = np.float32
+    k = min(f32(count), f32(decay_steps))
+    decay = f32(0.5) * (f32(1) + f32(np.cos(np.float64(f32(np.pi) * k / f32(decay_steps)))))
+    return float(f32(lr) * ((f32(1) - f32(alpha)) * decay ** f32(exponent) + f32(alpha)))
+
+
 class OptaxAdam:
     """optax.chain([zero_nans(),] [clip_by_global_norm(max_norm),] adam(
     exponential_decay(lr, transition_steps, decay_rate))) over a list of
-    parameters, as optax computes it:
+    parameters, or with schedule="cosine" optax.adam(cosine_decay_schedule(lr,
+    transition_steps)), as optax computes it:
     - with zero_nans, every NaN of a gradient becomes 0 (an inf stays);
     - unless max_norm is None, the global norm g over every gradient; each
       gradient becomes (grad / g) * max_norm unless g < max_norm;
     - mu = (1 - b1) grad + b1 mu, nu = (1 - b2) grad^2 + b2 nu, bias-corrected
       by 1 - b^count with count counted from 1 (b1 0.9, b2 0.999);
-    - the update mu_hat / (sqrt(nu_hat) + 1e-8), scaled by
-      -lr * decay_rate^(k / transition_steps) at k = the steps taken before
-      this one (so the first step uses lr), continuous, not staircase.
+    - the update mu_hat / (sqrt(nu_hat) + 1e-8), scaled by -lr(k) at k = the
+      steps taken before this one (so the first step uses lr): lr *
+      decay_rate^(k / transition_steps), continuous, not staircase; or the
+      cosine decay over transition_steps (`cosine_decay_lr`).
     The scalars are f32, as in optax."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float, transition_steps: int,
-                 max_norm: Optional[float] = 10.0, decay_rate: float = 0.1, zero_nans: bool = False):
+                 max_norm: Optional[float] = 10.0, decay_rate: float = 0.1, zero_nans: bool = False,
+                 schedule: str = "exponential"):
+        if schedule not in ("exponential", "cosine"):
+            raise ValueError(f"unknown learning-rate schedule {schedule!r}")
+        self.schedule = schedule
         self.params = list(params)
         self.lr, self.transition_steps = lr, transition_steps
         self.max_norm, self.decay_rate, self.zero_nans = max_norm, decay_rate, zero_nans
@@ -40,6 +60,8 @@ class OptaxAdam:
         self.count = 0
 
     def learning_rate(self, count: int) -> float:
+        if self.schedule == "cosine":
+            return cosine_decay_lr(self.lr, self.transition_steps, count)
         f32 = np.float32
         p = f32(count) / f32(self.transition_steps)
         return float(f32(self.lr) * np.power(f32(self.decay_rate), p))

@@ -47,12 +47,12 @@ def render_segments(args: Config, device="cuda") -> list:
 
 def load_net(args: Config, kind: str, num_views: int, device="cuda") -> torch.nn.Module:
     """The occ or ori net with the weights of `mvs.<kind>_model_path`: a
-    ``.npz`` or ``.pth`` file, or an orbax tree through the ``.npz`` beside it;
-    a path that does not exist gives random weights (with a warning), as in the
-    JAX package; so does no path."""
+    ``.npz`` or ``.pth`` file, or an orbax tree's path through the ``.npz``
+    beside it (`weights_path`); a path that does not exist gives random
+    weights (with a warning), as in the JAX package; so does no path."""
     model = (OccAttn if kind == "occ" else OriAttn)(num_views=num_views)
     ckpt = args.get("mvs", {}).get(f"{kind}_model_path")
-    if ckpt and os.path.exists(ckpt):
+    if ckpt and os.path.exists(weights_path(ckpt)):
         load_weights(model, read_state_dict(weights_path(ckpt)))
     else:
         if ckpt:

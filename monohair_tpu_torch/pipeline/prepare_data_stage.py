@@ -32,6 +32,7 @@ from ..io.cameras_io import load_cam_params, subsample_views
 from ..io.image_io import (encode_orientation_image, imread_gray, imread_rgb,
                            write_png)
 from ..io.mesh_io import load_obj
+from ..ops import exact_f32
 from ..ops.resize import bgr_to_gray, laplacian_variance
 from ..render import render_bust_hair_depth
 
@@ -118,7 +119,11 @@ def promote_fit_artifacts(args: Config) -> None:
 
 
 def run_prepare_data(args: Config, device="cuda") -> Dict[str, float]:
-    """Run the enabled steps on `device`; returns each step's wall seconds."""
+    """Run the enabled steps on `device`; returns each step's wall seconds.
+    On the card, matmuls and convolutions stay in full f32 (the segmentation
+    nets' convolutions would take TF32 by cuDNN's default)."""
+    if torch.device(device).type == "cuda":
+        exact_f32()
     root = args.data.root
     seconds: Dict[str, float] = {}
     t0 = time.perf_counter()

@@ -252,14 +252,14 @@ def pmvo_refine_loss(maps: PMVOMaps, points: torch.Tensor, ori: torch.Tensor,
     return loss
 
 
-def filter_points(maps: PMVOMaps, points: torch.Tensor, patch_size: int,
-                  conf_threshold: float, visible_threshold: float
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Classify raw samples into surface candidates vs near-surface-invisible.
-
-    Mirror of PMVO.filter_points (PMVO.py:402-459). Returns boolean masks
-    (surface_index, filter_index) over the N points.
-    """
+def filter_masks(maps: PMVOMaps, points: torch.Tensor, patch_size: int,
+                 conf_threshold: float, visible_threshold: float) -> Dict[str, torch.Tensor]:
+    """The per-point tests that PMVO.filter_points (PMVO.py:402-459) combines,
+    as boolean masks over the N points: `seen` (visible at the 0.1 depth
+    tolerance in more than one view) and `seen_loose` (the same at
+    visible_threshold); `low_conf` (low-confidence in more than 4 of the views
+    it is seen in); `hair` and `hair_loose` (on the hair mask in at least half
+    of the views it is seen in, at either tolerance)."""
     obs = observe_points(maps, points, patch_size)
     z255 = -obs["z"] / 2.0 * 255.0
     d = obs["depth"]
@@ -276,13 +276,25 @@ def filter_points(maps: PMVOMaps, points: torch.Tensor, patch_size: int,
 
     vis = 1.0 - unvis
     vis1 = 1.0 - unvis1
-    low_conf_count = torch.sum((1.0 - unvis) * low_c, 0) > 4
-    hair = (torch.sum(vis, 0) - torch.sum(vis * m, 0)) < torch.sum(vis, 0) * 0.5
-    hair1 = (torch.sum(vis1, 0) - torch.sum(vis1 * m, 0)) < torch.sum(vis1, 0) * 0.5
-    surface = torch.sum(vis, 0) > 1
-    filt = (torch.sum(vis1, 0) > 1) & ~surface
-    surface = surface & ~low_conf_count & hair
-    filt = filt & ~low_conf_count & hair1
+    return dict(
+        seen=torch.sum(vis, 0) > 1,
+        seen_loose=torch.sum(vis1, 0) > 1,
+        low_conf=torch.sum((1.0 - unvis) * low_c, 0) > 4,
+        hair=(torch.sum(vis, 0) - torch.sum(vis * m, 0)) < torch.sum(vis, 0) * 0.5,
+        hair_loose=(torch.sum(vis1, 0) - torch.sum(vis1 * m, 0)) < torch.sum(vis1, 0) * 0.5)
+
+
+def filter_points(maps: PMVOMaps, points: torch.Tensor, patch_size: int,
+                  conf_threshold: float, visible_threshold: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Classify raw samples into surface candidates vs near-surface-invisible.
+
+    Mirror of PMVO.filter_points (PMVO.py:402-459), from `filter_masks`.
+    Returns boolean masks (surface_index, filter_index) over the N points.
+    """
+    k = filter_masks(maps, points, patch_size, conf_threshold, visible_threshold)
+    surface = k["seen"] & ~k["low_conf"] & k["hair"]
+    filt = k["seen_loose"] & ~k["seen"] & ~k["low_conf"] & k["hair_loose"]
     return surface, filt
 
 

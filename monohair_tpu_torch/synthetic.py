@@ -489,45 +489,31 @@ def mvs_train_head_mesh(subdiv: int = 20) -> Tuple[np.ndarray, np.ndarray]:
 
 def mvs_train_occupancy(strands: List[np.ndarray]) -> np.ndarray:
     """The training label grid of a wig: the voxels of its segment starts,
-    closed with a 5-voxel kernel (dilate, then keep fully covered voxels) and
-    joined with the raw voxels, as make_mvs_cases.py builds Occ3D.mat.
-    (X, Y, Z) float32 in {0, 1}."""
+    closed with a 5-voxel kernel (ops.pool3d.close_volume) and joined with the
+    raw voxels, as make_mvs_cases.py builds Occ3D.mat. (X, Y, Z) float32 in
+    {0, 1}."""
     import torch
-    from scipy.ndimage import maximum_filter, minimum_filter
 
     from .coords import voxel_indices
-    pts = torch.from_numpy(np.concatenate([s[:-1] for s in strands]))
-    idx = voxel_indices(pts).numpy()
-    occ = np.zeros(tuple(int(r) for r in GRID_RESOLUTION), np.float32)
+    from .ops.pool3d import close_volume
+    idx = voxel_indices(torch.from_numpy(np.concatenate([s[:-1] for s in strands]))).long()
+    occ = torch.zeros(tuple(int(r) for r in GRID_RESOLUTION))
     occ[idx[:, 0], idx[:, 1], idx[:, 2]] = 1.0
-    # zero padding outside the grid, as the max/avg pools' padding counts it
-    closed = minimum_filter(maximum_filter(occ, 5, mode="constant", cval=0.0),
-                            5, mode="constant", cval=0.0)
-    return np.maximum(closed, occ)
+    return torch.maximum(close_volume(occ, 5), occ).numpy()
 
 
 def mvs_train_queries(occ: np.ndarray, rng: np.random.Generator, kernel: int = 5
                       ) -> Tuple[np.ndarray, np.ndarray]:
-    """The occupancy queries the nets' margin was tuned on
-    (mvs/sampling.py::sample_occ_training_points): 6 jittered points in each
-    occupied voxel, 4 in each voxel of the kernel-wide shell around them, one
-    in every 10th voxel beyond. Returns (world points (N, 3) float32, labels
-    (N,) int32)."""
+    """The occupancy queries the nets' margin was tuned on: the training
+    sampler's points (mvs.sampling.sample_occ_training_points, drawn from
+    `rng`) in world space. Returns (world points (N, 3) float32, labels (N,)
+    int32)."""
     import torch
-    from scipy.ndimage import maximum_filter
 
     from .coords import voxel_to_world
-    enlarged = maximum_filter(occ, kernel, mode="constant", cval=0.0)
-    parts = [(np.argwhere(occ > 0), 6), (np.argwhere((enlarged > 0) & (occ == 0)), 4),
-             (np.argwhere(enlarged == 0)[::10], 1)]
-    pts = []
-    for idx, per in parts:
-        base = np.repeat(idx.astype(np.float32), per, 0)
-        pts.append(base + rng.random(base.shape).astype(np.float32))
-    labels = np.concatenate([np.ones(len(parts[0][0]) * 6),
-                             np.zeros(len(pts[1]) + len(pts[2]))]).astype(np.int32)
-    world = voxel_to_world(torch.from_numpy(np.concatenate(pts))).numpy()
-    return world, labels
+    from .mvs.sampling import sample_occ_training_points
+    pts_v, labels = sample_occ_training_points(occ, kernel, seed=rng)
+    return voxel_to_world(torch.from_numpy(pts_v)).numpy(), labels
 
 
 # ---------------------------------------------------------------------------

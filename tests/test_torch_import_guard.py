@@ -8,7 +8,10 @@ stage's files on a small written case, as do PMVO and then
 `python -m monohair_tpu_torch.infer_inner` on another, and
 `python -m monohair_tpu_torch.prepare_data` on a small capture case, once with
 the NeRF off, once with it on at a tiny budget, and once with the bust fit on
-(the synthetic SMPL-X, a few steps)."""
+(the synthetic SMPL-X, a few steps); `python -m monohair_tpu_torch.train_mvs`
+trains a few steps on a small written case and resumes, and
+`python -m monohair_tpu_torch.run_pipeline` runs the four stages on a small
+synthwig case."""
 
 import os
 import subprocess
@@ -149,6 +152,61 @@ GUARDED = textwrap.dedent('''
                      "Bust/scalp.obj", "ours/bust_long_tsfm.obj"):
             assert os.path.getsize(os.path.join(case, name)) > 0, name
         assert np.isfinite(np.fromfile(os.path.join(case, "model_tsfm.dat"), np.float32)).all()
+
+    # the train_mvs CLI, as `python -m` runs it, on a 2-view 16x16 case written
+    # with the port's writers, then --resume
+    with tempfile.TemporaryDirectory() as tmp:
+        from monohair_tpu_torch.io.cameras_io import save_cam_params
+        from monohair_tpu_torch.io.image_io import write_png
+        from monohair_tpu_torch.synthetic import cameras_numpy, ring_camera_list
+        rng = np.random.default_rng(0)
+        cam_list = ring_camera_list(2)
+        ndc, w2c = cameras_numpy(cam_list)
+        save_cam_params(os.path.join(tmp, "cam_params.json"), [c["file"] for c in cam_list],
+                        ndc, np.linalg.inv(w2c))
+        for c in cam_list:
+            vd = os.path.join(tmp, "data", "caseA", "imgs", c["file"])
+            os.makedirs(vd)
+            write_png(os.path.join(vd, "undirectional_map.png"),
+                      rng.integers(0, 255, (16, 16, 3), dtype=np.uint8))
+            for n in ("hair_depth", "bust_depth", "mask"):
+                write_png(os.path.join(vd, n + ".png"),
+                          rng.integers(0, 255, (16, 16), dtype=np.uint8))
+        occ = np.zeros((32, 32, 24), np.float32)
+        occ[10:20, 10:20, 8:16] = 1.0
+        ori = np.zeros((32, 32, 24, 3), np.float32)
+        ori[..., 1] = occ
+        save_occ_ori_mat(os.path.join(tmp, "data", "caseA", "ours"), occ, ori)
+        out = os.path.join(tmp, "ckpt")
+        for steps, extra in ((3, []), (5, ["--resume"])):
+            sys.argv = ["train_mvs", "--data_root=" + os.path.join(tmp, "data"),
+                        "--calib=" + os.path.join(tmp, "cam_params.json"), "--kind=occ",
+                        "--batch=32", "--eval_every=2", "--save_every=100",
+                        f"--steps={steps}", "--out=" + out, "--device=cpu"] + extra
+            runpy.run_module("monohair_tpu_torch.train_mvs", run_name="__main__")
+        stats = np.loadtxt(os.path.join(out, "stats_occ.txt"), ndmin=2)
+        assert stats.shape == (3, 6) and np.isfinite(stats).all(), stats
+        assert int(np.load(os.path.join(out, "occ_train.npz"))["step"]) == 5
+
+    # the run_pipeline CLI, as `python -m` runs it, on a 4-view synthwig case
+    # (prepare_data's steps off, random full-width nets, fused into full/)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_synthwig_case(tmp, num_views=4)
+        cfg["prepare_data"] = dict.fromkeys(("select_images", "process_camera", "run_ngp",
+                                             "fit_bust", "process_bust", "render_depth",
+                                             "process_imgs"), False)
+        cfg.PMVO["infer_inner"] = True
+        cfg.infer_inner["render_size"] = [48, 40]
+        cfg.mvs.update(eval_vsize=0.08, eval_batch=512)
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        sys.argv = ["run_pipeline", "--yaml=" + os.path.join(tmp, "case"), "--device=cpu"]
+        runpy.run_module("monohair_tpu_torch.run_pipeline", run_name="__main__")
+        full = os.path.join(tmp, "synthwig", "output", "verify", "full")
+        segments, points = load_hair(os.path.join(full, "connected_strands.hair"))
+        assert len(segments) > 100 and np.isfinite(points).all()
+        with open(os.path.join(tmp, "synthwig", "output", "verify", "metrics.jsonl")) as f:
+            assert len(f.readlines()) == 4
 
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded

@@ -1,5 +1,7 @@
-"""Repairs of the port: PMVO's near-surface file is this run's or none, and
-the tap-loop kernel's limits raise a ValueError that names them."""
+"""Repairs of the port: PMVO's near-surface file is this run's or none, the
+tap-loop kernel's limits raise a ValueError that names them, stage 1 turns
+TF32 off on the card, and the trainer's validation split is the same in every
+process (the JAX trainer seeds it with the per-process salted hash())."""
 
 import jax  # noqa: F401  (jax before torch: importing torch first can deadlock)
 import os
@@ -111,3 +113,56 @@ def test_plain_tap_loop_has_no_view_limit():
                             torch.rand((V, N), generator=g), 0.15)
     assert all(o.shape == (N, S) for o in out)
     assert out[2].max().item() > 1023
+
+
+def test_prepare_data_turns_tf32_off_on_the_card():
+    """run_prepare_data with every step off and device "cuda" (no card is
+    needed: no step runs) leaves both TF32 flags False; on "cpu" it leaves
+    them as they were."""
+    from monohair_tpu_torch.config import Config
+    from monohair_tpu_torch.pipeline.prepare_data_stage import run_prepare_data
+    steps = dict.fromkeys(("select_images", "process_camera", "run_ngp", "fit_bust",
+                           "process_bust", "render_depth", "process_imgs"), False)
+    cfg = Config({"data": {"root": "unused"}, "prepare_data": steps})
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        assert run_prepare_data(cfg, device="cpu") == {}
+        assert [f.allow_tf32 for f in flags] == [True, True]
+        assert run_prepare_data(cfg, device="cuda") == {}
+        assert [f.allow_tf32 for f in flags] == [False, False]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
+SPLIT = """
+import hashlib, sys
+import numpy as np
+from monohair_tpu_torch.train_mvs import CaseStore
+entry = CaseStore(sys.argv[1], sys.argv[2], "occ", 0.25, device="cpu").get("caseA")
+print(hashlib.sha256(np.ascontiguousarray(entry["val"][0]).tobytes()).hexdigest(),
+      hash("caseA"))
+"""
+
+
+def test_case_store_split_is_the_same_in_every_process(tmp_path, rng):
+    """The validation split of a case in two processes with different
+    PYTHONHASHSEED values: equal (crc32 seeds it), where the hash() of the
+    case name, which the JAX trainer adds to its seed, differs."""
+    import subprocess
+    import sys
+    from tests.test_train_mvs_cli import _build_case
+    calib = _build_case(tmp_path / "data", rng)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = []
+    for seed in ("1", "2"):
+        env = dict(os.environ, PYTHONHASHSEED=seed, OMP_NUM_THREADS="1")
+        proc = subprocess.run([sys.executable, "-c", SPLIT, str(tmp_path / "data"), str(calib)],
+                              cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        outs.append(proc.stdout.split())
+    assert outs[0][0] == outs[1][0]
+    assert outs[0][1] != outs[1][1]
