@@ -8,11 +8,13 @@ one GPU and check them.
 
 Phases, each printing a line when it starts and when it ends:
   1. device   the card's name, count and power limit (exits non-zero without CUDA)
-  2. build    nvcc of monohair_tpu_torch/csrc/patch_kernels.cu, its seconds and
-              its -Xptxas -v lines
+  2. build    nvcc of monohair_tpu_torch/csrc/patch_kernels.cu and g++ of the
+              host C++ (jpeg.cpp, connect.cpp, marching.cpp), all started
+              together; their seconds and the -Xptxas -v lines
   3. kernels  each CUDA kernel against its plain PyTorch version on the card at
-              the full-width shapes of the stage (the tap loop on random, tied
-              and near-tie windows), with CUDA-event times
+              the full-width shapes of the stage (the gather on f32 and on
+              bf16 maps, bitwise; the tap loop on random, tied and near-tie
+              windows), with CUDA-event times
   4. stage    a synthetic case (128x128, 24 views, patch 3) written to a temp
               directory with the port's writers, then run_pmvo on cuda; the
               refine/{Occ3D,Ori3D}.mat grids are checked against the known wig;
@@ -100,6 +102,21 @@ Phases, each printing a line when it starts and when it ends:
               (b) the 16-frame 96x128 capture case (prepare_data's image half,
               run_ngp and fit_bust off) through to full/connected_strands.hair;
               metrics.jsonl holds stage/<name>/seconds for the four stages
+ 13. JPEG, bf16, mesh
+              13a the JPEG codec on the host: ms a frame to encode and decode
+              a 1920x1080 and a 1280x720 capture frame, quality-100 round
+              trips within stated bounds, restart intervals decoding equal;
+              13b PMVO.bf16_maps at phase 5's width: the line search with f32
+              and with bf16 maps, median |cos| between them > 0.99, peak
+              memory, points/s, the bf16 gather's launches; 13c the first two
+              line-search chunks on the mesh (cuda:0, cuda:0) equal to the
+              unsharded run bit for bit; 13d phase 8's scene with its frames
+              written as .JPG (quality 95, the port's encoder) through
+              run_pipeline (run_ngp and fit_bust off) to
+              full/connected_strands.hair: best_ori/, conf/, Ori/ and
+              render_depth/<view>.JPG written as JPEG, hair IoU >= 0.7, strands;
+              printed: stage seconds, the PMVO candidates kept beside the same
+              case written as PNG, the codec's share of process_imgs
 Phase 3 also holds the tap loop at the shapes PR 7's kernel refused (S = 1 at
 P = 225, the refine pass at patch 15; 1100 views), and times the gather's
 library call (one advanced-index gather with its indices built beforehand).
@@ -122,6 +139,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -140,6 +158,7 @@ from monohair_tpu_torch.constants import BUST_TO_ORIGIN, VOXEL_MAX, VOXEL_MIN, V
 from monohair_tpu_torch.coords import voxel_to_world
 from monohair_tpu_torch.io.cameras_io import load_cam_params, save_cam_params, subsample_views
 from monohair_tpu_torch.io.hair_io import load_hair, strands_from_flat
+from monohair_tpu_torch.io import jpeg as jpeg_io
 from monohair_tpu_torch.io.image_io import (imread_gray, load_depth_maps, load_masks,
                                             load_orientation_and_confidence, read_png,
                                             write_png)
@@ -151,6 +170,7 @@ from monohair_tpu_torch.io.mesh_io import load_obj
 from monohair_tpu_torch.mvs.eval import (colmap_guided_queries, deep_mvs_eval, eval_points,
                                         load_mvs_inputs, save_mvs_outputs)
 from monohair_tpu_torch.mvs.train import create_state, loss_and_grads, train_step
+from monohair_tpu_torch.nerf import marching as nerf_marching
 from monohair_tpu_torch.nerf import pipeline as pipeline_ngp
 from monohair_tpu_torch.nerf import train as nerf_train
 from monohair_tpu_torch.nerf.fourier import FourierField
@@ -266,13 +286,37 @@ def phase_device() -> dict:
 # phase 2
 # ---------------------------------------------------------------------------
 
+NATIVE_SOURCES = (pk.SOURCE, jpeg_io.SOURCE, strand_connect.SOURCE, nerf_marching.SOURCE)
+
+
 def phase_build() -> None:
+    """nvcc of the CUDA kernels and g++ of the host C++ (the JPEG codec, the
+    scalp connection, marching tetrahedra), all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(NATIVE_SOURCES)) as pool:
+        list(pool.map(_build.build, NATIVE_SOURCES))
     pk._lib()
-    info = _build.BUILD_INFO[pk.SOURCE]
-    log(f"nvcc {pk.SOURCE}: {info['seconds']:.2f}s -> {info['path']}")
-    for line in info["log"].splitlines():
+    jpeg_io._lib()
+    log(f"built {len(NATIVE_SOURCES)} native sources in {time.perf_counter() - t:.2f}s (wall)")
+    for source in NATIVE_SOURCES:
+        info = _build.BUILD_INFO[source]
+        log(f"{'nvcc' if source.endswith('.cu') else 'g++'} {source}: "
+            f"{info['seconds']:.2f}s -> {info['path']}")
+    for line in _build.BUILD_INFO[pk.SOURCE]["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas {line.strip()}", flush=True)
+
+
+# the kernels the f32 paths launch; PMVO.bf16_maps's path (phase 13b)
+# launches the bf16 gather in place of the f32 one
+F32_PATH_KERNELS = ("patch_gather", "patch_min_loss")
+BF16_PATH_KERNELS = ("patch_gather_bf16", "patch_min_loss")
+
+
+def unlaunched(launches: dict, kernels) -> list:
+    """The kernels of `kernels` that `launches` counts no launch of."""
+    return [k for k in kernels if launches.get(k, 0) == 0]
 
 
 # ---------------------------------------------------------------------------
@@ -280,8 +324,9 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 def gather_bound(padded: torch.Tensor, rc: torch.Tensor, patch: int):
-    """(bound_ms, bound_by): unique map pixels the windows touch read once,
-    centres read once, windows written once, over the HBM rate."""
+    """(bound_ms, bound_by): unique map pixels the windows touch read once (in
+    the map's dtype), centres read once, f32 windows written once, over the
+    HBM rate."""
     V, Hp, Wp, C = padded.shape
     offs = torch.arange(patch, device=rc.device)
     rows = rc[..., 0:1].long() + offs.repeat_interleave(patch)
@@ -289,7 +334,7 @@ def gather_bound(padded: torch.Tensor, rc: torch.Tensor, patch: int):
     flat = (torch.arange(V, device=rc.device)[:, None, None] * Hp + rows) * Wp + cols
     touched = int(torch.unique(flat).numel())
     out_bytes = rc.shape[0] * rc.shape[1] * patch * patch * C * 4
-    nbytes = touched * C * 4 + rc.numel() * 4 + out_bytes
+    nbytes = touched * C * padded.element_size() + rc.numel() * 4 + out_bytes
     return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -396,6 +441,30 @@ def phase_kernels(dev: torch.device) -> dict:
         f"bound {bound_ms:.4f} ms ({bound_by})")
     results["patch_gather"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                    bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    del out_k, out_p
+    # the bf16 gather (PMVO.bf16_maps) on the same windows of the same map in
+    # bf16: f32 windows, equal to the plain version's gather-then-.float() bit
+    # for bit (bf16 -> f32 is exact); the library call is that gather and cast
+    padded = padded.to(torch.bfloat16)
+    out_k = pk.patch_gather(padded, rc, patch)
+    out_p = pk.patch_gather_plain(padded, rc, patch)
+    torch.cuda.synchronize()
+    if out_k.dtype != torch.float32 or not torch.equal(out_k.view(torch.int32),
+                                                       out_p.view(torch.int32)):
+        bad = (out_k.view(torch.int32) != out_p.view(torch.int32)).sum().item()
+        raise AssertionError(f"patch_gather_bf16: {bad} elements differ from the plain version")
+    if not torch.equal(padded[views, rows, cols].float(), out_k):
+        raise AssertionError("patch_gather_bf16: the library gather differs from the kernel")
+    ms = cuda_time_ms(lambda: pk.patch_gather(padded, rc, patch))
+    plain_ms = cuda_time_ms(lambda: pk.patch_gather_plain(padded, rc, patch))
+    library_ms = cuda_time_ms(lambda: padded[views, rows, cols].float())
+    bound_ms, bound_by = gather_bound(padded, rc, patch)
+    log(f"patch_gather_bf16 V={V} N={N} p={patch}: bit-exact; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library (padded[views, rows, cols].float()) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    results["patch_gather_bf16"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms, bound_by=bound_by,
+                                        library_ms=library_ms)
     del padded, out_k, out_p, rows, cols
 
     # checked on random, tied and near-tie windows; the table's time is the
@@ -506,7 +575,7 @@ def phase_stage(device: str, num_views: int = 24) -> dict:
     if occupied.sum() < 100 or med <= 0.95:
         raise AssertionError(f"synthwig grids wrong: {int(occupied.sum())} voxels, "
                              f"median |cos| {med}")
-    if device != "cpu" and min(launches.values()) == 0:
+    if device != "cpu" and unlaunched(launches, F32_PATH_KERNELS):
         raise AssertionError(f"the stage did not launch every kernel: {launches}")
     return dict(occupied=int(occupied.sum()), median_cos=med, launches=launches,
                 steps=steps, grow_steps=grow_steps, hair=hair)
@@ -611,7 +680,7 @@ def phase_full_width(dev: torch.device, n_points: int = FULL_WIDTH_POINTS,
         f"optimized directions to the scene's swirl field {swirl:.4f}")
     if swirl < 0.8:
         raise AssertionError(f"full width: directions do not follow the scene ({swirl})")
-    if on_card and min(launches.values()) == 0:
+    if on_card and unlaunched(launches, F32_PATH_KERNELS):
         raise AssertionError(f"the full-width path did not launch every kernel: {launches}")
 
     # the first 2048 surface points through pmvo_forward, kernels vs plain
@@ -1143,7 +1212,7 @@ def check_fused_case(case: str, device: str, launches: dict, steps: dict) -> dic
     if count == 0 or len(coarse) == 0 or full_n <= refine_n:
         raise AssertionError(f"stage 3: the fuse took no interior: {count} MVS-positive, "
                              f"{len(coarse)} fused, full/ {full_n} voxels, refine/ {refine_n}")
-    if device != "cpu" and min(launches.values()) == 0:
+    if device != "cpu" and unlaunched(launches, F32_PATH_KERNELS):
         raise AssertionError(f"not every kernel was launched: {launches}")
     return dict(mvs_positive=count, fused=len(coarse), full_voxels=full_n,
                 refine_voxels=refine_n)
@@ -2309,9 +2378,246 @@ def phase_pipeline(dev: torch.device, margin: float) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+
+CODEC_SIZES = ((1080, 1920), (720, 1280))     # (H, W): a 1080p and a 720p frame
+# quality-100 round trips of the capture frames: a gray map (best_ori/ is one)
+# within 2 levels (each DCT coefficient moves by at most half its divisor of
+# 8); the RGB frame at cv2's 4:2:0 within 0.5 on average, its colour edges
+# within 32 (the chroma is stored at half resolution)
+CODEC_GRAY_MAX_ERR, CODEC_RGB_MEAN_ERR, CODEC_RGB_MAX_ERR = 2, 0.5, 32
+BF16_MIN_COS = 0.99                            # tests/test_pmvo.py:141-148's bound
+JPEG_QUALITY_MAPS = {"best_ori": 100, "Ori": 100, "conf": 95}   # prepare_data_stage.py
+
+
+def phase_codec() -> dict:
+    """13a: the JPEG codec on the host, on capture frames of the analytic head
+    at 1920x1080 and 1280x720: ms a frame to encode (quality 95, 4:2:0) and to
+    decode (RGB and gray), the quality-100 round trips, and restart intervals
+    (a file with an RSTn marker every 8 MCUs decodes to the file without)."""
+    from monohair_tpu_torch.synthetic import CAPTURE_FOV_Y, capture_orbit_pose, capture_render_view
+    out = {}
+    for H, W in CODEC_SIZES:
+        f_pix = (H / 2) / math.tan(math.radians(CAPTURE_FOV_Y) / 2)
+        img, _, _ = capture_render_view(capture_orbit_pose(0.3, elev=0.12), f_pix, H, W)
+        rgb = (img * 255).astype(np.uint8)
+        gray = rgb.mean(-1).astype(np.uint8)
+        data = jpeg_io.encode_jpeg(rgb, 95)
+
+        def per_frame(fn, reps=5):
+            fn()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t) / reps * 1e3
+
+        enc_ms = per_frame(lambda: jpeg_io.encode_jpeg(rgb, 95))
+        dec_ms = per_frame(lambda: jpeg_io.decode_jpeg(data))
+        dec_gray_ms = per_frame(lambda: jpeg_io.decode_jpeg(data, gray=True))
+        rgb_err = np.abs(jpeg_io.decode_jpeg(jpeg_io.encode_jpeg(rgb, 100)).astype(int) - rgb)
+        gray_err = np.abs(jpeg_io.decode_jpeg(jpeg_io.encode_jpeg(gray, 100), gray=True)
+                          .astype(int) - gray)
+        rst = jpeg_io.encode_jpeg(rgb, 95, restart_interval=8)
+        rst_equal = b"\xff\xdd" in rst and np.array_equal(jpeg_io.decode_jpeg(rst),
+                                                           jpeg_io.decode_jpeg(data))
+        res = dict(encode_ms=enc_ms, decode_ms=dec_ms, decode_gray_ms=dec_gray_ms,
+                   bytes_q95=len(data), q100_gray_max=int(gray_err.max()),
+                   q100_rgb_mean=float(rgb_err.mean()), q100_rgb_max=int(rgb_err.max()),
+                   restart_equal=bool(rst_equal))
+        log(f"13a JPEG codec at {W}x{H}: encode (q95, 4:2:0) {enc_ms:.3f} ms, decode "
+            f"{dec_ms:.3f} ms (gray {dec_gray_ms:.3f} ms) a frame, {len(data)} bytes; q100 "
+            f"round trip gray max err {res['q100_gray_max']}, RGB mean err "
+            f"{res['q100_rgb_mean']:.4f} max {res['q100_rgb_max']}; RST every 8 MCUs "
+            f"decodes equal: {rst_equal}")
+        if (res["q100_gray_max"] > CODEC_GRAY_MAX_ERR or res["q100_rgb_mean"] > CODEC_RGB_MEAN_ERR
+                or res["q100_rgb_max"] > CODEC_RGB_MAX_ERR or not rst_equal):
+            raise AssertionError(f"13a: the JPEG codec at {W}x{H} is out of bounds: {res}")
+        out[f"{W}x{H}"] = res
+    return out
+
+
+def line_search(maps, points: np.ndarray, dev: torch.device,
+                surface: Optional[np.ndarray] = None) -> dict:
+    """filter_raw_points + optimize_points on `maps`, the line search over
+    `surface` (this filter's surface points when None): seconds, points/s,
+    peak memory, launches."""
+    pk.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    surf, _ = filter_raw_points(maps, points, PATCH, CONF_THR, VIS_THR)
+    filter_s = time.perf_counter() - t
+    surface = surf if surface is None else surface
+    t = time.perf_counter()
+    pts, ori, loss, _ = optimize_points(maps, points[surface], PATCH, CONF_THR)
+    torch.cuda.synchronize(dev)
+    optimize_s = time.perf_counter() - t
+    return dict(surface=surf, ori=ori, loss=loss, filter_s=filter_s, optimize_s=optimize_s,
+                points_per_s=int(surface.sum()) / optimize_s,
+                peak_bytes=torch.cuda.max_memory_allocated(dev), launches=dict(pk.LAUNCHES))
+
+
+def phase_bf16_and_mesh(dev: torch.device) -> dict:
+    """13b: PMVO.bf16_maps at phase 5's width (16 views of 1920x1080, patch 7,
+    the same shell points): the line search with f32 maps, then with the same
+    maps in bf16 (the f32 maps freed first), on the f32 run's surface points;
+    median |cos| between the two runs' orientations (> BF16_MIN_COS), peak
+    memory, points/s, the bf16 gather's launches. 13c: the first two chunks of
+    the f32 line search on the mesh (cuda:0, cuda:0) against the unsharded
+    run, bit for bit."""
+    exact_f32()
+    torch.cuda.empty_cache()
+    maps, points = head_scene(dev, FULL_WIDTH_POINTS, 1920, 1080, 16)
+    f32 = line_search(maps, points, dev)
+    surface = f32["surface"]
+    # 13c on the f32 maps
+    first = points[surface][:2 * auto_chunk(16)]
+    one = optimize_points(maps, first, PATCH, CONF_THR)
+    pk.reset_launch_counts()
+    two = optimize_points(maps, first, PATCH, CONF_THR, mesh=(dev, dev))
+    mesh_launches = dict(pk.LAUNCHES)
+    mesh_equal = all(np.array_equal(a, b) for a, b in zip(one, two))
+    log(f"13c the first two chunks ({len(first)} points) on the mesh ({dev}, {dev}): "
+        f"equal to the unsharded run bit for bit: {mesh_equal}; launches {mesh_launches}")
+    if not mesh_equal:
+        diff = [int((a != b).sum()) for a, b in zip(one, two)]
+        raise AssertionError(f"13c: the sharded line search differs: {diff} elements")
+    maps16 = maps.astype(torch.bfloat16)
+    del maps
+    torch.cuda.empty_cache()
+    bf16 = line_search(maps16, points, dev, surface)
+    del maps16
+    torch.cuda.empty_cache()
+    cos = np.abs(np.sum(f32["ori"] * bf16["ori"], -1))
+    median_cos = float(np.median(cos))
+    same_surface = float((bf16["surface"] == surface).mean())
+    for name, r in (("f32", f32), ("bf16", bf16)):
+        log(f"13b {name} maps: filter {r['filter_s']:.3f} s, line search {r['optimize_s']:.3f} s "
+            f"on {int(surface.sum())} points ({r['points_per_s']:.1f} points/s), peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB, launches {r['launches']}")
+    log(f"13b bf16 against f32: median |cos| {median_cos:.6f} (gate > {BF16_MIN_COS}), "
+        f"|cos| > 0.999 on {float((cos > 0.999).mean()):.4f}; the filter keeps the same "
+        f"class on {same_surface:.6f} of the raw points")
+    if median_cos <= BF16_MIN_COS or not np.isfinite(bf16["loss"]).all():
+        raise AssertionError(f"13b: bf16 maps moved the orientations: median |cos| {median_cos}")
+    if unlaunched(bf16["launches"], BF16_PATH_KERNELS) or bf16["launches"]["patch_gather"]:
+        raise AssertionError(f"13b: the bf16 path's launches {bf16['launches']}")
+    strip = ("surface", "ori", "loss")
+    return dict(f32={k: v for k, v in f32.items() if k not in strip},
+                bf16={k: v for k, v in bf16.items() if k not in strip},
+                median_cos=median_cos, same_surface=same_surface, mesh_equal=mesh_equal,
+                launches=bf16["launches"])
+
+
+def is_jpeg_file(path: str) -> bool:
+    with open(path, "rb") as f:
+        return f.read(2) == b"\xff\xd8"
+
+
+def host_jpeg_seconds(case: str) -> dict:
+    """13d: the host's JPEG work of process_imgs, timed again on this case's
+    files: decoding each capture frame twice (RGB and gray, once a step) and
+    encoding the six maps a frame at the stage's qualities."""
+    files = sorted(os.listdir(os.path.join(case, "capture_images")))
+    t = time.perf_counter()
+    for f in files:
+        jpeg_io.read_jpeg(os.path.join(case, "capture_images", f))
+        jpeg_io.read_jpeg(os.path.join(case, "capture_images", f), gray=True)
+    decode = time.perf_counter() - t
+    maps = [(jpeg_io.read_jpeg(os.path.join(case, sub, f), gray=sub != "Ori"
+                               and sub != "mask_hair"), JPEG_QUALITY_MAPS.get(sub, 95))
+            for f in files for sub in ("hair_mask", "mask", "mask_hair", "best_ori", "conf", "Ori")]
+    t = time.perf_counter()
+    for img, q in maps:
+        jpeg_io.encode_jpeg(img, q)
+    return dict(decode_s=decode, encode_s=time.perf_counter() - t)
+
+
+def phase_jpeg_capture(dev: torch.device) -> dict:
+    """13d: phase 8's scene (32 frames at 1280x720, frame_interval 2) with its
+    frames written as .JPG at quality 95 by the port's encoder, through
+    run_pipeline (run_ngp and fit_bust off, the case's head sphere as the
+    coarse mesh, as in phase 12b) to full/connected_strands.hair; gated on
+    best_ori/, conf/, Ori/ and render_depth/<view>.JPG written as JPEG, the
+    hair masks against the labels (mean IoU >= 0.7, phase 8's gate) and a
+    non-empty strand file. The same case written as PNG through prepare_data
+    and PMVO gives the candidates PMVO keeps beside the JPEG case's."""
+    exact_f32()
+    torch.cuda.empty_cache()
+    result = {}
+    for ext in (".JPG", ".png"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_") as tmp:
+            written = write_capture_case(tmp, "cap", CAPTURE_FRAMES, *CAPTURE_SIZE,
+                                         frame_interval=CAPTURE_INTERVAL, ext=ext,
+                                         modnet=SEGMENT_WEIGHTS["modnet"],
+                                         parser=SEGMENT_WEIGHTS["bisenet"])
+            cfg = written["config"]
+            cfg.PMVO["infer_inner"] = True
+            cfg.infer_inner["render_size"] = [96, 64]
+            cfg.mvs["eval_vsize"] = 0.02
+            with open(os.path.join(tmp, "case.yaml"), "w") as f:
+                f.write(dump_yaml(cfg.to_dict()))
+            flags = ["--yaml=" + os.path.join(tmp, "case"), f"--device={dev.type}",
+                     "--prepare_data.run_ngp=", "--prepare_data.fit_bust="]
+            case = os.path.join(tmp, "cap")
+            out = os.path.join(case, "output", "capture")
+            t = time.perf_counter()
+            if ext == ".png":
+                prepare_cli.main(flags)
+                pmvo_cli.main(flags[:2] + ["--PMVO.infer_inner="])
+                wall = time.perf_counter() - t
+                surface = np.load(os.path.join(out, "optimize", "surface.npy"))
+                log(f"13d the same case as PNG: prepare_data + PMVO {wall:.2f} s; PMVO kept "
+                    f"{len(surface)} surface points")
+                result["png"] = dict(wall=wall, surface=len(surface))
+                continue
+            steps = pipeline_cli.main(flags)
+            wall = time.perf_counter() - t
+            seconds = check_stage_metrics(out)
+            kept = sorted(os.listdir(os.path.join(case, "capture_images")))
+            names = [k[:-4] for k in kept]
+            written_as_jpeg = all(
+                k.endswith(".JPG") and is_jpeg_file(os.path.join(case, sub, k))
+                for k in kept for sub in ("capture_images", "best_ori", "conf", "Ori")) and all(
+                is_jpeg_file(os.path.join(case, "render_depth", n + ".JPG")) for n in names)
+            hair_iou = [iou(imread_gray(os.path.join(case, "hair_mask", k)) > 127,
+                            read_png(os.path.join(case, "labels", "hair", n + ".png")) > 127)
+                        for k, n in zip(kept, names)]
+            segments, points = load_hair(os.path.join(out, "full", "connected_strands.hair"))
+            surface = np.load(os.path.join(out, "optimize", "surface.npy"))
+            codec = host_jpeg_seconds(case)
+            imgs_s = steps["prepare_data"]["calculate_masks"] + steps["prepare_data"]["process_images"]
+            share = (codec["decode_s"] + codec["encode_s"]) / imgs_s
+            log(f"13d run_pipeline on the JPEG capture case ({len(kept)} frames kept of "
+                f"{CAPTURE_FRAMES} at {CAPTURE_SIZE[1]}x{CAPTURE_SIZE[0]}): {wall:.2f} s, stage "
+                f"seconds {seconds}; prepare_data steps "
+                f"{json.dumps({k: round(v, 4) for k, v in steps['prepare_data'].items()})}; "
+                f"written as JPEG: {written_as_jpeg}; hair IoU with the labels mean "
+                f"{np.mean(hair_iou):.6f}; PMVO kept {len(surface)} surface points; "
+                f"{len(segments)} strands, {len(points)} points")
+            log(f"13d host JPEG work of process_imgs: decode {codec['decode_s']:.3f} s, encode "
+                f"{codec['encode_s']:.3f} s of {imgs_s:.3f} s (share {share:.3f})")
+            if not written_as_jpeg:
+                raise AssertionError("13d: best_ori/, conf/, Ori/ or render_depth/ not JPEG")
+            if np.mean(hair_iou) < 0.7:
+                raise AssertionError(f"13d: hair_mask/ against the labels: IoU {np.mean(hair_iou)}")
+            if len(segments) == 0 or not np.isfinite(points).all():
+                raise AssertionError("13d: the JPEG capture case grew no strands")
+            result["jpeg"] = dict(wall=wall, seconds=seconds, steps=steps, surface=len(surface),
+                                  strands=len(segments), hair_iou=float(np.mean(hair_iou)),
+                                  codec=codec, codec_share=share)
+    log(f"13d PMVO candidates kept: JPEG {result['jpeg']['surface']}, PNG "
+        f"{result['png']['surface']}")
+    return result
+
+
 KERNEL_META = {
     "patch_gather": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
                          replaces="monohair_tpu/ops/pallas_kernels.py:188"),
+    "patch_gather_bf16": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
+                              replaces="monohair_tpu/ops/pallas_kernels.py:188"),
     "patch_min_loss": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
                            replaces="monohair_tpu/ops/pallas_kernels.py:63"),
 }
@@ -2349,17 +2655,24 @@ def main(argv=None) -> int:
         train = phase_train(dev)
     with Phase("12 run_pipeline"):
         pipeline = phase_pipeline(dev, stage3["stage"]["margin"])
+    with Phase("13a JPEG codec"):
+        phase_codec()
+    with Phase("13b-c bf16 maps and the mesh"):
+        bf16 = phase_bf16_and_mesh(dev)
+    with Phase("13d JPEG capture through run_pipeline"):
+        phase_jpeg_capture(dev)
+    print(smi_line(), flush=True)
     by_path = {"pmvo": width["launches"], "infer_inner_fuse": stage3["stage"]["launches"],
                "prepare_data": stage1["launches"], "prepare_data_ngp": ngp["launches"],
                "prepare_data_bust": bust["launches"], "train_mvs": train["launches"],
-               "run_pipeline": pipeline["launches"]}
+               "run_pipeline": pipeline["launches"], "pmvo_bf16": bf16["launches"]}
     kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:
         with Phase("profile"):
             profile_line_search(dev)
     line = [dict(name=name, **KERNEL_META[name],
-                 launches=sum(counts[name] for counts in by_path.values()),
-                 launches_by_path={path: counts[name] for path, counts in by_path.items()},
+                 launches=sum(counts.get(name, 0) for counts in by_path.values()),
+                 launches_by_path={path: counts.get(name, 0) for path, counts in by_path.items()},
                  **kernels[name]) for name in KERNEL_META]
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

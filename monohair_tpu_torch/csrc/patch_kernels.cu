@@ -22,7 +22,7 @@
 // window whose top-left corner in the edge-padded map is rc[v, n] (the clamped
 // centre in unpadded coordinates) out of an 8-channel packed map.
 //
-// padded: (V, Hp, Wp, 8) f32, rc: (V, N, 2) int32 (row, col),
+// padded: (V, Hp, Wp, 8) f32 (bf16 below), rc: (V, N, 2) int32 (row, col),
 // out: (V, N, patch*patch, 8) f32, taps in row-major offset order.
 //
 // One thread per (v, n, tap); the 8 channels are one 32-byte pixel, moved as
@@ -53,6 +53,36 @@ __global__ void patch_gather_kernel(const float4* __restrict__ padded,
   const float4 b = padded[src + 1];
   out[2 * t] = a;
   out[2 * t + 1] = b;
+}
+
+// The bf16 variant (PMVO.bf16_maps): the same windows of a (V, Hp, Wp, 8)
+// bf16 map, written as f32, which fuses the .astype(float32) that follows
+// the TPU kernel's gather (monohair_tpu/pmvo/solver.py observe_points). A
+// pixel's 8 __nv_bfloat16 channels are one 16-byte uint4 load, half the f32
+// kernel's reads; its writes are the same two float4 stores. bf16 -> f32 puts
+// the 16 bits above 16 zero bits, which is exact, so the result equals the
+// plain version's gather-then-.float() bit for bit.
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+__global__ void patch_gather_bf16_kernel(const uint4* __restrict__ padded,
+                                         const int* __restrict__ rc,
+                                         float4* __restrict__ out,
+                                         int V, int N, int Hp, int Wp, int patch) {
+  const int P = patch * patch;
+  const int64_t total = (int64_t)V * N * P;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int tap = (int)(t % P);
+  const int64_t vn = t / P;
+  const int v = (int)(vn / N);
+  int row = rc[2 * vn] + tap / patch;
+  int col = rc[2 * vn + 1] + tap % patch;
+  row = min(max(row, 0), Hp - 1);
+  col = min(max(col, 0), Wp - 1);
+  const uint4 w = padded[((int64_t)v * Hp + row) * Wp + col];
+  out[2 * t] = make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+  out[2 * t + 1] = make_float4(bf16_lo(w.z), bf16_hi(w.z), bf16_lo(w.w), bf16_hi(w.w));
 }
 
 // ---------------------------------------------------------------------------
@@ -316,6 +346,17 @@ int patch_gather(const void* padded, const void* rc, void* out, int V, int N,
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   patch_gather_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float4*)padded, (const int*)rc, (float4*)out, V, N, Hp, Wp, patch);
+  return (int)cudaGetLastError();
+}
+
+int patch_gather_bf16(const void* padded, const void* rc, void* out, int V, int N,
+                      int Hp, int Wp, int patch, void* stream) {
+  const int64_t total = (int64_t)V * N * patch * patch;
+  if (total == 0) return (int)cudaGetLastError();
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  patch_gather_bf16_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)padded, (const int*)rc, (float4*)out, V, N, Hp, Wp, patch);
   return (int)cudaGetLastError();
 }
 

@@ -14,8 +14,10 @@ PNGs are decoded here with zlib and numpy: 8-bit gray, gray+alpha, RGB or
 RGBA, non-interlaced, filter types 0-4 — what cv2.imwrite writes for uint8
 images. ``write_png`` writes the same kinds with filter 0. Channels stay in
 file order (RGB, RGBA); cv2 hands the JAX package BGR and BGRA, and its
-``[..., 2::-1]`` slices are ``[..., :3]`` here. OpenCV is not used, and there is no JPEG
-codec: reading or writing a .jpg/.JPG raises a ValueError that says so.
+``[..., 2::-1]`` slices are ``[..., :3]`` here. OpenCV is not used: a .jpg/.JPG/.jpeg
+goes through the port's baseline JPEG codec (``io/jpeg.py``), which gives
+cv2's pixels and files. ``imread_*`` and ``imwrite`` choose the codec by the
+file's suffix; ``read_png``/``write_png`` take PNG only.
 """
 
 from __future__ import annotations
@@ -24,12 +26,13 @@ import math
 import os
 import struct
 import zlib
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.resize import png_rgb_to_gray
+from .jpeg import read_jpeg, write_jpeg
 
 _SUFFIXES = (".JPG", ".png", ".jpg")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -69,18 +72,13 @@ def _unfilter_paeth(line: bytes, prev: bytes, bpp: int) -> bytearray:
     return cur
 
 
-def check_codec(path: str) -> None:
-    """Raise a ValueError for a JPEG path: the port has no JPEG codec (the
-    JAX package reads and writes .jpg/.JPG captures through OpenCV)."""
-    if path.lower().endswith((".jpg", ".jpeg")):
-        raise ValueError(f"{path}: the port has no JPEG codec (PNG only); "
-                         "convert the capture frames to PNG")
+def is_jpeg(path: str) -> bool:
+    return path.lower().endswith((".jpg", ".jpeg"))
 
 
 def read_png(path: str) -> np.ndarray:
     """Decode an 8-bit gray, gray+alpha, RGB or RGBA non-interlaced PNG ->
     (H, W) or (H, W, C) uint8 with C = 2, 3 or 4, channels in file order."""
-    check_codec(path)
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
@@ -138,7 +136,8 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
     """Write an (H, W) gray or (H, W, C) uint8 image, C = 2 (gray+alpha),
     3 (RGB) or 4 (RGBA), as PNG (filter 0)."""
-    check_codec(path)
+    if is_jpeg(path):
+        raise ValueError(f"write_png: {path} names a JPEG; use imwrite")
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
             img.ndim == 3 and img.shape[2] not in (2, 3, 4)):
@@ -162,8 +161,23 @@ def _without_alpha(img: np.ndarray) -> np.ndarray:
     return img[..., 0] if img.ndim == 3 and img.shape[2] == 1 else img
 
 
+def imwrite(path: str, img: np.ndarray, quality: Optional[int] = None) -> None:
+    """Write (H, W) gray or (H, W, C) uint8 in file order (RGB), as
+    cv2.imwrite writes the BGR image: a .jpg/.JPG/.jpeg as baseline 4:2:0 JPEG
+    at ``quality`` (cv2's default 95 when None), anything else as PNG."""
+    if is_jpeg(path):
+        write_jpeg(path, img, quality)
+    elif quality is not None:
+        raise ValueError(f"imwrite: a quality is for JPEG, not {path}")
+    else:
+        write_png(path, img)
+
+
 def imread_gray(path: str) -> np.ndarray:
-    """(H, W) uint8, as cv2.imread(path, cv2.IMREAD_GRAYSCALE) gives it."""
+    """(H, W) uint8, as cv2.imread(path, cv2.IMREAD_GRAYSCALE) gives it: a
+    JPEG's Y plane (libjpeg's grayscale output), a PNG's BGR2GRAY."""
+    if is_jpeg(path):
+        return read_jpeg(path, gray=True)
     img = _without_alpha(read_png(path))
     if img.ndim == 2:
         return img
@@ -173,12 +187,16 @@ def imread_gray(path: str) -> np.ndarray:
 def imread_rgb(path: str) -> np.ndarray:
     """(H, W, 3) uint8 in RGB order, as cv2.cvtColor(cv2.imread(path),
     cv2.COLOR_BGR2RGB) gives it."""
+    if is_jpeg(path):
+        return read_jpeg(path)
     img = _without_alpha(read_png(path))
     return np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img
 
 
 def imread_bgr(path: str) -> np.ndarray:
     """(H, W, 3) uint8 in BGR order, as cv2.imread(path) gives it."""
+    if is_jpeg(path):
+        return np.ascontiguousarray(read_jpeg(path)[..., ::-1])
     img = _without_alpha(read_png(path))
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, -1)

@@ -2,8 +2,14 @@
 reference deep_mvs_eval, submodules/DeepMVSHair/mvs_eval.py:13-254).
 
 Each net's feature pyramid is computed once; query points then stream through
-both heads in batches of `batch`, on the device of the inputs. Results stay on
-the device until the last batch, then come to the host once.
+both heads in batches of `batch`, on the device of the inputs, or, given a mesh
+(a tuple of devices, parallel/sharding.py), on its devices in turn (batch k on
+device k mod len(mesh)) against nets and features replicated once. A batch is
+not cut across devices, as the JAX package cuts it: its shape sets the nets'
+matrix products' shapes, and with them the kernels' summation order (cut in
+three on the CPU, the orientations moved by up to 5.5e-7 relative), so whole
+batches keep the unsharded results bit for bit. Results stay on the devices
+until the last batch, then come to the host once.
 
 Input channel stack per view (BaseDataset.py:293-374 real mode +
 mvs_eval.py:103-107): [cos2t, sin2t (undirectional map * 2 - 1),
@@ -25,6 +31,7 @@ from ..io.image_io import imread_bgr, imread_gray
 from ..io.mat_io import save_ori_mat_from_points
 from ..io.voxels_io import save_voxels_dat
 from ..models.pifu import OccAttn, OriAttn, mvs_projection, occ_decision
+from ..parallel.sharding import Mesh, concat_shards, replicate
 
 
 class MVSInputs(NamedTuple):
@@ -77,33 +84,33 @@ def deep_mvs_eval(inputs: MVSInputs, occ_model: OccAttn, ori_model: OriAttn,
                   save_folder: Optional[str] = None,
                   query_points: Optional[np.ndarray] = None,
                   batch: int = 8192, vsize: float = VSIZE_COARSE,
-                  bbox_min=VOXEL_MIN, bbox_max=VOXEL_MAX, occ_margin: float = 0.0
-                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+                  bbox_min=VOXEL_MIN, bbox_max=VOXEL_MAX, occ_margin: float = 0.0,
+                  mesh: Optional[Mesh] = None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Stream the query points through both nets; write voxels.dat,
     Voxel_hair/{Occ3D,Ori3D}.mat and raw.npy like the reference
-    (mvs_eval.py:198-251). Returns (query points, unit orients, occ) arrays."""
+    (mvs_eval.py:198-251). Returns (query points, unit orients, occ) arrays.
+    With `mesh`, the batches are dealt to its devices in turn."""
     if query_points is None:
         query_points = sample_grid_corners(vsize / 2, bbox_min, bbox_max)
     n = query_points.shape[0]
     dev = inputs.imgs.device
     occ_feats = occ_model.get_feat(inputs.imgs)
     ori_feats = ori_model.get_feat(inputs.imgs)
+    replicas = replicate((occ_model, ori_model, occ_feats, ori_feats, inputs.w2c,
+                          inputs.ndc), mesh)
 
-    pos_list: List[torch.Tensor] = []
-    ori_list: List[torch.Tensor] = []
+    devices = mesh or (dev,)
+    outs: List[Tuple[torch.Tensor, torch.Tensor]] = []
     n_batches = (n + batch - 1) // batch
     t_loop = time.monotonic()
     for k, beg in enumerate(range(0, n, batch)):
-        pts = torch.as_tensor(query_points[beg:beg + batch], device=dev)
-        p, o = eval_points(occ_model, ori_model, occ_feats, ori_feats, inputs.w2c,
-                           inputs.ndc, pts, occ_margin)
-        pos_list.append(p)
-        ori_list.append(o)
+        i = k % len(devices)
+        pts = torch.as_tensor(query_points[beg:beg + batch], device=devices[i])
+        outs.append(eval_points(*replicas[i], pts, occ_margin))
         if k % 64 == 0:
             print(f"[mvs_eval] batch {k + 1}/{n_batches} "
                   f"({time.monotonic() - t_loop:.0f}s)", flush=True)
-    occ = torch.cat(pos_list).cpu().numpy()
-    orients = torch.cat(ori_list).cpu().numpy()
+    occ, orients = (t.numpy() for t in concat_shards(outs))
     orients /= np.maximum(np.linalg.norm(orients, axis=-1, keepdims=True), 1e-12)
 
     if save_folder:

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..io.image_io import check_codec, read_png
+from ..io.image_io import imread_rgb
 from ..optim import OptaxAdam
 from .ngp import (as_background, camera_rays, init_occupancy_grid, render_rays,
                   render_rays_occ, update_occupancy_grid)
@@ -49,7 +49,7 @@ class NerfDataset(NamedTuple):
 def load_nerf_dataset(transforms_path: str, image_root: str,
                       max_images: Optional[int] = None) -> NerfDataset:
     """The frames of transforms.json (sorted by name) found in `image_root`
-    as .png (a .jpg/.JPG frame raises the PNG codec's ValueError), with the
+    as .png, .jpg or .JPG (in that order, as cv2.imread reads them), with the
     colmap2nerf intrinsics when the file has them, else square pixels from
     camera_angle_y and a centred principal point."""
     from .poses import load_transforms_json
@@ -62,11 +62,7 @@ def load_nerf_dataset(transforms_path: str, image_root: str,
         for ext in (".png", ".jpg", ".JPG"):
             p = os.path.join(image_root, n + ext)
             if os.path.exists(p):
-                check_codec(p)
-                img = read_png(p)
-                if img.ndim == 2:
-                    img = np.repeat(img[..., None], 3, -1)
-                imgs.append(img.astype(np.float32) / 255.0)
+                imgs.append(imread_rgb(p).astype(np.float32) / 255.0)
                 poses.append(xforms[n])
                 break
     images = np.stack(imgs)

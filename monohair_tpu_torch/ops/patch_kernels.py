@@ -19,7 +19,7 @@ import torch
 from . import _build
 
 SOURCE = "patch_kernels.cu"
-LAUNCHES = {"patch_gather": 0, "patch_min_loss": 0}
+LAUNCHES = {"patch_gather": 0, "patch_gather_bf16": 0, "patch_min_loss": 0}
 
 _c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
 
@@ -38,8 +38,9 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load(SOURCE)
-        lib.patch_gather.argtypes = [_c_ptr, _c_ptr, _c_ptr] + [_c_int] * 5 + [_c_ptr]
-        lib.patch_gather.restype = _c_int
+        for fn in (lib.patch_gather, lib.patch_gather_bf16):
+            fn.argtypes = [_c_ptr, _c_ptr, _c_ptr] + [_c_int] * 5 + [_c_ptr]
+            fn.restype = _c_int
         lib.patch_min_loss.argtypes = ([_c_ptr] * 4 + [ctypes.c_float] + [_c_ptr] * 3
                                        + [_c_int] * 4 + [_c_ptr])
         lib.patch_min_loss.restype = _c_int
@@ -70,24 +71,27 @@ def _raise_on(err: int, kernel: str) -> None:
 
 def patch_gather_plain(padded_maps: torch.Tensor, rc: torch.Tensor,
                        patch_size: int) -> torch.Tensor:
-    """Port of ``patch_gather_reference``: (V, Hp, Wp, C) edge-padded maps and
-    (V, N, 2) clamped centres -> (V, N, patch_size**2, C)."""
+    """Port of ``patch_gather_reference`` and the f32 cast after it: (V, Hp,
+    Wp, C) edge-padded maps and (V, N, 2) clamped centres -> (V, N,
+    patch_size**2, C) f32 (bf16 maps are gathered, then upcast exactly)."""
     offs = torch.arange(patch_size, device=rc.device)
     orow = offs.repeat_interleave(patch_size)
     ocol = offs.repeat(patch_size)
     rows = rc[..., 0:1].long() + orow          # padded coords: centre rc -> rc + off
     cols = rc[..., 1:2].long() + ocol
     views = torch.arange(padded_maps.shape[0], device=rc.device)[:, None, None]
-    return padded_maps[views, rows, cols]
+    return padded_maps[views, rows, cols].float()
 
 
 def patch_gather(padded_maps: torch.Tensor, rc: torch.Tensor,
                  patch_size: int) -> torch.Tensor:
     """Gather (patch x patch) windows of an 8-channel edge-padded map.
 
-    padded_maps: (V, H + patch - 1, W + patch - 1, 8) f32; rc: (V, N, 2) int32
-    window centres in unpadded coordinates, already clamped. Returns
-    (V, N, patch**2, 8), taps in row-major offset order.
+    padded_maps: (V, H + patch - 1, W + patch - 1, 8) f32 or bf16 (the maps of
+    PMVO.bf16_maps); rc: (V, N, 2) int32 window centres in unpadded
+    coordinates, already clamped. Returns (V, N, patch**2, 8) f32, taps in
+    row-major offset order. On the card f32 and bf16 maps each have a kernel;
+    another dtype raises a TypeError.
     """
     if padded_maps.device.type == "cpu":
         return patch_gather_plain(padded_maps, rc, patch_size)
@@ -97,7 +101,12 @@ def patch_gather(padded_maps: torch.Tensor, rc: torch.Tensor,
     if C != 8:
         raise ValueError(f"patch_gather: the kernel takes 8 channels, got {C}")
     N = rc.shape[1]
-    _check("padded_maps", padded_maps, torch.float32, (V, Hp, Wp, 8), padded_maps.device)
+    kernel = {torch.float32: "patch_gather", torch.bfloat16: "patch_gather_bf16"}.get(
+        padded_maps.dtype)
+    if kernel is None:
+        raise TypeError(f"patch_gather: the kernels take f32 or bf16 maps, got "
+                        f"{padded_maps.dtype}")
+    _check("padded_maps", padded_maps, padded_maps.dtype, (V, Hp, Wp, 8), padded_maps.device)
     _check("rc", rc, torch.int32, (V, N, 2), padded_maps.device)
     P = patch_size * patch_size
     if V * N * P * 8 >= 2 ** 31 or V * Hp * Wp * 8 >= 2 ** 31:
@@ -105,10 +114,10 @@ def patch_gather(padded_maps: torch.Tensor, rc: torch.Tensor,
     out = torch.empty((V, N, P, 8), dtype=torch.float32, device=padded_maps.device)
     with torch.cuda.device(padded_maps.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().patch_gather(padded_maps.data_ptr(), rc.data_ptr(), out.data_ptr(),
-                                  V, N, Hp, Wp, patch_size, stream)
-    _raise_on(err, "patch_gather")
-    LAUNCHES["patch_gather"] += 1
+        err = getattr(_lib(), kernel)(padded_maps.data_ptr(), rc.data_ptr(), out.data_ptr(),
+                                      V, N, Hp, Wp, patch_size, stream)
+    _raise_on(err, kernel)
+    LAUNCHES[kernel] += 1
     return out
 
 

@@ -79,11 +79,12 @@ def occ_margin(args: Config) -> float:
     return 0.0
 
 
-def run_infer_inner(args: Config, device="cuda") -> Dict[str, float]:
+def run_infer_inner(args: Config, device="cuda", mesh=None) -> Dict[str, float]:
     """Render the MVS maps from refine/, run the nets into ours/, fuse into
     full/{Occ3D,Ori3D}.mat, as the infer_inner flags ask. Runs on `device`
-    (the card unless the caller asks for "cpu"). Returns the wall seconds of
-    each step."""
+    (the card unless the caller asks for "cpu"); the MVS batches and the fuse's
+    points are sharded over `mesh` (a tuple of devices) when given. Returns the
+    wall seconds of each step."""
     exact_f32()
     t0 = time.monotonic()
     steps: Dict[str, float] = {}
@@ -126,14 +127,14 @@ def run_infer_inner(args: Config, device="cuda") -> Dict[str, float]:
         t = step("load", t)
         deep_mvs_eval(inputs, occ_model, ori_model, save_folder=os.path.join(root, "ours"),
                       query_points=queries, batch=int(mvs.get("eval_batch", 32768)),
-                      vsize=vsize, occ_margin=occ_margin(args))
+                      vsize=vsize, occ_margin=occ_margin(args), mesh=mesh)
         del inputs, occ_model, ori_model
         t = step("mvs", t)
 
         fuse_args = Config(args.to_dict())
         fuse_args.PMVO["infer_inner"] = True
         fuse_args.PMVO["optimize"] = False
-        run_pmvo(fuse_args, device=device)
+        run_pmvo(fuse_args, device=device, mesh=mesh)
         step("fuse", t)
     print(f"[infer_inner] done in {time.monotonic() - t0:.1f}s")
     return steps

@@ -8,6 +8,7 @@ import time
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..config import Config
 from ..io.mat_io import save_occ_ori_mat
@@ -26,15 +27,14 @@ def _no_points_error(what: str, args: Config) -> RuntimeError:
         f"below conf_threshold={args.PMVO.conf_threshold}.")
 
 
-def run_pmvo(args: Config, device="cuda") -> Dict[str, float]:
+def run_pmvo(args: Config, device="cuda", mesh=None) -> Dict[str, float]:
     """optimize=True: full line search + refine -> refine/{Occ3D,Ori3D}.mat;
     optimize=False & infer_inner=True: fuse coarse interior -> full/*.mat.
 
-    Runs on `device` (the card unless the caller asks for "cpu"). Returns the
-    wall seconds of each step.
+    Runs on `device` (the card unless the caller asks for "cpu"); each chunk
+    of points is sharded over `mesh` (a tuple of devices) when given. Returns
+    the wall seconds of each step.
     """
-    if args.PMVO.get("bf16_maps"):
-        raise NotImplementedError("PMVO.bf16_maps is not supported by the PyTorch port yet")
     t0 = time.monotonic()
     steps: Dict[str, float] = {}
 
@@ -45,6 +45,8 @@ def run_pmvo(args: Config, device="cuda") -> Dict[str, float]:
         return now
 
     maps, _ = load_pmvo_maps(args, device)
+    if args.PMVO.get("bf16_maps"):
+        maps = maps.astype(torch.bfloat16)
     _, scalp_v, _ = load_bust_and_scalp(args)
     t = step("load", t0)
     root = args.data.root
@@ -63,7 +65,8 @@ def run_pmvo(args: Config, device="cuda") -> Dict[str, float]:
         # this run's near-surface points, never a file an earlier run left
         filter_unvisible = None
         if args.PMVO.filter_point:
-            surface, filt = filter_raw_points(maps, points, patch, conf_thr, vis_thr)
+            surface, filt = filter_raw_points(maps, points, patch, conf_thr, vis_thr,
+                                              mesh=mesh)
             os.makedirs(save_root, exist_ok=True)
             np.save(os.path.join(save_root, "surface.npy"), points[surface])
             filter_unvisible = points[filt]
@@ -73,13 +76,13 @@ def run_pmvo(args: Config, device="cuda") -> Dict[str, float]:
         if points.shape[0] == 0:
             raise _no_points_error("selected", args)
         t = step("filter", t)
-        pts, ori, loss, _ = optimize_points(maps, points, patch, conf_thr,
+        pts, ori, loss, _ = optimize_points(maps, points, patch, conf_thr, mesh=mesh,
                                             save_root=save_root)
         t = step("optimize", t)
         occ, ori_grid = refine_and_voxelize(
             maps, pts, ori, loss, filter_unvisible, patch, conf_thr, vis_thr,
             args.PMVO.threshold, scalp_points=scalp_v,
-            save_root=os.path.join(out, "refine"))
+            save_root=os.path.join(out, "refine"), mesh=mesh)
         t = step("refine", t)
         save_occ_ori_mat(os.path.join(out, "refine"), occ, ori_grid)
     else:
@@ -102,7 +105,7 @@ def run_pmvo(args: Config, device="cuda") -> Dict[str, float]:
         occ, ori_grid = refine_and_voxelize(
             maps, pts, ori, loss, filter_unvisible, patch, conf_thr, vis_thr,
             args.PMVO.threshold, scalp_points=scalp_v, coarse_raw=coarse,
-            save_root=os.path.join(out, sub))
+            save_root=os.path.join(out, sub), mesh=mesh)
         t = step("refine", t)
         save_occ_ori_mat(os.path.join(out, sub), occ, ori_grid)
     step("save", t)

@@ -29,8 +29,8 @@ import torch
 from ..config import Config
 from ..constants import BUST_TO_ORIGIN
 from ..io.cameras_io import load_cam_params, subsample_views
-from ..io.image_io import (encode_orientation_image, imread_gray, imread_rgb,
-                           write_png)
+from ..io.image_io import (encode_orientation_image, imread_gray, imread_rgb, imwrite,
+                           is_jpeg)
 from ..io.mesh_io import load_obj
 from ..ops import exact_f32
 from ..ops.resize import bgr_to_gray, laplacian_variance
@@ -67,7 +67,8 @@ def process_images(root: str, image_folder: str = "capture_images",
                    device="cuda") -> None:
     """Gabor orientation + confidence for every capture image
     (GaborFilter.batch_generate :231-237): writes best_ori/<img> (degrees),
-    conf/<img>, Ori/<img> (color)."""
+    conf/<img>, Ori/<img> (color), under the frame's own name: a JPEG frame's
+    best_ori/ and Ori/ at quality 100, its conf/ at cv2's default 95."""
     from ..ops.gabor import orientation_maps
 
     img_dir = os.path.join(root, image_folder)
@@ -76,12 +77,12 @@ def process_images(root: str, image_folder: str = "capture_images",
     for f in sorted(os.listdir(img_dir)):
         gray = torch.as_tensor(imread_gray(os.path.join(img_dir, f)), device=device)
         two, angle, conf = (x.cpu().numpy() for x in orientation_maps(gray.float() / 255.0))
-        write_png(os.path.join(root, "best_ori", f), encode_orientation_image(angle))
-        write_png(os.path.join(root, "conf", f),
-                  np.clip(conf * 255, 0, 255).astype(np.uint8))
+        q = 100 if is_jpeg(f) else None
+        imwrite(os.path.join(root, "best_ori", f), encode_orientation_image(angle), q)
+        imwrite(os.path.join(root, "conf", f), np.clip(conf * 255, 0, 255).astype(np.uint8))
         ori01 = (two + 1.0) / 2.0
         color = np.concatenate([np.ones_like(ori01[..., :1]), ori01], -1)
-        write_png(os.path.join(root, "Ori", f), (color * 255).astype(np.uint8))
+        imwrite(os.path.join(root, "Ori", f), (color * 255).astype(np.uint8), q)
 
 
 def promote_fit_artifacts(args: Config) -> None:

@@ -1,5 +1,5 @@
 """Chunked drivers for the PMVO stage: optimize -> refine -> voxelize
-(port of monohair_tpu/pmvo/driver.py, single GPU).
+(port of monohair_tpu/pmvo/driver.py).
 
 Mirrors the stage flow of PMVO.py main (:805-880): filter raw samples, run the
 line search per chunk, KNN-consensus refine, threshold, voxelize to the
@@ -7,14 +7,18 @@ line search per chunk, KNN-consensus refine, threshold, voxelize to the
 keep the reference names so stages are interchangeable.
 
 Points come in and results go out as numpy arrays; each chunk runs on the
-maps' device. Every per-point result depends on that point alone, so the last
-chunk is not padded.
+maps' device, or, given a mesh (a tuple of devices, parallel/sharding.py), in
+one contiguous slice per device against maps replicated once per call, as the
+JAX drivers shard a chunk over a device mesh. Every per-point result depends
+on that point alone, so the last chunk is not padded and a mesh gives the
+unsharded results bit for bit.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -26,12 +30,24 @@ from ..ops import exact_f32
 from ..ops.grid_sample import gather_pixels
 from ..ops.neighbors import build_buckets, neighborhood_consensus_direction
 from ..ops.voxelize import canonicalize_down, voxelize_directions
+from ..parallel.sharding import Mesh, concat_shards, replicate, shard_batch
 from .solver import (PMVOMaps, compute_unvisible_points, filter_points,
                      pmvo_forward, pmvo_refine_loss)
 
 
 def _dev(x: np.ndarray, maps: PMVOMaps) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=maps.device)
+
+
+def _sharded(fn, replicas, x: torch.Tensor, mesh, *args) -> list:
+    """fn(maps, x_shard, *args_shard) on each shard of x's leading axis (with
+    args cut the same way), each on its device; the results (each a tensor or
+    a tuple of them) on the host, joined in shard order."""
+    cols = [shard_batch(x, mesh)] + [shard_batch(a, mesh) for a in args]
+    outs = [fn(m, *parts) for m, *parts in zip(replicas, *cols) if len(parts[0])]
+    if isinstance(outs[0], torch.Tensor):
+        return concat_shards([(o,) for o in outs])[0]
+    return concat_shards(outs)
 
 
 def auto_chunk(num_views: int, target: int = 8192, base_views: int = 16,
@@ -46,21 +62,24 @@ def auto_chunk(num_views: int, target: int = 8192, base_views: int = 16,
 @torch.no_grad()
 def optimize_points(maps: PMVOMaps, points: np.ndarray, patch_size: int,
                     conf_threshold: float, chunk: Optional[int] = None,
-                    save_root: Optional[str] = None
+                    mesh: Optional[Mesh] = None, save_root: Optional[str] = None
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Run the PMVO line search over all points in fixed-size chunks.
 
     Returns (points, ori, min_loss, high_conf). Mirror of `optimize`
-    (PMVO.py:565-595), chunk auto-sized from the view count when not given.
+    (PMVO.py:565-595), chunk auto-sized from the view count when not given,
+    each chunk sharded over `mesh` when given.
     """
     exact_f32()
     if chunk is None:
         chunk = auto_chunk(maps.cameras.num_views)
+    replicas = replicate(maps, mesh)
     outs = []
     for beg in range(0, points.shape[0], chunk):
-        res = pmvo_forward(maps, _dev(points[beg:beg + chunk], maps), patch_size,
-                           conf_threshold)
-        outs.append([r.cpu().numpy() for r in res])
+        res = _sharded(partial(pmvo_forward, patch_size=patch_size,
+                               conf_threshold=conf_threshold),
+                       replicas, _dev(points[beg:beg + chunk], maps), mesh)
+        outs.append([r.numpy() for r in res])
     if outs:
         points_o, ori, loss, high_conf = (np.concatenate(c) for c in zip(*outs))
     else:
@@ -78,17 +97,21 @@ def optimize_points(maps: PMVOMaps, points: np.ndarray, patch_size: int,
 @torch.no_grad()
 def filter_raw_points(maps: PMVOMaps, points: np.ndarray, patch_size: int,
                       conf_threshold: float, visible_threshold: float,
-                      chunk: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
-    """Chunked boolean classification of raw samples (PMVO.py:535-557)."""
+                      chunk: Optional[int] = None, mesh: Optional[Mesh] = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Chunked boolean classification of raw samples (PMVO.py:535-557), each
+    chunk sharded over `mesh` when given."""
     exact_f32()
     if chunk is None:
         chunk = 8 * auto_chunk(maps.cameras.num_views)  # no S axis here
+    replicas = replicate(maps, mesh)
+    fn = partial(filter_points, patch_size=patch_size, conf_threshold=conf_threshold,
+                 visible_threshold=visible_threshold)
     surf, filt = [np.zeros(0, bool)], [np.zeros(0, bool)]
     for beg in range(0, points.shape[0], chunk):
-        s, f = filter_points(maps, _dev(points[beg:beg + chunk], maps), patch_size,
-                             conf_threshold, visible_threshold)
-        surf.append(s.cpu().numpy())
-        filt.append(f.cpu().numpy())
+        s, f = _sharded(fn, replicas, _dev(points[beg:beg + chunk], maps), mesh)
+        surf.append(s.numpy())
+        filt.append(f.numpy())
     return np.concatenate(surf), np.concatenate(filt)
 
 
@@ -131,12 +154,15 @@ def refine_and_voxelize(maps: PMVOMaps, points: np.ndarray, ori: np.ndarray,
                         visible_threshold: float, threshold: float,
                         scalp_points: Optional[np.ndarray] = None,
                         coarse_raw: Optional[np.ndarray] = None,
-                        chunk: int = 65536, save_root: Optional[str] = None
-                        ) -> Tuple[np.ndarray, np.ndarray]:
+                        chunk: int = 65536, save_root: Optional[str] = None,
+                        mesh: Optional[Mesh] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Consensus-refine directions, add near-surface/interior points, voxelize.
 
     Mirror of `refine` (PMVO.py:602-764). Returns numpy (occ (X,Y,Z),
-    ori (X,Y,Z,3)); the caller saves via mat_io.
+    ori (X,Y,Z,3)); the caller saves via mat_io. With `mesh`, the per-point
+    map reads of each chunk (the refine loss, the head filter, the fuse's
+    visibility test) are sharded over it; the neighbour consensus stays on the
+    maps' device, where its buckets are.
 
     - consensus: voxel-bucket neighborhood mean (replaces scipy 100-NN)
     - replace a point's direction when its consensus disagrees (cos < 0.95)
@@ -146,9 +172,15 @@ def refine_and_voxelize(maps: PMVOMaps, points: np.ndarray, ori: np.ndarray,
       invisible in fewer than 3 views
     """
     exact_f32()
+    replicas = replicate(maps, mesh)
     pts_t = _dev(points, maps)
     ori_t = _dev(ori, maps)
     buckets = build_buckets(pts_t)
+
+    def refine_loss(m, q, cand):
+        l = pmvo_refine_loss(m, q, cand, patch_size, conf_threshold)
+        head = filter_head_points_mask(m, q, visible_threshold, scalp_points)
+        return torch.where(head, 0.5, l)  # reference sets -1 then maps -1 -> 0.5
 
     n = points.shape[0]
     new_ori = np.empty((n, 3), np.float32)
@@ -160,11 +192,8 @@ def refine_and_voxelize(maps: PMVOMaps, points: np.ndarray, ori: np.ndarray,
         center = neighborhood_consensus_direction(buckets, ori_t, q, qd)
         sim = torch.abs(torch.sum(center * qd, -1))
         cand = torch.where((sim < 0.95)[:, None], center, qd)
-        l = pmvo_refine_loss(maps, q, cand, patch_size, conf_threshold)
-        head = filter_head_points_mask(maps, q, visible_threshold, scalp_points)
-        l = torch.where(head, 0.5, l)  # reference sets -1 then maps -1 -> 0.5
         new_ori[beg:end] = cand.cpu().numpy()
-        new_loss[beg:end] = l.cpu().numpy()
+        new_loss[beg:end] = _sharded(refine_loss, replicas, q, mesh, cand).numpy()
     del buckets
 
     if save_root:
@@ -207,8 +236,8 @@ def refine_and_voxelize(maps: PMVOMaps, points: np.ndarray, ori: np.ndarray,
         t0 = time.monotonic()
         n_chunks = (len(c_pts) + chunk - 1) // chunk
         for k, beg in enumerate(range(0, len(c_pts), chunk)):
-            unvis.append(compute_unvisible_points(
-                maps, _dev(c_pts[beg:beg + chunk], maps)).cpu().numpy())
+            unvis.append(_sharded(compute_unvisible_points, replicas,
+                                  _dev(c_pts[beg:beg + chunk], maps), mesh).numpy())
             if k % 64 == 0:
                 print(f"[pmvo] fuse chunk {k + 1}/{n_chunks} "
                       f"({time.monotonic() - t0:.0f}s)", flush=True)

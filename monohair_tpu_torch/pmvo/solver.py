@@ -41,6 +41,15 @@ class PMVOMaps:
     def device(self) -> torch.device:
         return self.depth.device
 
+    def astype(self, dtype: torch.dtype) -> "PMVOMaps":
+        """The maps stored in `dtype` (PMVO.bf16_maps: bf16 halves their
+        memory), the cameras as they are. Consumers follow the JAX package's
+        promotion: the patch gather upcasts its windows to f32, and a bf16 map
+        value meets f32 camera math as f32, so only the stored values round."""
+        return dataclasses.replace(self, depth=self.depth.to(dtype),
+                                   ori2d=self.ori2d.to(dtype), conf=self.conf.to(dtype),
+                                   mask=self.mask.to(dtype))
+
     @classmethod
     def from_numpy(cls, ndc, w2c, depth, ori2d, conf, mask, device="cuda") -> "PMVOMaps":
         """From numpy arrays (the JAX package's PMVOMaps fields, as numpy)."""
@@ -68,7 +77,8 @@ def compute_visible(render_depth: torch.Tensor, z255: torch.Tensor) -> torch.Ten
 
 def pack_padded_maps(maps: PMVOMaps, patch_size: int) -> torch.Tensor:
     """One 8-channel map (ori sin, ori cos, conf, depth, mask, 0, 0, 0),
-    edge-padded by patch_size // 2 on each side: (V, H+p-1, W+p-1, 8)."""
+    edge-padded by patch_size // 2 on each side: (V, H+p-1, W+p-1, 8), in the
+    maps' dtype."""
     H, W = maps.image_size
     half = patch_size // 2
     zeros = torch.zeros_like(maps.conf)
@@ -85,7 +95,8 @@ def observe_points(maps: PMVOMaps, points: torch.Tensor, patch_size: int
 
     Mirror of Compute_Visible_and_Ori (PMVO.py:346-376). Returns a dict of
     (V, N, ...) tensors: uv (NDC), z, rc, invalid, depth, visible, ori, conf,
-    mask, ori_patch (V,N,P,2), conf_patch (V,N,P).
+    mask, ori_patch (V,N,P,2), conf_patch (V,N,P), all f32 whatever the maps'
+    dtype: the gather upcasts its windows.
     """
     H, W = maps.image_size
     uv, z = project(maps.cameras, points)                     # (V,N,2),(V,N)

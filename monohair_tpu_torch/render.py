@@ -4,9 +4,8 @@ Utils/Render_utils.py:269-347): bust_depth, undirectional_map (double-angle
 strand color over black bust), mask (white strands over black bust),
 hair_depth (strand depth over white bust), and render_depth/<view>.npy.
 Strands and mesh compose by z-buffer minimum, as the GL depth test does.
-Rendering runs on the cameras' device; the PNGs go through the port's own
-writer. The render_depth/<view>.JPG preview the JAX package writes beside
-each .npy waits for a JPEG codec; nothing reads it.
+Rendering runs on the cameras' device; the PNGs and the render_depth/<view>.JPG
+preview beside each .npy go through the port's own writers.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import torch
 from .camera import Cameras
 from .constants import DEPTH_RANGE
 from .io.hair_io import strand_directions
-from .io.image_io import write_png
+from .io.image_io import imwrite, write_png
 from .ops.rasterize import (compose_depth_to_image, rasterize_mesh_depth,
                             rasterize_strands, tangent_colors, tangent_step_points)
 
@@ -114,7 +113,8 @@ def render_bust_hair_depth(cameras: Cameras, names: List[str],
     `render_depth/<view>.npy` maps PMVO consumes (Render_utils.py:310-347).
 
     Returns {view: (H, W) image in [0,1]}; with capture_imgs writes
-    <save_root>/<view>.npy scaled by 255 as (H, W, 3), else
+    <save_root>/<view>.npy scaled by 255 as (H, W, 3) and its JPEG preview
+    <save_root>/<view>.JPG, else
     <save_root>/<view>/bust_hair_depth.png.
     """
     H, W = image_size
@@ -131,6 +131,8 @@ def render_bust_hair_depth(cameras: Cameras, names: List[str],
             if capture_imgs:
                 depth_save = np.repeat(img[..., None] * 255.0, 3, -1).astype(np.float32)
                 np.save(os.path.join(save_root, view + ".npy"), depth_save)
+                imwrite(os.path.join(save_root, view + ".JPG"),
+                        np.clip(depth_save, 0, 255).astype(np.uint8))
             else:
                 d = os.path.join(save_root, view)
                 os.makedirs(d, exist_ok=True)

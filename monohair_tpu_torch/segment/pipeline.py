@@ -23,7 +23,7 @@ import torch
 from scipy import ndimage
 
 from ..config import Config
-from ..io.image_io import imread_rgb, write_png
+from ..io.image_io import imread_rgb, imwrite
 from ..ops.resize import bgr_to_gray
 
 CHUNK = 4     # frames a batch of the nets
@@ -132,21 +132,21 @@ def calculate_masks(args: Config, device="cuda") -> List[str]:
               and seg.get("parser_flax") and os.path.exists(seg["parser_flax"]))
     if neural:
         for f, rgb, matte, hair in _neural_masks(files, img_dir, args, device):
-            write_png(os.path.join(mask_dir, f),
+            imwrite(os.path.join(mask_dir, f),
                       np.clip(matte * 255.0, 0, 255).astype(np.uint8))
-            write_png(os.path.join(hair_dir, f), hair)
+            imwrite(os.path.join(hair_dir, f), hair)
             blend = (hair[..., None].astype(np.float32) * 0.5
                      + rgb.astype(np.float32) * 0.5)
-            write_png(os.path.join(blend_dir, f), blend.astype(np.uint8))
+            imwrite(os.path.join(blend_dir, f), blend.astype(np.uint8))
         return files
 
     print("[segment] no neural checkpoints configured — classical fallback")
     for f in files:
         rgb = imread_rgb(os.path.join(img_dir, f))
         hair = _fallback_hair_mask(rgb)
-        write_png(os.path.join(hair_dir, f), hair)
-        write_png(os.path.join(mask_dir, f), _fallback_person_mask(rgb, hair))
+        imwrite(os.path.join(hair_dir, f), hair)
+        imwrite(os.path.join(mask_dir, f), _fallback_person_mask(rgb, hair))
         blend = rgb.copy()
         blend[hair > 0] = 0.5 * blend[hair > 0] + np.array([127.5, 0, 0])
-        write_png(os.path.join(blend_dir, f), blend)
+        imwrite(os.path.join(blend_dir, f), blend)
     return files

@@ -637,10 +637,11 @@ def capture_config(data_root: str, case: str, H: int, W: int, frame_interval: in
 
 def write_capture_case(data_root: str, case: str = "capture", num_frames: int = 32,
                        H: int = 720, W: int = 1280, frame_interval: int = 2,
-                       modnet: str = None, parser: str = None) -> dict:
+                       modnet: str = None, parser: str = None, ext: str = ".png") -> dict:
     """Write stage 1's inputs for an orbit of `num_frames` frames around the
     analytic head (tools/make_capture_case.py:41-80,156-250, without OpenCV):
-    colmap/images/frame_XXXX.png, colmap/transforms.json, colmap/key_frame.json
+    colmap/images/frame_XXXX<ext> (ext ".png", or ".JPG"/".jpg" for frames
+    written as JPEG at quality 95 by the port's encoder), colmap/transforms.json, colmap/key_frame.json
     (frame 0's NGP pose), calib_cam_params.json (the rig: every 2nd frame), the
     head sphere as ours/colmap_points.obj (through the port's
     convert_mesh_nerf_to_mvs, standing in for the NeRF's mesh), a Bust/ head
@@ -650,10 +651,12 @@ def write_capture_case(data_root: str, case: str = "capture", num_frames: int = 
     Returns {"config": the case's Config, "mvs_poses": {frame: 4x4 MVS c2w}}.
     """
     from .coords import nerf_to_ngp
-    from .io.image_io import write_png
+    from .io.image_io import imwrite, write_png
     from .io.mesh_io import save_obj
     from .nerf.poses import _se3, convert_mesh_nerf_to_mvs, mvs_to_ngp_rot, save_base_cam
 
+    if ext not in (".png", ".JPG", ".jpg"):
+        raise ValueError(f"write_capture_case: ext {ext!r} is not .png, .JPG or .jpg")
     root = os.path.join(data_root, case)
     for sub in ("colmap/images", "ours", "Bust", "labels/hair", "labels/hit"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
@@ -667,13 +670,12 @@ def write_capture_case(data_root: str, case: str = "capture", num_frames: int = 
     for j, c2w in enumerate(poses):
         img, hair, hit = capture_render_view(c2w, f_pix, H, W)
         name = f"frame_{j:04d}"
-        write_png(os.path.join(root, "colmap/images", name + ".png"),
-                  (img * 255).astype(np.uint8))
+        imwrite(os.path.join(root, "colmap/images", name + ext), (img * 255).astype(np.uint8))
         write_png(os.path.join(root, "labels/hair", name + ".png"),
                   hair.astype(np.uint8) * 255)
         write_png(os.path.join(root, "labels/hit", name + ".png"),
                   hit.astype(np.uint8) * 255)
-        frames.append({"file_path": f"images/{name}.png", "transform_matrix": c2w.tolist()})
+        frames.append({"file_path": f"images/{name}{ext}", "transform_matrix": c2w.tolist()})
     with open(os.path.join(root, "colmap/transforms.json"), "w") as f:
         json.dump({"camera_angle_x": 2 * math.atan(W / (2 * f_pix)),
                    "camera_angle_y": math.radians(CAPTURE_FOV_Y),
@@ -834,7 +836,7 @@ def write_bust_fit_assets(case_root: str, cfg: Config, mvs_poses: dict, H: int, 
     "landmark_truth": (68, 3) true landmark vertices (MVS frame),
     "lmk_ids", "template": (V, 3) template, "head_count": the head's
     vertex count (the first vertices)}."""
-    from .io.image_io import read_png, write_png
+    from .io.image_io import _find, imread_rgb, read_png, write_png
 
     rng = np.random.default_rng(seed)
     assets = os.path.join(case_root, "assets")
@@ -867,7 +869,7 @@ def write_bust_fit_assets(case_root: str, cfg: Config, mvs_poses: dict, H: int, 
         irc = _project_rc(ndc, c2w, true[iris_ids], H, W)
         np.savetxt(os.path.join(opt, "iris", name + ".txt"),
                    np.concatenate([irc[:, ::-1], np.ones((2, 1))], 1))
-        img = read_png(os.path.join(case_root, "colmap", "images", name + ".png"))
+        img = imread_rgb(_find(os.path.join(case_root, "colmap", "images", name)))
         hit = read_png(os.path.join(case_root, "labels", "hit", name + ".png")) > 127
         hair = read_png(os.path.join(case_root, "labels", "hair", name + ".png")) > 127
         write_png(os.path.join(opt, "matting", name + ".png"),

@@ -7,11 +7,14 @@ import, chip_smoke's stage phase runs on the CPU at a small size, and
 stage's files on a small written case, as do PMVO and then
 `python -m monohair_tpu_torch.infer_inner` on another, and
 `python -m monohair_tpu_torch.prepare_data` on a small capture case, once with
-the NeRF off, once with it on at a tiny budget, and once with the bust fit on
-(the synthetic SMPL-X, a few steps); `python -m monohair_tpu_torch.train_mvs`
-trains a few steps on a small written case and resumes, and
+the NeRF off, once with it on at a tiny budget, once with the bust fit on
+(the synthetic SMPL-X, a few steps), and once on JPEG frames (the port's
+codec, its library built into build/); `python -m monohair_tpu_torch.train_mvs`
+trains a few steps on a small written case and resumes,
 `python -m monohair_tpu_torch.run_pipeline` runs the four stages on a small
-synthwig case."""
+synthwig case, PMVO runs with bf16 maps on a mesh of two CPU shards beside
+the debug exports, and `python -m monohair_tpu_torch.segment.convert` writes
+a public-named FAN checkpoint as a flax tree."""
 
 import os
 import subprocess
@@ -207,6 +210,57 @@ GUARDED = textwrap.dedent('''
         assert len(segments) > 100 and np.isfinite(points).all()
         with open(os.path.join(tmp, "synthwig", "output", "verify", "metrics.jsonl")) as f:
             assert len(f.readlines()) == 4
+
+    # a JPEG capture (frames written by the port's encoder) through the
+    # prepare_data CLI's image half: best_ori/, conf/, Ori/ and the masks are
+    # JPEG under the frames' names, beside the render_depth/<view>.JPG preview;
+    # the codec's library is built into the git-ignored build/ tree
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_capture_case(tmp, "cap", num_frames=4, H=48, W=64, ext=".JPG")["config"]
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        sys.argv = ["prepare_data", "--yaml=" + os.path.join(tmp, "case"), "--device=cpu",
+                    "--prepare_data.run_ngp=", "--prepare_data.fit_bust="]
+        runpy.run_module("monohair_tpu_torch.prepare_data", run_name="__main__")
+        case = os.path.join(tmp, "cap")
+        for sub in ("capture_images", "hair_mask", "mask", "mask_hair", "best_ori", "conf", "Ori"):
+            files = sorted(os.listdir(os.path.join(case, sub)))
+            assert files == ["frame_0001.JPG", "frame_0003.JPG"], (sub, files)
+            with open(os.path.join(case, sub, files[0]), "rb") as f:
+                assert f.read(2) == b"\\xff\\xd8", sub
+        assert os.path.exists(os.path.join(case, "render_depth", "frame_0001.JPG"))
+    from monohair_tpu_torch.ops import _build
+    assert _build.BUILD_INFO["jpeg.cpp"]["path"].startswith(
+        os.path.join(os.getcwd(), "build", "monohair_tpu_torch") + os.sep)
+
+    # PMVO with bf16 maps on a mesh of two CPU shards, the debug exports
+    from monohair_tpu_torch.pipeline.common import case_paths
+    from monohair_tpu_torch.pipeline.pmvo_stage import run_pmvo
+    from monohair_tpu_torch.visualization import save_occ_slices, save_oriented_points
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = case_paths(write_synthwig_case(tmp, num_views=4))
+        cfg.PMVO["bf16_maps"] = True
+        run_pmvo(cfg, device="cpu", mesh=(torch.device("cpu"),) * 2)
+        occ = load_occ_mat(os.path.join(tmp, "synthwig/output/verify/refine/Occ3D.mat"))
+        assert occ.sum() > 100
+        save_occ_slices(os.path.join(tmp, "occ"), occ, num=2)
+        assert read_png(os.path.join(tmp, "occ_slice1.png")).shape == occ.shape[:2]
+        save_oriented_points(os.path.join(tmp, "p.ply"), np.zeros((3, 3)), np.ones((3, 3)))
+
+    # the checkpoint converter, as `python -m` runs it, on a public-named FAN
+    with tempfile.TemporaryDirectory() as tmp:
+        from monohair_tpu_torch.segment.convert import load_flax_npz
+        from monohair_tpu_torch.segment.fan import FAN
+        net = FAN(num_modules=1, depth=1, width=0.125)
+        public = {"module." + k.replace("down_bn.", "downsample.0.").replace(
+            "down_conv.", "downsample.2."): v for k, v in net.state_dict().items()}
+        torch.save(public, os.path.join(tmp, "fan.pth"))
+        sys.argv = ["convert", "--net", "fan", "--ckpt", os.path.join(tmp, "fan.pth"),
+                    "--out", os.path.join(tmp, "fan.npz")]
+        runpy.run_module("monohair_tpu_torch.segment.convert", run_name="__main__")
+        back = load_flax_npz(FAN(num_modules=1, depth=1, width=0.125), os.path.join(tmp, "fan.npz"))
+        for k, v in net.state_dict().items():
+            assert torch.equal(back.state_dict()[k], v), k
 
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded

@@ -209,9 +209,10 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     pk.reset_launch_counts()
     padded, rc = gather_case(rng, 2, 9, 10, 12, 3)
     pk.patch_gather(torch.from_numpy(padded), torch.from_numpy(rc), 3)
+    pk.patch_gather(torch.from_numpy(padded).bfloat16(), torch.from_numpy(rc), 3)
     prj, ori, conf, vis, thr = min_loss_case(rng, "random")
     pk.patch_min_loss(*map(torch.from_numpy, (prj, ori, conf, vis)), thr)
-    assert pk.LAUNCHES == {"patch_gather": 0, "patch_min_loss": 0}
+    assert pk.LAUNCHES == {"patch_gather": 0, "patch_gather_bf16": 0, "patch_min_loss": 0}
 
 
 def test_other_devices_raise():
@@ -242,6 +243,21 @@ def test_cuda_patch_gather_bit_exact(cuda_device):
     torch.cuda.synchronize()
     assert pk.LAUNCHES["patch_gather"] == before + 1
     assert torch.equal(out, pk.patch_gather_plain(p, r, 7))
+
+
+@pytest.mark.gpu
+def test_cuda_patch_gather_bf16_bit_exact(cuda_device):
+    rng = np.random.default_rng(1)
+    padded, rc = gather_case(rng, 4, 64, 48, 500, 7)
+    p = torch.from_numpy(padded).to(cuda_device).bfloat16()
+    r = torch.from_numpy(rc).to(cuda_device)
+    before = pk.LAUNCHES["patch_gather_bf16"]
+    out = pk.patch_gather(p, r, 7)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["patch_gather_bf16"] == before + 1 and out.dtype == torch.float32
+    assert torch.equal(out.view(torch.int32), pk.patch_gather_plain(p, r, 7).view(torch.int32))
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        pk.patch_gather(p.half(), r, 7)
 
 
 @pytest.mark.gpu

@@ -172,9 +172,15 @@ def test_load_nerf_dataset_matches_jax(tmp_path):
     assert got.images.shape == (4, 24, 32, 3) and got.images.dtype == np.float32
     two = train.load_nerf_dataset(*args, max_images=2)
     np.testing.assert_array_equal(two.images, jtrain.load_nerf_dataset(*args, max_images=2).images)
-    os.rename(colmap / "images" / "frame_0001.png", colmap / "images" / "frame_0001.jpg")
-    with pytest.raises(ValueError, match="no JPEG codec"):
-        train.load_nerf_dataset(*args)
+    # a JPEG frame reads as cv2 reads it (the port's baseline codec)
+    import cv2
+    frame = cv2.imread(str(colmap / "images" / "frame_0001.png"))
+    os.remove(colmap / "images" / "frame_0001.png")
+    cv2.imwrite(str(colmap / "images" / "frame_0001.jpg"), frame)
+    got, want = train.load_nerf_dataset(*args), jtrain.load_nerf_dataset(*args)
+    np.testing.assert_array_equal(got.images, want.images)
+    png = frame[..., ::-1].astype(np.float32) / 255.0    # the frame before its JPEG round trip
+    assert not np.array_equal(got.images[1], png) and np.abs(got.images[1] - png).mean() < 0.02
 
 
 def overfit_dataset():

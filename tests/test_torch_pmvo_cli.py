@@ -48,9 +48,16 @@ def test_stage_cli_on_a_written_case(synthwig_case, capsys):
 
     with pytest.raises(KeyError, match="unknown config key"):
         resolve_config(["--yaml=configs/reconstruct/synthwig", "--PMVO.bogus=1"])
-    with pytest.raises(NotImplementedError, match="bf16_maps"):
-        run_pmvo(resolve_config(["--yaml=configs/reconstruct/synthwig",
-                                 "--PMVO.bf16_maps"]), device="cpu")
+    # bf16 maps (PMVO.bf16_maps) on the resume branch: the refine pass on bf16
+    # windows keeps the f32 run's grids (tests/test_torch_bf16_maps.py holds
+    # the option against the JAX package's)
+    run_pmvo(resolve_config(["--yaml=configs/reconstruct/synthwig", "--PMVO.optimize=",
+                             "--PMVO.infer_inner!", "--PMVO.bf16_maps"]), device="cpu")
+    occ16 = load_occ_mat(str(out / "refine/Occ3D.mat"))
+    ori16 = load_ori_mat(str(out / "refine/Ori3D.mat"))
+    both = (occ > 0) & (occ16 > 0)
+    assert both.sum() >= 0.99 * ((occ > 0) | (occ16 > 0)).sum()
+    assert np.median(np.abs(np.sum(ori[both] * ori16[both], -1))) >= 0.999
 
 
 def test_zero_points_raise_right_after_loading(synthwig_case):

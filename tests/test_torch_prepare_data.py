@@ -11,7 +11,9 @@ depth maps; hair_mask/ and mask/ within 1 LSB (uint8 truncation of floats);
 Gabor bins equal on >= 99% of the pixels with nonzero written confidence and
 within one bin there (2 once encoded), conf within 1 LSB. The CLI with fit_bust on
 against the JAX stage on a small case with the synthetic SMPL-X. Also the stage's
-own rule: a JPEG capture raises a ValueError that names the missing codec."""
+own rule: a JPEG frame of a kind the baseline codec does not take (progressive)
+raises the codec's named error (tests/test_torch_jpeg.py runs a baseline JPEG
+capture through the stage)."""
 
 import json
 import math
@@ -297,12 +299,15 @@ def test_cli_with_fit_bust_matches_jax(tmp_path):
 
 def test_jpeg_capture_raises_a_named_codec_error(small_case, tmp_path):
     from monohair_tpu_torch import prepare_data
+    from monohair_tpu_torch.io.jpeg import UnsupportedJPEGError
     shutil.copytree(small_case[0], tmp_path / "cap")
     images = tmp_path / "cap" / "colmap" / "images"
-    os.rename(images / "frame_0002.png", images / "frame_0002.jpg")
+    frame = cv2.imread(str(images / "frame_0002.png"))
+    os.remove(images / "frame_0002.png")
+    cv2.imwrite(str(images / "frame_0002.jpg"), frame, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     cfg = stage_config(small_case)
     cfg.data["root"] = str(tmp_path)
     cfg.prepare_data["process_imgs"] = None
     write_yaml(cfg, str(tmp_path / "case"))
-    with pytest.raises(ValueError, match="no JPEG codec"):
+    with pytest.raises(UnsupportedJPEGError, match="progressive"):
         prepare_data.main(["--yaml=" + str(tmp_path / "case"), "--device=cpu"])
