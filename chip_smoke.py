@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's stages 1 (prepare_data, with and without the
 coarse NeRF and the bust fit), 2 (PMVO), 3 (infer_inner) and 4 (HairGrow), the
-MVS nets' training (train_mvs) and the one-process pipeline (run_pipeline) on
-one GPU and check them.
+MVS nets' training (train_mvs), the one-process pipeline (run_pipeline) and
+video in and out (the mp4v codec, the sharpest-frame extraction, the NeRF
+fly-through) on one GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each printing a line when it starts and when it ends:
   1. device   the card's name, count and power limit (exits non-zero without CUDA)
   2. build    nvcc of monohair_tpu_torch/csrc/patch_kernels.cu and g++ of the
-              host C++ (jpeg.cpp, connect.cpp, marching.cpp), all started
-              together; their seconds and the -Xptxas -v lines
+              host C++ (jpeg.cpp, mp4v.cpp, connect.cpp, marching.cpp), all
+              started together; their seconds and the -Xptxas -v lines
   3. kernels  each CUDA kernel against its plain PyTorch version on the card at
               the full-width shapes of the stage (the gather on f32 and on
               bf16 maps, bitwise; the tap loop on random, tied and near-tie
@@ -74,7 +75,7 @@ Phases, each printing a line when it starts and when it ends:
               the card against the CPU (terms 1e-4 relative, gradients 1e-3 of
               their norm), the steady step time and busy share; then the
               prepare_data CLI with fit_bust, process_bust and render_depth on
-              (2000 iterations, fewer when they would pass FIT_BUDGET_S): the
+              (1000 iterations, fewer when they would pass FIT_BUDGET_S): the
               fitted head's similarity within 1 degree, 1% and 0.005 of the
               truth, the landmark vertices within 0.01 and 5x closer than at
               the start, model_tsfm[_semantic].dat at the root, Bust/ and
@@ -117,6 +118,19 @@ Phases, each printing a line when it starts and when it ends:
               render_depth/<view>.JPG written as JPEG, hair IoU >= 0.7, strands;
               printed: stage seconds, the PMVO candidates kept beside the same
               case written as PNG, the codec's share of process_imgs
+ 14. video    the mp4v codec (host C++) and the two functions that use it:
+              14a ms a frame to encode (the port's writer: qscale 3, an I-VOP
+              and 11 P-VOPs) and to decode 12 orbit frames of phase 8's scene
+              at 1920x1080 and 1280x720, the round trip's PSNR (>= 30 dB),
+              the file's P-VOPs and size; 14b a 60-frame 1920x1080 orbit
+              video at 30 fps written by the port, one frame of every 5 sharp
+              and the others box-blurred, through extract_sharpest_frames
+              (interval 5) on the card: the kept frames are the sharp ones
+              and each kept sharpness agrees with a float64 host Laplacian;
+              seconds and frames/s; 14c render_camera_path_video at 720x1280
+              on a seeded full-width Fourier field over a 3-pose path at 4
+              frames a segment: the mp4 decodes to 8 frames of that size at
+              >= 30 dB against the renders; seconds a frame
 Phase 3 also holds the tap loop at the shapes PR 7's kernel refused (S = 1 at
 P = 225, the refine pass at patch 15; 1100 views), and times the gather's
 library call (one advanced-index gather with its indices built beforehand).
@@ -155,10 +169,11 @@ from monohair_tpu_torch.bustfit.transforms import load_model_tsfm
 from monohair_tpu_torch.camera import Cameras
 from monohair_tpu_torch.config import Config
 from monohair_tpu_torch.constants import BUST_TO_ORIGIN, VOXEL_MAX, VOXEL_MIN, VOXEL_SIZE
-from monohair_tpu_torch.coords import voxel_to_world
+from monohair_tpu_torch.coords import nerf_to_ngp, voxel_to_world
 from monohair_tpu_torch.io.cameras_io import load_cam_params, save_cam_params, subsample_views
 from monohair_tpu_torch.io.hair_io import load_hair, strands_from_flat
 from monohair_tpu_torch.io import jpeg as jpeg_io
+from monohair_tpu_torch.io import video as video_io
 from monohair_tpu_torch.io.image_io import (imread_gray, load_depth_maps, load_masks,
                                             load_orientation_and_confidence, read_png,
                                             write_png)
@@ -177,7 +192,7 @@ from monohair_tpu_torch.nerf.fourier import FourierField
 from monohair_tpu_torch.nerf.ngp import (as_background, camera_rays, grid_points, nerf_to_unit,
                                          render_rays)
 from monohair_tpu_torch.nerf.pipeline import ngp_options
-from monohair_tpu_torch.nerf.poses import load_base_cam
+from monohair_tpu_torch.nerf.poses import _se3, load_base_cam, save_base_cam
 from monohair_tpu_torch.nerf.train import NerfDataset, load_nerf_dataset, render_image
 from monohair_tpu_torch.ops import _build
 from monohair_tpu_torch.ops import patch_kernels as pk
@@ -190,7 +205,7 @@ from monohair_tpu_torch.pipeline.infer_inner_stage import load_net, occ_margin
 from monohair_tpu_torch.pipeline.pmvo_stage import run_pmvo
 from monohair_tpu_torch.render import (render_data, render_view, strands_to_segments,
                                        upload_segments)
-from monohair_tpu_torch.ops.resize import resize_linear
+from monohair_tpu_torch.ops.resize import bgr_to_gray, laplacian_variance, resize_linear
 from monohair_tpu_torch.utils.metrics import OccMetric, psnr
 from monohair_tpu_torch.segment.annotations import AnnotationProcessor, default_backends
 from monohair_tpu_torch.segment.convert import save_flax_npz
@@ -198,6 +213,7 @@ from monohair_tpu_torch.segment.fan import FAN, decode_heatmaps
 from monohair_tpu_torch.segment.runners import (LandmarkRunner, MattingRunner, ParsingRunner,
                                                 face_box_from_mask)
 from monohair_tpu_torch.pmvo import solver
+from monohair_tpu_torch.video import extract_sharpest_frames
 from monohair_tpu_torch.pmvo.driver import (auto_chunk, exact_f32, filter_raw_points,
                                             optimize_points, refine_and_voxelize)
 from monohair_tpu_torch.strands import connect as strand_connect
@@ -286,18 +302,20 @@ def phase_device() -> dict:
 # phase 2
 # ---------------------------------------------------------------------------
 
-NATIVE_SOURCES = (pk.SOURCE, jpeg_io.SOURCE, strand_connect.SOURCE, nerf_marching.SOURCE)
+NATIVE_SOURCES = (pk.SOURCE, jpeg_io.SOURCE, video_io.SOURCE, strand_connect.SOURCE,
+                  nerf_marching.SOURCE)
 
 
 def phase_build() -> None:
-    """nvcc of the CUDA kernels and g++ of the host C++ (the JPEG codec, the
-    scalp connection, marching tetrahedra), all started together."""
+    """nvcc of the CUDA kernels and g++ of the host C++ (the JPEG and mp4v
+    codecs, the scalp connection, marching tetrahedra), all started together."""
     from concurrent.futures import ThreadPoolExecutor
     t = time.perf_counter()
     with ThreadPoolExecutor(len(NATIVE_SOURCES)) as pool:
         list(pool.map(_build.build, NATIVE_SOURCES))
     pk._lib()
     jpeg_io._lib()
+    video_io._lib()
     log(f"built {len(NATIVE_SOURCES)} native sources in {time.perf_counter() - t:.2f}s (wall)")
     for source in NATIVE_SOURCES:
         info = _build.BUILD_INFO[source]
@@ -1292,7 +1310,12 @@ CHECK_FRAMES = 2                   # frames held card against CPU
 def sharpness_f64(path: str) -> float:
     """cv2.Laplacian(cvtColor(imread(path), BGR2GRAY), CV_64F).var() in numpy
     float64, written here apart from the port's ops/resize.py."""
-    rgb = read_png(path).astype(np.int64)
+    return sharpness_rgb_f64(read_png(path))
+
+
+def sharpness_rgb_f64(rgb: np.ndarray) -> float:
+    """sharpness_f64 of (H, W, 3) uint8 RGB pixels."""
+    rgb = rgb.astype(np.int64)
     gray = ((rgb[..., 2] * 3735 + rgb[..., 1] * 19235 + rgb[..., 0] * 9798 + (1 << 14))
             >> 15).astype(np.float64)
     p = np.pad(gray, 1, mode="reflect")
@@ -1787,8 +1810,8 @@ def phase_ngp(dev: torch.device) -> dict:
 # phase 10
 # ---------------------------------------------------------------------------
 
-FIT_ITERS = 2000                 # run_bust_fit's default (optimize.iter)
-FIT_BUDGET_S = 240.0             # the fit's share of the smoke run's time limit
+FIT_ITERS = 1000                 # half run_bust_fit's default 2000 (optimize.iter): room for phase 14
+FIT_BUDGET_S = 120.0             # the fit's share of the smoke run's time limit
 FIT_TIMED_STEPS = 20             # steady steps timed with CUDA events
 FAN_CHECK_FRAMES = 2             # frames whose heatmaps are held card against CPU
 
@@ -2613,6 +2636,187 @@ def phase_jpeg_capture(dev: torch.device) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 14: video
+# ---------------------------------------------------------------------------
+
+VIDEO_CODEC_FRAMES = 12          # 14a: an I-VOP and 11 P-VOPs at the writer's GOP of 12
+VIDEO_FRAMES = 60                # 14b: 2 s at 30 fps
+VIDEO_FPS = 30
+VIDEO_INTERVAL = 5               # extract_sharpest_frames's default
+VIDEO_BLUR = 9                   # the box blur of the frames that are not sharp
+VIDEO_MIN_PSNR = 30.0            # the codec's round trip on the scene at qscale 3
+FLY_SIZE = (720, 1280)           # render_camera_path_video's default (H, W)
+FLY_POSES = 3
+FLY_FRAMES_PER_SEG = 4
+SHARPNESS_RTOL = 1e-9            # the card's float64 Laplacian against numpy's
+
+
+def orbit_frames(H: int, W: int, n: int, span: float = 0.6) -> list:
+    """n BGR uint8 frames of phase 8's scene along an orbit arc of `span`
+    radians, rendered on the host's cores."""
+    from concurrent.futures import ThreadPoolExecutor
+    from monohair_tpu_torch.synthetic import CAPTURE_FOV_Y, capture_orbit_pose, capture_render_view
+    f_pix = (H / 2) / math.tan(math.radians(CAPTURE_FOV_Y) / 2)
+
+    def render(k):
+        img, _, _ = capture_render_view(capture_orbit_pose(0.3 + span * k / n, elev=0.12),
+                                        f_pix, H, W)
+        return np.ascontiguousarray((img[..., ::-1] * 255).astype(np.uint8))
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        return list(pool.map(render, range(n)))
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def video_psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10.0 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def write_video(path: str, frames: list, fps: float) -> float:
+    """Seconds to write `frames` with the port's writer (default settings)."""
+    t = time.perf_counter()
+    with video_io.VideoWriter(path, fps, (frames[0].shape[1], frames[0].shape[0])) as w:
+        for f in frames:
+            w.write(f)
+    return time.perf_counter() - t
+
+
+def phase_video_codec(tmp: str) -> dict:
+    """14a: encode and decode ms a frame, the round trip's PSNR, the P-VOPs."""
+    out = {}
+    for H, W in CODEC_SIZES:
+        frames = orbit_frames(H, W, VIDEO_CODEC_FRAMES, span=0.1)
+        path = os.path.join(tmp, f"codec_{W}x{H}.mp4")
+        enc_s = write_video(path, frames, VIDEO_FPS)
+        t = time.perf_counter()
+        with video_io.VideoReader(path) as reader:
+            decoded = list(reader)
+            stats = reader.stats
+        dec_s = time.perf_counter() - t
+        info = video_io.video_info(path)
+        psnrs = [video_psnr(a, b) for a, b in zip(decoded, frames)]
+        res = dict(encode_ms=enc_s / len(frames) * 1e3, decode_ms=dec_s / len(frames) * 1e3,
+                   min_psnr=min(psnrs), bytes=os.path.getsize(path), i_vops=stats["i_vops"],
+                   p_vops=stats["p_vops"], half_pel_vectors=stats["half_pel_vectors"])
+        log(f"14a mp4v at {W}x{H}: encode {res['encode_ms']:.3f} ms, decode "
+            f"{res['decode_ms']:.3f} ms a frame ({len(frames)} frames: {res['i_vops']} I-VOP, "
+            f"{res['p_vops']} P-VOPs, {res['half_pel_vectors']} half-pel vector components); "
+            f"{res['bytes']} bytes; round trip PSNR min {res['min_psnr']:.2f} dB")
+        if info != (len(frames), float(VIDEO_FPS), W, H) or len(decoded) != len(frames):
+            raise AssertionError(f"14a: {path} reads back as {info}, {len(decoded)} frames")
+        if res["min_psnr"] < VIDEO_MIN_PSNR or res["p_vops"] == 0:
+            raise AssertionError(f"14a: the mp4v round trip at {W}x{H}: {res}")
+        out[f"{W}x{H}"] = res
+    return out
+
+
+def phase_video_extract(dev: torch.device, tmp: str) -> dict:
+    """14b: a 1920x1080 orbit video, one sharp frame in every VIDEO_INTERVAL,
+    through extract_sharpest_frames on the card."""
+    H, W = CODEC_SIZES[0]
+    frames = orbit_frames(H, W, VIDEO_FRAMES)
+    sharp = [k * VIDEO_INTERVAL + k % VIDEO_INTERVAL for k in range(VIDEO_FRAMES // VIDEO_INTERVAL)]
+    pool = torch.nn.AvgPool2d(VIDEO_BLUR, stride=1, padding=VIDEO_BLUR // 2,
+                              count_include_pad=False)
+    for i in range(VIDEO_FRAMES):
+        if i not in sharp:
+            x = torch.as_tensor(frames[i], device=dev).permute(2, 0, 1).float()
+            frames[i] = pool(x[None])[0].round().byte().permute(1, 2, 0).cpu().numpy()
+    video = os.path.join(tmp, "orbit.mp4")
+    enc_s = write_video(video, frames, VIDEO_FPS)
+    out_dir = os.path.join(tmp, "frames")
+    sync(dev)
+    t = time.perf_counter()
+    kept = extract_sharpest_frames(video, out_dir, interval=VIDEO_INTERVAL, device=dev)
+    sync(dev)
+    seconds = time.perf_counter() - t
+    decoded = list(video_io.read_video(video))
+    host = [sharpness_rgb_f64(f[..., ::-1]) for f in decoded]
+    worst = 0.0
+    for k, name in enumerate(kept):
+        window = host[k * VIDEO_INTERVAL:(k + 1) * VIDEO_INTERVAL]
+        want = k * VIDEO_INTERVAL + int(np.argmax(window))
+        if want != sharp[k]:
+            raise AssertionError(f"14b: window {k}: the sharpest decoded frame is {want}, "
+                                 f"the sharp one {sharp[k]} (host sharpness {window})")
+        rgb = read_png(os.path.join(out_dir, name))
+        if not np.array_equal(rgb, decoded[sharp[k]][..., ::-1]):
+            raise AssertionError(f"14b: {name} is not frame {sharp[k]}")
+        card = float(laplacian_variance(bgr_to_gray(torch.as_tensor(decoded[sharp[k]],
+                                                                    device=dev))))
+        worst = max(worst, abs(card - host[sharp[k]]) / host[sharp[k]])
+    if len(kept) != len(sharp) or worst > SHARPNESS_RTOL:
+        raise AssertionError(f"14b: kept {len(kept)} of {len(sharp)} frames, the card's "
+                             f"sharpness within {worst:.3e} of the host's")
+    blurred = [host[i] for i in range(VIDEO_FRAMES) if i not in sharp]
+    res = dict(seconds=seconds, frames_per_s=VIDEO_FRAMES / seconds, encode_s=enc_s,
+               bytes=os.path.getsize(video), kept=len(kept), sharpness_rel_err=worst,
+               sharp_min=min(host[i] for i in sharp), blurred_max=max(blurred))
+    log(f"14b extract_sharpest_frames on a {VIDEO_FRAMES}-frame {W}x{H} video "
+        f"({res['bytes']} bytes, written in {enc_s:.3f} s): {seconds:.3f} s, "
+        f"{res['frames_per_s']:.2f} frames/s; kept {len(kept)}, all the sharp ones; "
+        f"card vs float64 host sharpness {worst:.3e}; sharpness sharp >= "
+        f"{res['sharp_min']:.2f}, blurred <= {res['blurred_max']:.2f}")
+    return res
+
+
+def phase_video_fly(dev: torch.device, tmp: str) -> dict:
+    """14c: the NeRF fly-through at 720x1280 on a seeded full-width field."""
+    from monohair_tpu_torch.synthetic import CAPTURE_FOV_Y, capture_orbit_pose
+    field = FourierField(generator=torch.Generator().manual_seed(0)).to(dev)
+    poses = [nerf_to_ngp(capture_orbit_pose(0.3 + 0.4 * k, elev=0.12)) for k in range(FLY_POSES)]
+    path = os.path.join(tmp, "base_cam.json")
+    save_base_cam(path, [_se3(m[:, :3], m[:, 3]) for m in poses], [CAPTURE_FOV_Y] * FLY_POSES)
+    rendered = []
+
+    class Kept(video_io.VideoWriter):
+        def write(self, frame):
+            rendered.append(np.array(frame))
+            super().write(frame)
+
+    out = os.path.join(tmp, "ngp_video.mp4")
+    real = pipeline_ngp.VideoWriter
+    pipeline_ngp.VideoWriter = Kept
+    try:
+        sync(dev)
+        t = time.perf_counter()
+        n = pipeline_ngp.render_camera_path_video(field, path, out, *FLY_SIZE,
+                                                  frames_per_seg=FLY_FRAMES_PER_SEG,
+                                                  background=NGP_BG)
+        seconds = time.perf_counter() - t
+    finally:
+        pipeline_ngp.VideoWriter = real
+    decoded = list(video_io.read_video(out))
+    want = (FLY_POSES - 1) * FLY_FRAMES_PER_SEG
+    psnrs = [video_psnr(a, b) for a, b in zip(decoded, rendered)]
+    res = dict(frames=n, seconds=seconds, seconds_a_frame=seconds / max(n, 1),
+               min_psnr=min(psnrs), bytes=os.path.getsize(out))
+    log(f"14c render_camera_path_video at {FLY_SIZE[1]}x{FLY_SIZE[0]}: {n} frames in "
+        f"{seconds:.3f} s ({res['seconds_a_frame']:.3f} s a frame), {res['bytes']} bytes; "
+        f"decoded vs rendered PSNR min {res['min_psnr']:.2f} dB")
+    if (n != want or len(decoded) != want or decoded[0].shape != (*FLY_SIZE, 3)
+            or res["min_psnr"] < VIDEO_MIN_PSNR):
+        raise AssertionError(f"14c: {n} frames rendered, {len(decoded)} decoded of shape "
+                             f"{decoded[0].shape if decoded else None}: {res}")
+    return res
+
+
+def phase_video(dev: torch.device) -> dict:
+    """Phase 14: the codec (14a), the extraction (14b), the fly-through (14c)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
+        pk.reset_launch_counts()
+        res = dict(codec=phase_video_codec(tmp), extract=phase_video_extract(dev, tmp),
+                   fly=phase_video_fly(dev, tmp))
+        res["launches"] = dict(pk.LAUNCHES)
+    return res
+
+
 KERNEL_META = {
     "patch_gather": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
                          replaces="monohair_tpu/ops/pallas_kernels.py:188"),
@@ -2661,11 +2865,14 @@ def main(argv=None) -> int:
         bf16 = phase_bf16_and_mesh(dev)
     with Phase("13d JPEG capture through run_pipeline"):
         phase_jpeg_capture(dev)
+    with Phase("14 video"):
+        video = phase_video(dev)
     print(smi_line(), flush=True)
     by_path = {"pmvo": width["launches"], "infer_inner_fuse": stage3["stage"]["launches"],
                "prepare_data": stage1["launches"], "prepare_data_ngp": ngp["launches"],
                "prepare_data_bust": bust["launches"], "train_mvs": train["launches"],
-               "run_pipeline": pipeline["launches"], "pmvo_bf16": bf16["launches"]}
+               "run_pipeline": pipeline["launches"], "pmvo_bf16": bf16["launches"],
+               "video": video["launches"]}
     kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:
         with Phase("profile"):

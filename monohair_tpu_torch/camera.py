@@ -20,6 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .constants import DEPTH_RANGE, Z_FAR, Z_NEAR
+
 
 @dataclasses.dataclass(frozen=True)
 class Cameras:
@@ -61,6 +63,18 @@ class Cameras:
         if ndc.ndim == 1:  # single camera: keep a view axis
             ndc, w2c = ndc[None], w2c[None]
         return Cameras(ndc, w2c)
+
+
+def projection_matrix(ndc: torch.Tensor) -> torch.Tensor:
+    """(..., 4) NDC intrinsics -> (..., 4, 4) OpenGL projection (Camera_utils.py:19-36)."""
+    fx, fy, cx, cy = ndc.unbind(-1)
+    zero, one = torch.zeros_like(fx), torch.ones_like(fx)
+    m = (-Z_FAR - Z_NEAR) / (Z_FAR - Z_NEAR) * one
+    n = -2.0 * Z_FAR * Z_NEAR / (Z_FAR - Z_NEAR) * one
+    return torch.stack([torch.stack([fx, zero, cx, zero], -1),
+                        torch.stack([zero, fy, cy, zero], -1),
+                        torch.stack([zero, zero, m, n], -1),
+                        torch.stack([zero, zero, -one, zero], -1)], -2)
 
 
 def world_to_cam(w2c: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -121,3 +135,13 @@ def unproject(cameras: Cameras, uv: torch.Tensor, z: torch.Tensor) -> torch.Tens
     x = (uv[..., 0] - cx[:, None]) / fx[:, None] * z
     y = (uv[..., 1] - cy[:, None]) / fy[:, None] * z
     return cam_to_world(cameras.w2c, torch.stack([x, y, z], -1))
+
+
+def normalized_depth(z: torch.Tensor) -> torch.Tensor:
+    """Camera z -> normalized depth in [0, ~1]: (-z)/DEPTH_RANGE (PMVO.py:392)."""
+    return -z / DEPTH_RANGE
+
+
+def depth_to_z(depth255: torch.Tensor) -> torch.Tensor:
+    """Disk depth (0..255 scale) -> camera z (negative): z = -d/255*2 (PMVO.py:313)."""
+    return -(depth255 / 255.0) * DEPTH_RANGE

@@ -10,8 +10,11 @@ A run's output directory holds, for kind = occ or ori:
   `count`, and the trainer's `step`.
 Each is written to a temporary file beside it, then moved over it
 (os.replace), so a run cut mid-write leaves the previous checkpoint whole.
-The NeRF's snapshots are not here: the port's NeRF writes its own
-(nerf/pipeline.py).
+NeRF snapshots (`save_nerf_snapshot`/`load_nerf_snapshot`, the .ingp
+equivalent) are one compressed .npz in the JAX package's layout: the flax
+tree's leaves as `param_<i>` in jax.tree_util's flatten order (dict keys
+sorted), its treedef's string and the config's items, so a snapshot written
+by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -19,12 +22,13 @@ from __future__ import annotations
 import os
 import tempfile
 from collections import OrderedDict
-from typing import Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from .models.convert import load_weights, read_state_dict
+from .nerf.convert import field_kind, field_state_from_flax, flax_from_field
 from .mvs.train import load_adam_state
 
 
@@ -88,3 +92,51 @@ def load_train_state(out: str, kind: str, state) -> None:
                    for key in ("mu", "nu")}
         load_adam_state(state, moments["mu"], moments["nu"], int(data["count"]))
         state.step = int(data["step"])
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) of a nested dict in jax.tree_util's order (sorted keys)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _flatten(v, prefix + (k,)) if isinstance(v, Mapping) else [(prefix + (k,), v)]
+    return out
+
+
+def _treedef_str(tree: Mapping) -> str:
+    """str() of the tree's jax PyTreeDef, e.g. "PyTreeDef({'a': *})"."""
+    def walk(node):
+        if not isinstance(node, Mapping):
+            return "*"
+        return "{" + ", ".join(f"{k!r}: {walk(node[k])}" for k in sorted(node)) + "}"
+    return f"PyTreeDef({walk(tree)})"
+
+
+def save_nerf_snapshot(path: str, field: torch.nn.Module, config: dict) -> None:
+    """A port NeRF field and its config -> a snapshot the JAX package's
+    load_nerf_snapshot reads (run.py:121-127's .ingp, as one npz)."""
+    tree = flax_from_field(field)
+    arrays = {f"param_{i}": leaf for i, (_, leaf) in enumerate(_flatten(tree))}
+    np.savez_compressed(path, __treedef__=_treedef_str(tree),
+                        __config__=np.asarray(list(config.items()), dtype=object), **arrays)
+
+
+def load_nerf_snapshot(path: str, field: torch.nn.Module) -> torch.nn.Module:
+    """Load a snapshot (of either package) into a port field of the same kind
+    and widths; returns the field."""
+    with np.load(path, allow_pickle=True) as data:
+        paths = [p for p, _ in _flatten(flax_from_field(field))]
+        tree: Dict[str, Any] = {}
+        for i, keys in enumerate(paths):
+            node = tree
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = data[f"param_{i}"]
+    dev = next(field.parameters()).device
+    state = field_state_from_flax(field_kind(field), tree)
+    missing, unexpected = field.load_state_dict({k: v.to(dev) for k, v in state.items()},
+                                                strict=False)
+    missing = [k for k, _ in field.named_parameters() if k in missing]
+    if missing or unexpected:
+        raise KeyError(f"{path}: missing {missing[:5]}, unexpected {unexpected[:5]}")
+    return field

@@ -9,6 +9,8 @@ in float32 as the JAX package computes them.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -90,3 +92,11 @@ def ngp_to_nerf(rot: np.ndarray, trans: np.ndarray) -> np.ndarray:
     mat[:, 2] *= -1
     mat[:, 1] *= -1
     return mat
+
+
+def grid_world_bounds() -> Tuple[np.ndarray, np.ndarray]:
+    """World-frame AABB covered by the Occ/Ori grid (accounting for y/z flips)."""
+    lo_v = VOXEL_MIN
+    hi_v = VOXEL_MIN + VOXEL_SIZE * GRID_RESOLUTION.astype(np.float32)
+    corners_w = np.array([lo_v, hi_v]) * np.array(_FLIP)
+    return corners_w.min(0), corners_w.max(0)

@@ -102,6 +102,32 @@ def _write_records(f, fmt: str, table: np.ndarray, rows: int) -> None:
         f.write((fmt * len(part)) % tuple(part.reshape(-1).tolist()))
 
 
+def _face_cross(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Each face's edge cross product (its normal times twice its area)."""
+    e1 = vertices[faces[:, 1]] - vertices[faces[:, 0]]
+    e2 = vertices[faces[:, 2]] - vertices[faces[:, 0]]
+    return np.cross(e1, e2)
+
+
+def _unit(n: np.ndarray) -> np.ndarray:
+    return n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+
+
+def face_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Unit face normals (F, 3), by the right-hand rule on the face's order."""
+    return _unit(_face_cross(vertices, faces))
+
+
+def vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Area-weighted unit vertex normals (V, 3) (bustfit.soft_raster has the
+    device version that the fit differentiates)."""
+    fn = _face_cross(vertices, faces)
+    vn = np.zeros_like(vertices)
+    for k in range(3):
+        np.add.at(vn, faces[:, k], fn)
+    return _unit(vn)
+
+
 def sample_mesh_surface(vertices: np.ndarray, faces: np.ndarray, num_points: int,
                         rng: Optional[np.random.Generator] = None
                         ) -> Tuple[np.ndarray, np.ndarray]:

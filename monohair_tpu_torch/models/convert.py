@@ -105,6 +105,18 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping, vit_prefix: str
     return sd
 
 
+def shallow_encoder_state_from_flax(params: Mapping, batch_stats: Mapping
+                                    ) -> Dict[str, np.ndarray]:
+    """A flax ShallowEncoder (params, batch_stats) tree -> the port's
+    ShallowEncoder state dict (the UNet encoder's names and layouts)."""
+    sd: Dict[str, np.ndarray] = OrderedDict()
+    _double_conv(sd, params["inc"], batch_stats["inc"], "inc.double_conv")
+    for k in (1, 2):
+        _double_conv(sd, params[f"down{k}"], batch_stats[f"down{k}"],
+                     f"down{k}.maxpool_conv.1.double_conv")
+    return sd
+
+
 def adam_state_from_flax(opt_state, batch_stats: Mapping, vit_prefix: str,
                          param_names) -> dict:
     """optax.adam's state of a flax OccAttn/OriAttn (numpy leaves) -> the

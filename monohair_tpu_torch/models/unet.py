@@ -103,3 +103,23 @@ class UNetSimple(nn.Module):
         u2 = self.up2(u1, d1)
         u3 = self.up3(u2, f0)
         return d3, u1, u2, u3
+
+
+class ShallowEncoder(nn.Module):
+    """Encoder-only ablation backbone (UnetSimple.py:104-143): three conv
+    stages at `ksize`, no decoder; the 112-dim pixel-aligned feature.
+    A flax tree loads through models.convert.shallow_encoder_state_from_flax."""
+
+    def __init__(self, in_feat: int = 4, ksize: int = 5, num_chan: Sequence[int] = (16, 32, 64)):
+        super().__init__()
+        c = num_chan
+        self.inc = DoubleConv(in_feat, c[0], ksize)
+        self.down1 = Down(c[0], c[1], ksize)
+        self.down2 = Down(c[1], c[2], ksize)
+        self.output_feat = sum(c)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x: (V, C, H, W) -> three NCHW feature maps (finest first)."""
+        f0 = self.inc(x)
+        d1 = self.down1(f0)
+        return f0, d1, self.down2(d1)

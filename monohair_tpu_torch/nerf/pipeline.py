@@ -5,11 +5,12 @@ poses.auto_key_frame).
 
 Split in two halves so that the export can run on given weights:
 ``train_ngp`` (key frame, dataset, field, train_nerf) and ``export_ngp``
-(the fixed-view renders, the density grid, marching tetrahedra, the NeRF ->
-MVS conversion). The JAX stage's TPU-only knobs (ngp.scan_block,
+(the fixed-view renders, with ngp.render_video the fly-through
+<root>/ngp_video.mp4, the density grid, marching tetrahedra, the NeRF -> MVS
+conversion). The JAX stage's TPU-only knobs (ngp.scan_block,
 ngp.sync_every, ngp.use_remat, and its platform_limits shape asserts) may
-stay in a config and have no effect here. ngp.render_video raises: the port
-has no video encoder (the JAX package writes the mp4 through OpenCV).
+stay in a config and have no effect here. The fly-through goes through the
+port's mp4v encoder (io/video.py) where the JAX package uses OpenCV's.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch.nn as nn
 from ..config import Config
 from ..io.image_io import write_png
 from ..io.mesh_io import save_obj
+from ..io.video import VideoWriter
 from .marching import marching_tetrahedra
 from .ngp import density_grid
 from .poses import (auto_key_frame, convert_mesh_nerf_to_mvs, load_base_cam,
@@ -66,6 +68,39 @@ def make_field(kind: str, device="cuda", generator: Optional[torch.Generator] = 
     return NGPField(**kw), 0.0, 1e-2
 
 
+def camera_path_poses(base_cam_path: str, H: int = 720, frames_per_seg: int = 12
+                      ) -> List[Tuple[np.ndarray, float]]:
+    """(c2w, focal) of every frame of the fly-through along an NGP camera path:
+    slerp between the path's quaternions, lerp of T and fov, `frames_per_seg`
+    frames from each pose up to (not including) the next."""
+    from scipy.spatial.transform import Rotation, Slerp
+    quats, trans, fovs = load_base_cam(base_cam_path)
+    poses = []
+    for i in range(len(quats) - 1):
+        slerp = Slerp([0, 1], Rotation.from_quat([quats[i], quats[i + 1]]))
+        for t in np.linspace(0.0, 1.0, frames_per_seg, endpoint=False):
+            tr = (1 - t) * np.asarray(trans[i]) + t * np.asarray(trans[i + 1])
+            fov = (1 - t) * fovs[i] + t * fovs[i + 1]
+            c2w = ngp_pose_to_nerf_c2w(slerp(t).as_quat(), tr)
+            poses.append((c2w, H / 2.0 / math.tan(math.radians(fov) / 2.0)))
+    return poses
+
+
+def render_camera_path_video(field: nn.Module, base_cam_path: str, out_path: str,
+                             H: int = 720, W: int = 1280, frames_per_seg: int = 12,
+                             fps: int = 24, background=None) -> int:
+    """Render the fly-through along the camera path on the field's device and
+    write it as an mp4v MP4 (instant-ngp's run.py video mode, run.py:307-341;
+    the JAX package's render_camera_path_video). Frames are quantised as the
+    reference does, by truncation. Returns the number of frames."""
+    with VideoWriter(out_path, fps, (W, H)) as writer:
+        for c2w, focal in camera_path_poses(base_cam_path, H, frames_per_seg):
+            rgb, _ = render_image(field, c2w, H, W, focal, focal, W / 2, H / 2,
+                                  background=background)
+            writer.write((np.clip(rgb, 0, 1)[..., ::-1] * 255).astype(np.uint8))
+        return writer.frames
+
+
 def ngp_options(args: Config) -> dict:
     return args.get("ngp") or {}
 
@@ -98,8 +133,9 @@ def train_ngp(args: Config, device="cuda"
 def export_ngp(args: Config, field: nn.Module, occ_grid: Optional[torch.Tensor] = None
                ) -> Dict[str, float]:
     """The 16 fixed-view renders (trainning_images/capture_images/NNN.png and
-    imgs/NNN/origin.png at infer_inner.render_size), the density grid,
-    marching tetrahedra -> colmap/base.obj (NeRF frame) and
+    imgs/NNN/origin.png at infer_inner.render_size), with ngp.render_video
+    the fly-through <root>/ngp_video.mp4 (720x1280, 24 fps), the density
+    grid, marching tetrahedra -> colmap/base.obj (NeRF frame) and
     ours/colmap_points.obj (MVS frame). Returns each part's wall seconds."""
     root = args.data.root
     colmap_dir = os.path.join(root, "colmap")
@@ -126,6 +162,12 @@ def export_ngp(args: Config, field: nn.Module, occ_grid: Optional[torch.Tensor] 
                         os.path.join(view_dir, "origin.png"))
     seconds["render"] = time.perf_counter() - t0
 
+    if ngp.get("render_video"):
+        t0 = time.perf_counter()
+        render_camera_path_video(field, os.path.join(colmap_dir, "base_cam.json"),
+                                 os.path.join(root, "ngp_video.mp4"), background=background)
+        seconds["video"] = time.perf_counter() - t0
+
     t0 = time.perf_counter()
     res = int(ngp.get("mesh_resolution", DEFAULT_MESH_RES))
     bound = DEFAULT_MESH_BOUND
@@ -149,11 +191,8 @@ def export_ngp(args: Config, field: nn.Module, occ_grid: Optional[torch.Tensor] 
 
 def run_ngp_stage(args: Config, device="cuda") -> Dict[str, float]:
     """Train, then export; prints and returns each part's wall seconds
-    (train, render, density, marching, save_meshes)."""
-    if ngp_options(args).get("render_video"):
-        raise ValueError("ngp.render_video: the port has no video encoder (the JAX "
-                         "package writes the mp4 through OpenCV's VideoWriter); switch "
-                         "it off with --ngp.render_video=")
+    (train, render, video with ngp.render_video, density, marching,
+    save_meshes)."""
     t0 = time.perf_counter()
     field, _, occ_grid = train_ngp(args, device)
     if torch.device(device).type == "cuda":

@@ -31,6 +31,7 @@ import torch.nn as nn
 
 from ..io.image_io import imread_rgb
 from ..optim import OptaxAdam
+from ..utils.metrics import psnr  # noqa: F401  (the JAX module's name for it)
 from .ngp import (as_background, camera_rays, init_occupancy_grid, render_rays,
                   render_rays_occ, update_occupancy_grid)
 

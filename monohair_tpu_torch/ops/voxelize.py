@@ -72,3 +72,19 @@ def principal_axis(M6: torch.Tensor, iters: int = 12) -> torch.Tensor:
         v = torch.einsum("...ij,...j->...i", M, v)
         v = v / torch.linalg.norm(v, dim=-1, keepdim=True).clamp_min(1e-12)
     return v
+
+
+def mean_direction(dirs: torch.Tensor) -> torch.Tensor:
+    """Sign-agnostic consensus direction of (N, K, 3) neighbour bundles ->
+    (N, 3) (the reference's compute_points_similarity, PMVO_utils.py:366-382):
+    each member is flipped into the hemisphere of the bundle's first member,
+    the mean is taken, and the member with the largest |cos| to the mean is
+    returned (the reference returns a member, the medoid)."""
+    sgn = torch.sign(torch.sum(dirs * dirs[:, :1], -1, keepdim=True))
+    sgn = torch.where(sgn == 0, torch.ones_like(sgn), sgn)
+    mean = torch.sum(dirs * sgn, 1)
+    mean = mean / torch.linalg.norm(mean, dim=-1, keepdim=True).clamp_min(1e-6)
+    cos = torch.abs(torch.sum(dirs * mean[:, None], -1)
+                    / torch.linalg.norm(dirs, dim=-1).clamp_min(1e-6))
+    best = torch.argmax(cos, 1)
+    return torch.take_along_dim(dirs, best[:, None, None], 1)[:, 0]

@@ -313,3 +313,9 @@ def default_backends(cfg: dict, device="cuda") -> Dict[str, Callable]:
         backends["face_parsing"] = face_parsing
 
     return backends
+
+
+def landmarks_to_training_targets(lmk_dir: str, views: List[str]) -> np.ndarray:
+    """Stack per-view landmark files -> (V, L, 2) pixel targets for fit_bust."""
+    return np.stack([np.load(os.path.join(lmk_dir, v + ".npy")) for v in views]
+                    ).astype(np.float32)

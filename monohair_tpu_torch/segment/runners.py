@@ -41,6 +41,36 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+def save_flax_tree(path: str, tree: dict) -> None:
+    """A nested dict of arrays -> an .npz of "a/b/c" keys, in the dict's
+    order: the JAX package's files, member for member."""
+    flat = {}
+
+    def walk(node: dict, prefix: str) -> None:
+        for k, v in node.items():
+            p = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, p)
+            else:
+                flat[p] = np.asarray(v)
+
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
+def load_flax_tree(path: str) -> dict:
+    """The nested dict of an .npz of "a/b/c" keys (save_flax_tree's inverse)."""
+    d = np.load(path)
+    tree: dict = {}
+    for k in d.files:
+        node = tree
+        parts = k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = d[k]
+    return tree
+
+
 def _modnet_size(h: int, w: int, ref: int = 512) -> Tuple[int, int]:
     """obtain_modnet_mask's resize rule (calc_masks.py:45-57): scale the short
     side to ref when outside [ref..], then floor both to multiples of 32."""

@@ -13,8 +13,10 @@ codec, its library built into build/); `python -m monohair_tpu_torch.train_mvs`
 trains a few steps on a small written case and resumes,
 `python -m monohair_tpu_torch.run_pipeline` runs the four stages on a small
 synthwig case, PMVO runs with bf16 maps on a mesh of two CPU shards beside
-the debug exports, and `python -m monohair_tpu_torch.segment.convert` writes
-a public-named FAN checkpoint as a flax tree."""
+the debug exports, `python -m monohair_tpu_torch.segment.convert` writes
+a public-named FAN checkpoint as a flax tree, and the mp4v codec writes and
+reads a video, from which extract_sharpest_frames keeps its frames, and
+writes a small NeRF fly-through."""
 
 import os
 import subprocess
@@ -261,6 +263,39 @@ GUARDED = textwrap.dedent('''
         back = load_flax_npz(FAN(num_modules=1, depth=1, width=0.125), os.path.join(tmp, "fan.npz"))
         for k, v in net.state_dict().items():
             assert torch.equal(back.state_dict()[k], v), k
+
+    # video in and out: the port's mp4v writer and reader, the sharpest-frame
+    # extraction and a small fly-through (the codec's library built into build/)
+    with tempfile.TemporaryDirectory() as tmp:
+        from monohair_tpu_torch.coords import nerf_to_ngp
+        from monohair_tpu_torch.io.video import VideoWriter, read_video, video_info
+        from monohair_tpu_torch.nerf.fourier import FourierField
+        from monohair_tpu_torch.nerf.pipeline import render_camera_path_video
+        from monohair_tpu_torch.nerf.poses import _se3, save_base_cam
+        from monohair_tpu_torch.video import extract_sharpest_frames
+        rng = np.random.default_rng(0)
+        path = os.path.join(tmp, "v.mp4")
+        with VideoWriter(path, 10, (32, 24)) as writer:
+            for i in range(6):
+                writer.write(rng.integers(0, 256, (24, 32, 3), dtype=np.uint8) if i in (1, 4)
+                             else np.full((24, 32, 3), 128, np.uint8))
+        assert video_info(path) == (6, 10.0, 32, 24)
+        assert len(list(read_video(path))) == 6
+        kept = extract_sharpest_frames(path, os.path.join(tmp, "frames"), interval=3,
+                                       device="cpu")
+        assert kept == ["frame_00000.png", "frame_00001.png"], kept
+        c2w = [np.eye(4), np.eye(4)]
+        c2w[1][:3, 3] = [0.1, 0.0, 0.0]
+        save_base_cam(os.path.join(tmp, "base_cam.json"),
+                      [_se3(m[:, :3], m[:, 3]) for m in map(nerf_to_ngp, c2w)], [40.0, 40.0])
+        field = FourierField(num_features=8, hidden=8, depth=2, geo_feat=3,
+                             generator=torch.Generator().manual_seed(0), device="cpu")
+        out = os.path.join(tmp, "fly.mp4")
+        assert render_camera_path_video(field, os.path.join(tmp, "base_cam.json"), out,
+                                        H=8, W=16, frames_per_seg=2) == 2
+        assert video_info(out) == (2, 24.0, 16, 8)
+    assert _build.BUILD_INFO["mp4v.cpp"]["path"].startswith(
+        os.path.join(os.getcwd(), "build", "monohair_tpu_torch") + os.sep)
 
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded

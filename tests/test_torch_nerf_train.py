@@ -5,7 +5,7 @@ against jax.value_and_grad of the JAX loop's loss; four whole train_nerf
 steps from the same initial weights on the jax.random draws of the JAX loop;
 load_nerf_dataset; a small overfit whose loss falls; the occupancy path; the
 TPU-only config keys, accepted and without effect; and ngp.render_video,
-which raises before any work (the port has no video encoder)."""
+which now writes <root>/ngp_video.mp4 through the port's mp4v encoder."""
 
 import os
 
@@ -237,10 +237,28 @@ def test_tpu_only_knobs_are_accepted_without_effect(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(plain[1], knobs[1]))
 
 
-def test_render_video_raises_a_named_error_before_training(tmp_path):
+def test_render_video_raises_a_named_error_before_training(tmp_path, monkeypatch):
+    """ngp.render_video used to raise (the port had no video encoder); the
+    stage now writes the fly-through <root>/ngp_video.mp4 after the fixed
+    views, at the size and frame count asked for, and reports its seconds."""
+    import functools
+
+    import cv2
+
     from monohair_tpu_torch.config import Config
+    from monohair_tpu_torch.io.video import video_info
     from monohair_tpu_torch.nerf import pipeline
-    cfg = Config({"data": {"root": str(tmp_path / "missing")}, "ngp": {"render_video": True}})
-    with pytest.raises(ValueError, match="no video encoder"):
-        pipeline.run_ngp_stage(cfg, device="cpu")
-    assert not (tmp_path / "missing").exists()
+    from tests.test_ngp_stage import _build_case
+    from tests.test_torch_ngp_stage import small_make_field, stage_config
+    root = str(tmp_path / "case")
+    cfg = stage_config(root, _build_case(root))
+    cfg["ngp"].update(train_steps=3, mesh_resolution=12, render_video=True)
+    monkeypatch.setattr(pipeline, "make_field", small_make_field(pipeline.make_field))
+    monkeypatch.setattr(pipeline, "render_camera_path_video", functools.partial(
+        pipeline.render_camera_path_video, H=24, W=32, frames_per_seg=4))
+    seconds = pipeline.run_ngp_stage(Config(cfg), device="cpu")
+    assert "video" in seconds
+    path = str(tmp_path / "case" / "ngp_video.mp4")
+    assert video_info(path) == (4, 24.0, 32, 24)   # base_cam.json: 2 poses, 1 segment
+    cap = cv2.VideoCapture(path)
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 4 and cap.get(cv2.CAP_PROP_FPS) == 24.0

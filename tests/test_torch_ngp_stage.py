@@ -31,6 +31,7 @@ from monohair_tpu_torch.config import Config
 from monohair_tpu_torch.io.image_io import read_png
 from monohair_tpu_torch.io.mesh_io import load_obj
 from monohair_tpu_torch.nerf import pipeline
+from monohair_tpu_torch.nerf.convert import flax_from_field
 from monohair_tpu_torch.nerf.fourier import FourierField
 from tests.test_ngp_stage import HEAD_R, HH, WW, _build_case
 
@@ -114,17 +115,6 @@ def test_port_stage_writes_an_on_surface_mesh(trained):
     assert recall >= 0.8, f"coarse mesh misses the surface: recall={recall:.3f}"
 
 
-def flax_variables_of(field):
-    """The port's FourierField state as the JAX package's flax variables."""
-    params = {}
-    for name, p in field.state_dict().items():
-        module, leaf = name.rsplit(".", 1)
-        module = module.replace("trunk.", "trunk_")
-        params.setdefault(module, {})["kernel" if leaf == "weight" else "bias"] = (
-            p.numpy().T if leaf == "weight" else p.numpy())
-    return {"params": params}
-
-
 def test_export_half_matches_the_jax_stage(trained, tmp_path, monkeypatch):
     from monohair_tpu.config import Config as JaxConfig
     from monohair_tpu.nerf import pipeline as jpipe
@@ -135,7 +125,7 @@ def test_export_half_matches_the_jax_stage(trained, tmp_path, monkeypatch):
         shutil.copytree(root, d, ignore=shutil.ignore_patterns(
             "trainning_images", "imgs", "ours", "base.obj"))
     jfield = JaxFourier(num_features=32, hidden=32, depth=3, geo_feat=7)
-    variables = jax.tree_util.tree_map(np.asarray, flax_variables_of(field))
+    variables = jax.tree_util.tree_map(np.asarray, flax_from_field(field))
     monkeypatch.setattr(jpipe, "train_nerf",
                         lambda ds, **kw: (jfield, variables, [0.0], None))
     # a coarser export than the fixture's: the mini field's unseen corners are
