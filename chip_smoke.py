@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's stages 1 (prepare_data, with and without the
 coarse NeRF and the bust fit), 2 (PMVO), 3 (infer_inner) and 4 (HairGrow), the
-MVS nets' training (train_mvs), the one-process pipeline (run_pipeline) and
+MVS nets' training (train_mvs), the one-process pipeline (run_pipeline),
 video in and out (the mp4v codec, the sharpest-frame extraction, the NeRF
-fly-through) on one GPU and check them.
+fly-through) and the segmentation nets' training (train_hair_parser) on one
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -131,6 +132,21 @@ Phases, each printing a line when it starts and when it ends:
               on a seeded full-width Fourier field over a 3-pose path at 4
               frames a segment: the mp4 decodes to 8 frames of that size at
               >= 30 dB against the renders; seconds a frame
+ 15. hair parser training
+              15a BiSeNet (the hair parser) and MODNet (the matte) at width
+              1.0, flax's initialisers from a seed: one training step of 2
+              synthetic frames of 256x256 on the card against the CPU in
+              float64 (in float64: loss within 1e-8 relative, gradients within
+              1e-6 of their norm; in f32: loss within 1e-4, the gradients'
+              error printed beside the CPU f32's),
+              then at 512x512 and batch 4 the steady ms a step (CUDA events
+              over 20), the busy share and top operations (torch.profiler on
+              one step), peak memory; 15b the train_hair_parser CLI at width
+              1.0 on 64+8 frames of 512x512, each net's steps cut to 30 s
+              (PARSER_BUDGET_S) at 15a's step time: the four files written,
+              each net's mean loss over its last 25 steps below its first
+              25's; printed: hair IoU and matte MAE through the runners (no
+              gate at this cut), seconds of the frames and of each loop
 Phase 3 also holds the tap loop at the shapes PR 7's kernel refused (S = 1 at
 P = 225, the refine pass at patch 15; 1100 views), and times the gather's
 library call (one advanced-index gather with its indices built beforehand).
@@ -162,6 +178,7 @@ from monohair_tpu_torch import HairGrow as grow_cli, PMVO as pmvo_cli
 from monohair_tpu_torch import infer_inner as infer_cli
 from monohair_tpu_torch import prepare_data as prepare_cli
 from monohair_tpu_torch import run_pipeline as pipeline_cli
+from monohair_tpu_torch import train_hair_parser as parser_cli
 from monohair_tpu_torch import train_mvs as train_cli
 from monohair_tpu_torch.bustfit import optimize as bust_optimize
 from monohair_tpu_torch.bustfit import pipeline as bust_pipeline
@@ -207,11 +224,16 @@ from monohair_tpu_torch.render import (render_data, render_view, strands_to_segm
                                        upload_segments)
 from monohair_tpu_torch.ops.resize import bgr_to_gray, laplacian_variance, resize_linear
 from monohair_tpu_torch.utils.metrics import OccMetric, psnr
+from monohair_tpu_torch.segment import frames as seg_frames
+from monohair_tpu_torch.segment import train as seg_train
 from monohair_tpu_torch.segment.annotations import AnnotationProcessor, default_backends
+from monohair_tpu_torch.segment.bisenet import BiSeNet
 from monohair_tpu_torch.segment.convert import save_flax_npz
 from monohair_tpu_torch.segment.fan import FAN, decode_heatmaps
-from monohair_tpu_torch.segment.runners import (LandmarkRunner, MattingRunner, ParsingRunner,
-                                                face_box_from_mask)
+from monohair_tpu_torch.segment.modnet import MODNet
+from monohair_tpu_torch.segment.runners import (IMAGENET_MEAN, IMAGENET_STD, LandmarkRunner,
+                                                MattingRunner, ParsingRunner, face_box_from_mask)
+from monohair_tpu_torch.segment.train import matte_loss, parser_loss
 from monohair_tpu_torch.pmvo import solver
 from monohair_tpu_torch.video import extract_sharpest_frames
 from monohair_tpu_torch.pmvo.driver import (auto_chunk, exact_f32, filter_raw_points,
@@ -2817,6 +2839,164 @@ def phase_video(dev: torch.device) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the segmentation nets' training
+# ---------------------------------------------------------------------------
+
+PARSER_SIZE = 512                # the tool's frames (S)
+PARSER_BATCH = 4                 # the tool's --batch
+PARSER_CHECK = (2, 256)          # 15a's card-vs-CPU step: batch and frame size
+PARSER_TIMED_STEPS = 20          # steady steps timed with CUDA events
+PARSER_BUDGET_S = 60.0           # 15b: the CLI's training time, both nets
+PARSER_FRAMES = (64, 8)          # 15b: training and eval frames (the tool's: 640 + 48)
+PARSER_GATE_WINDOW = 25          # 15b: the first and last steps whose mean losses are compared
+PARSER_NETS = {"parser": (lambda: BiSeNet(19, width=1.0), parser_loss, True, 0),
+               "matte": (lambda: MODNet(width=1.0), matte_loss, False, 1)}
+
+
+def parser_inputs(kind: str, frames: np.ndarray, labels: np.ndarray, device, dtype):
+    """A batch as the CLI builds it, made on the host in f32 and then moved
+    (CUDA divides by a scalar through its reciprocal, an ulp off the CPU's
+    division): ImageNet-normalised frames and labels (parser), or [-1, 1]
+    frames, the matte and its band (matte)."""
+    x = torch.from_numpy(frames).float() / 255.0
+    lab = torch.from_numpy(labels)
+    if kind == "parser":
+        x = (x - torch.tensor(IMAGENET_MEAN)) / torch.tensor(IMAGENET_STD)
+        batch = (x.permute(0, 3, 1, 2), lab)
+    else:
+        y = seg_frames.matte_from_label(lab)
+        batch = (((x - 0.5) / 0.5).permute(0, 3, 1, 2), y, seg_frames.boundary_band(y))
+    return tuple(t.to(device, dtype).contiguous() if t.is_floating_point() else t.to(device)
+                 for t in batch)
+
+
+def parser_card_against_cpu(kind: str, dev: torch.device) -> dict:
+    """15a for one net at full width: one step's loss and gradients on the
+    card against the CPU in float64 from the same flax-initialised weights,
+    at PARSER_CHECK's batch and size; then at 512x512 and batch 4 the steady
+    ms a step (CUDA events), one step's profile and the peak memory.
+    Train-mode BatchNorm over BiSeNet's pooled (N, C, 1, 1) features (the
+    attention and the global branch: 2 values a channel at batch 2) makes its
+    f32 gradients ill-conditioned: the CPU's own f32 gradient is ~4e-3 of its
+    norm from float64 at 256x256, an H100's 6e-3 to 1e-2. So
+    the card is held in float64 (loss within 1e-8 relative, gradients within
+    1e-6 of their norm), and in f32 on the loss (1e-4 relative); the f32
+    gradients' errors are printed beside the CPU f32's."""
+    make, loss_fn, batch_stats, seed = PARSER_NETS[kind]
+    n, size = PARSER_CHECK
+    frames, labels = seg_frames.render_frames(np.random.default_rng(11), n, size)
+    out = {}
+    for where, device, dtype in (("cuda", dev, torch.float32),
+                                 ("cuda64", dev, torch.float64),
+                                 ("cpu", torch.device("cpu"), torch.float64),
+                                 ("cpu32", torch.device("cpu"), torch.float32)):
+        state = seg_train.create_state(make().to(device, dtype),
+                                       torch.Generator().manual_seed(seed), 1e-3, 100)
+        batch = parser_inputs(kind, frames, labels, device, dtype)
+        t = time.perf_counter()
+        loss, grads = seg_train.loss_and_grads(state, loss_fn, *batch, batch_stats=batch_stats)
+        sync(device)
+        out[where] = dict(loss=float(loss), seconds=time.perf_counter() - t,
+                          grads=torch.cat([g.double().flatten().cpu() for g in grads]))
+        del state, batch, grads
+    host = out["cpu"]
+
+    def errors(o):
+        return (abs(o["loss"] - host["loss"]) / abs(host["loss"]),
+                float(torch.linalg.norm(o["grads"] - host["grads"])
+                      / torch.linalg.norm(host["grads"])))
+
+    err = {k: errors(out[k]) for k in ("cuda", "cuda64", "cpu32")}
+    log(f"15a {kind}: one step of {n} frames of {size}x{size} at full width from the same "
+        f"weights against the CPU in float64 (loss {host['loss']:.9f}, "
+        f"{host['grads'].numel()} gradient elements, {host['seconds']:.2f} s): the card in "
+        f"float64 loss rel err {err['cuda64'][0]:.3g}, gradients within {err['cuda64'][1]:.3g} "
+        f"of their norm; the card in f32 {err['cuda'][0]:.3g} and {err['cuda'][1]:.3g}; the "
+        f"CPU in f32 {err['cpu32'][0]:.3g} and {err['cpu32'][1]:.3g}")
+    if not (err["cuda64"][0] <= 1e-8 and err["cuda64"][1] <= 1e-6 and err["cuda"][0] <= 1e-4):
+        raise AssertionError(f"15a {kind}: the card's training step disagrees with the CPU's")
+    loss_err, grad_err = err["cuda"]
+    grad32 = err["cpu32"][1]
+
+    frames, labels = seg_frames.render_frames(np.random.default_rng(12), PARSER_BATCH,
+                                              PARSER_SIZE)
+    batch = parser_inputs(kind, frames, labels, dev, torch.float32)
+    state = seg_train.create_state(make().to(dev), torch.Generator().manual_seed(seed), 1e-3, 100)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def step():
+        seg_train.train_step(state, loss_fn, *batch, batch_stats=batch_stats)
+
+    ms = cuda_time_ms(step, iters=PARSER_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy = device_profile(step, f"one {kind} training step", top=10)
+    log(f"15a {kind}: {ms:.3f} ms a steady step of {PARSER_BATCH} frames of "
+        f"{PARSER_SIZE}x{PARSER_SIZE} (CUDA events over {PARSER_TIMED_STEPS}), busy share "
+        f"{busy:.4f}, peak device memory {peak / 2**30:.3f} GiB")
+    return dict(loss_err=loss_err, grad_err=grad_err, cpu32_grad_err=grad32, ms=ms, busy=busy,
+                peak_bytes=peak)
+
+
+def phase_hair_parser(dev: torch.device) -> dict:
+    """Phase 15: the segmentation nets' training. 15a per net
+    (parser_card_against_cpu); 15b python -m monohair_tpu_torch.train_hair_parser's
+    main at width 1.0 on PARSER_FRAMES frames of 512x512, each net's steps cut
+    to half of PARSER_BUDGET_S at 15a's step time (at most the tool's 4000 and
+    3000), its .npz read back through the runners (hair IoU and matte MAE
+    printed, not gated at this cut); the gate: each net's mean loss over its
+    last PARSER_GATE_WINDOW steps below its first."""
+    exact_f32()
+    torch.cuda.empty_cache()
+    result = {}
+    for kind in PARSER_NETS:
+        with Phase(f"15a {kind}"):
+            result[kind] = parser_card_against_cpu(kind, dev)
+    torch.cuda.empty_cache()
+    with Phase("15b train_hair_parser CLI"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_parser_") as tmp:
+        steps = {k: min(default, int(PARSER_BUDGET_S / 2 * 1e3 / result[k]["ms"]))
+                 for k, default in (("parser", 4000), ("matte", 3000))}
+        argv = ["--steps", str(steps["parser"]), "--modnet_steps", str(steps["matte"]),
+                "--n_train", str(PARSER_FRAMES[0]), "--n_eval", str(PARSER_FRAMES[1]),
+                "--out", tmp, "--device", dev.type]
+        pk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = parser_cli.main(argv)
+        result["launches"] = dict(pk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        gates = {}
+        for kind in PARSER_NETS:
+            losses = run[kind]["losses"]
+            w = PARSER_GATE_WINDOW
+            gates[kind] = (float(losses[:w].mean()), float(losses[-w:].mean()))
+        written = sorted(os.listdir(tmp))
+        log(f"15b: train_hair_parser at width 1.0 on {PARSER_FRAMES[0]}+{PARSER_FRAMES[1]} "
+            f"frames of {PARSER_SIZE}x{PARSER_SIZE}: {run['seconds']:.2f} s (frames "
+            f"{run['render_seconds']:.2f} s, eval {run['eval_seconds']:.2f} s); parser "
+            f"{steps['parser']} steps at {run['parser']['ms_per_step']:.3f} ms, matte "
+            f"{steps['matte']} steps at {run['matte']['ms_per_step']:.3f} ms; mean loss of the "
+            f"first / last {PARSER_GATE_WINDOW} steps: parser {gates['parser'][0]:.4f} / "
+            f"{gates['parser'][1]:.4f}, matte {gates['matte'][0]:.4f} / {gates['matte'][1]:.4f}; "
+            f"through the runners: hair IoU {run['iou']:.4f}, matte MAE {run['mae']:.4f} (no "
+            f"gate at this cut); peak device memory {peak / 2**30:.3f} GiB; wrote {written}")
+        if written != ["bisenet.npz", "meta.json", "modnet.npz", "stats.txt"]:
+            raise AssertionError(f"15b: the CLI wrote {written}")
+        for kind, (first, last) in gates.items():
+            if len(run[kind]["losses"]) < 2 * PARSER_GATE_WINDOW:
+                raise AssertionError(f"15b: {steps[kind]} {kind} steps: too few for the gate")
+            if not (np.isfinite(run[kind]["losses"]).all() and last < first):
+                raise AssertionError(f"15b: the {kind}'s loss did not fall: {first} -> {last}")
+        result["cli"] = dict(steps=steps, seconds=run["seconds"],
+                             render_seconds=run["render_seconds"],
+                             parser_ms=run["parser"]["ms_per_step"],
+                             matte_ms=run["matte"]["ms_per_step"], iou=run["iou"],
+                             mae=run["mae"], loss_windows=gates, peak_bytes=peak)
+    return result
+
+
 KERNEL_META = {
     "patch_gather": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
                          replaces="monohair_tpu/ops/pallas_kernels.py:188"),
@@ -2867,12 +3047,14 @@ def main(argv=None) -> int:
         phase_jpeg_capture(dev)
     with Phase("14 video"):
         video = phase_video(dev)
+    with Phase("15 hair parser training"):
+        hair_parser = phase_hair_parser(dev)
     print(smi_line(), flush=True)
     by_path = {"pmvo": width["launches"], "infer_inner_fuse": stage3["stage"]["launches"],
                "prepare_data": stage1["launches"], "prepare_data_ngp": ngp["launches"],
                "prepare_data_bust": bust["launches"], "train_mvs": train["launches"],
                "run_pipeline": pipeline["launches"], "pmvo_bf16": bf16["launches"],
-               "video": video["launches"]}
+               "video": video["launches"], "train_hair_parser": hair_parser["launches"]}
     kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:
         with Phase("profile"):

@@ -3,8 +3,8 @@
 
 Channels (16, 32, 64, 128), 5x5 convolutions on the encoder (pifu_attn.py:162)
 and 3x3 on the decoder; BatchNorm eps 1e-5, with flax's statistics in train
-mode (`FlaxBatchNorm2d`). Layout is NCHW, and the module names are the
-reference's, so its state dict loads as it is.
+mode (`ops/norm.py::FlaxBatchNorm2d`, momentum 0.9). Layout is NCHW, and the
+module names are the reference's, so its state dict loads as it is.
 Returns the four maps [d3 (/8, 128ch), u1 (/4, 64ch), u2 (/2, 32ch),
 u3 (/1, 16ch)] whose grid-sampled concat is the 240-dim pixel-aligned feature.
 """
@@ -16,28 +16,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-
-class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d whose train mode computes what flax's nn.BatchNorm
-    (momentum 0.9, use_fast_variance) computes:
-    - the batch variance is E[x^2] - E[x]^2 over (N, H, W), clipped at 0, so
-      biased; the output is (x - mean) * (rsqrt(var + eps) * weight) + bias;
-    - the running statistics become 0.9 * running + 0.1 * batch, the variance
-      biased too (nn.BatchNorm2d keeps the unbiased one, n/(n-1) larger).
-    Eval mode is nn.BatchNorm2d's, on the running statistics."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        dims = (0, 2, 3)
-        mean = x.mean(dims)
-        var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
-            self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+from ..ops.norm import FlaxBatchNorm2d
 
 
 class DoubleConv(nn.Module):

@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.norm import FlaxBatchNorm2d
 from .nn_blocks import ConvBNReLU
 
 
@@ -30,7 +31,7 @@ class ConvBNReLU6(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, ksize, stride, ksize // 2, groups=groups,
                               bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn = FlaxBatchNorm2d(out_ch, eps=1e-5, momentum=0.9)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu6(self.bn(self.conv(x)))
@@ -43,7 +44,7 @@ class InvertedResidual(nn.Module):
         self.pw = ConvBNReLU6(in_ch, hidden, 1) if expand != 1 else None
         self.dw = ConvBNReLU6(hidden, hidden, 3, stride, groups=hidden)
         self.pwl = nn.Conv2d(hidden, out_ch, 1, bias=False)
-        self.pwl_bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.pwl_bn = FlaxBatchNorm2d(out_ch, eps=1e-5, momentum=0.9)
         self.residual = stride == 1 and in_ch == out_ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

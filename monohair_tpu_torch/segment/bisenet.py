@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.norm import FlaxBatchNorm2d
 from .backbones import ResNet18
 from .nn_blocks import ConvBNReLU, resize_bilinear
 
@@ -22,7 +23,7 @@ class AttentionRefinement(nn.Module):
         super().__init__()
         self.conv = ConvBNReLU(in_ch, out_ch, 3)
         self.conv_atten = nn.Conv2d(out_ch, out_ch, 1, bias=False)
-        self.bn_atten = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn_atten = FlaxBatchNorm2d(out_ch, eps=1e-5, momentum=0.99)   # flax's default
 
     def forward(self, x):
         feat = self.conv(x)

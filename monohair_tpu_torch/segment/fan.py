@@ -5,7 +5,8 @@ Bulat & Tzimiropoulos' FAN (2DFAN-4 at its published size: 4 hourglass
 modules of depth 4, 256 features, 256x256 crops): stacked hourglasses over
 3-branch residual ConvBlocks, 68 heatmaps at 1/4 of the input. Every
 submodule carries its flax name, so the JAX package's flax trees load through
-``segment/convert.py``; BatchNorm runs on its running statistics.
+``segment/convert.py``; BatchNorm runs on its running statistics in eval
+mode and on flax's batch statistics in train mode.
 
 ``FAN(x)`` with x (N, 3, 256, 256) in [0, 1] -> list of (N, 68, 64, 64)
 heatmaps, one a module (use the last). ``decode_heatmaps`` is face_alignment's
@@ -21,20 +22,27 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.norm import FlaxBatchNorm2d
+
+
+def _bn(channels: int) -> FlaxBatchNorm2d:
+    """FAN's norms take flax's default momentum, 0.99."""
+    return FlaxBatchNorm2d(channels, eps=1e-5, momentum=0.99)
+
 
 class ConvBlock(nn.Module):
     """FAN's 3-branch residual block: out = cat(c1, c2, c3) + shortcut."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.bn1 = nn.BatchNorm2d(in_ch, eps=1e-5)
+        self.bn1 = _bn(in_ch)
         self.conv1 = nn.Conv2d(in_ch, out_ch // 2, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_ch // 2, eps=1e-5)
+        self.bn2 = _bn(out_ch // 2)
         self.conv2 = nn.Conv2d(out_ch // 2, out_ch // 4, 3, 1, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out_ch // 4, eps=1e-5)
+        self.bn3 = _bn(out_ch // 4)
         self.conv3 = nn.Conv2d(out_ch // 4, out_ch // 4, 3, 1, 1, bias=False)
         if in_ch != out_ch:
-            self.down_bn = nn.BatchNorm2d(in_ch, eps=1e-5)
+            self.down_bn = _bn(in_ch)
             self.down_conv = nn.Conv2d(in_ch, out_ch, 1, bias=False)
         else:
             self.down_bn = self.down_conv = None
@@ -83,7 +91,7 @@ class FAN(nn.Module):
         c128 = max(int(128 * width), 8)
         self.num_modules = num_modules
         self.conv1 = nn.Conv2d(3, c64, 7, 2, 3)
-        self.bn1 = nn.BatchNorm2d(c64, eps=1e-5)
+        self.bn1 = _bn(c64)
         self.conv2 = ConvBlock(c64, c128)
         self.conv3 = ConvBlock(c128, c128)
         self.conv4 = ConvBlock(c128, f)
@@ -91,7 +99,7 @@ class FAN(nn.Module):
             self.add_module(f"m{m}", HourGlass(depth, f))
             self.add_module(f"top_m_{m}", ConvBlock(f, f))
             self.add_module(f"conv_last{m}", nn.Conv2d(f, f, 1))
-            self.add_module(f"bn_end{m}", nn.BatchNorm2d(f, eps=1e-5))
+            self.add_module(f"bn_end{m}", _bn(f))
             self.add_module(f"l{m}", nn.Conv2d(f, num_landmarks, 1))
             if m < num_modules - 1:
                 self.add_module(f"bl{m}", nn.Conv2d(f, f, 1))

@@ -4,7 +4,9 @@ monohair_tpu/segment/nn_blocks.py), as torch modules in NCHW.
 Every submodule carries the name of its flax counterpart, so a flax tree
 (``segment/convert.py``) and a torch state dict of the same names
 (``tests/golden/torch_nets.py``) both load as they are. Eval-mode semantics:
-- BatchNorm: running stats, eps 1e-5.
+- BatchNorm: running stats, eps 1e-5; train mode is flax's
+  (``ops/norm.py::FlaxBatchNorm2d``: the biased batch variance, flax's
+  momentum, here 0.9).
 - IBNorm's instance half is flax's GroupNorm(num_groups=C): per-sample spatial
   statistics with the variance taken as E[x^2] - E[x]^2 (clamped at 0), as
   flax takes it, and eps 1e-5.
@@ -18,6 +20,8 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.norm import FlaxBatchNorm2d
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -52,7 +56,7 @@ class IBNorm(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.bnorm = nn.BatchNorm2d(channels // 2, eps=1e-5)
+        self.bnorm = FlaxBatchNorm2d(channels // 2, eps=1e-5, momentum=0.9)
         self.inorm = InstanceNorm(channels - channels // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +103,7 @@ class ConvBNReLU(nn.Module):
                  with_relu: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, ksize, stride, ksize // 2, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn = FlaxBatchNorm2d(out_ch, eps=1e-5, momentum=0.9)
         self.with_relu = with_relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

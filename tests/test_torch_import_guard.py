@@ -1,7 +1,7 @@
 """The port and chip_smoke.py import nothing the GPU machine lacks.
 
-In a fresh interpreter whose import system refuses jax, jaxlib, cv2, yaml, PIL,
-monohair_tpu and tests, every module of monohair_tpu_torch and chip_smoke.py
+In a fresh interpreter whose import system refuses jax, jaxlib, flax, optax,
+cv2, yaml, PIL, monohair_tpu, tools and tests, every module of monohair_tpu_torch and chip_smoke.py
 import, chip_smoke's stage phase runs on the CPU at a small size, and
 `python -m monohair_tpu_torch.HairGrow --yaml=<case> --device=cpu` writes the
 stage's files on a small written case, as do PMVO and then
@@ -16,7 +16,9 @@ synthwig case, PMVO runs with bf16 maps on a mesh of two CPU shards beside
 the debug exports, `python -m monohair_tpu_torch.segment.convert` writes
 a public-named FAN checkpoint as a flax tree, and the mp4v codec writes and
 reads a video, from which extract_sharpest_frames keeps its frames, and
-writes a small NeRF fly-through."""
+writes a small NeRF fly-through, and `python -m
+monohair_tpu_torch.train_hair_parser` draws its frames, trains both nets a
+few steps at a tiny size and writes its four files."""
 
 import os
 import subprocess
@@ -28,7 +30,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GUARDED = textwrap.dedent('''
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "cv2", "yaml", "PIL", "monohair_tpu", "tests")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "cv2", "yaml", "PIL", "monohair_tpu", "tools",
+               "tests")
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -296,6 +299,19 @@ GUARDED = textwrap.dedent('''
         assert video_info(out) == (2, 24.0, 16, 8)
     assert _build.BUILD_INFO["mp4v.cpp"]["path"].startswith(
         os.path.join(os.getcwd(), "build", "monohair_tpu_torch") + os.sep)
+
+    # the train_hair_parser CLI, as `python -m` runs it: 2 + 1 frames of 32x32,
+    # both nets at width 0.125 for 2 steps, evaluated through the runners
+    from monohair_tpu_torch.segment import frames as seg_frames
+    seg_frames.FRAME_SIZE = 32
+    with tempfile.TemporaryDirectory() as tmp:
+        sys.argv = ["train_hair_parser", "--device=cpu", "--width=0.125", "--steps=2",
+                    "--modnet_steps=2", "--n_train=2", "--n_eval=1", "--out=" + tmp]
+        runpy.run_module("monohair_tpu_torch.train_hair_parser", run_name="__main__")
+        assert sorted(os.listdir(tmp)) == ["bisenet.npz", "meta.json", "modnet.npz",
+                                           "stats.txt"], os.listdir(tmp)
+        with open(os.path.join(tmp, "stats.txt")) as f:
+            assert f.read().splitlines()[2] == "steps 2 width 0.125 train 2 eval 1"
 
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
