@@ -2,8 +2,8 @@
 """Run the PyTorch/CUDA port's stages 1 (prepare_data, with and without the
 coarse NeRF and the bust fit), 2 (PMVO), 3 (infer_inner) and 4 (HairGrow), the
 MVS nets' training (train_mvs), the one-process pipeline (run_pipeline),
-video in and out (the mp4v codec, the sharpest-frame extraction, the NeRF
-fly-through) and the segmentation nets' training (train_hair_parser) on one
+video in and out (the mp4v and H.264 codecs, the sharpest-frame extraction,
+the NeRF fly-through) and the segmentation nets' training (train_hair_parser) on one
 GPU and check them.
 
     python3 chip_smoke.py
@@ -11,7 +11,8 @@ GPU and check them.
 Phases, each printing a line when it starts and when it ends:
   1. device   the card's name, count and power limit (exits non-zero without CUDA)
   2. build    nvcc of monohair_tpu_torch/csrc/patch_kernels.cu and g++ of the
-              host C++ (jpeg.cpp, mp4v.cpp, connect.cpp, marching.cpp), all
+              host C++ (jpeg.cpp, mp4v.cpp, h264.cpp, h264_writer.cpp,
+              connect.cpp, marching.cpp), all
               started together; their seconds and the -Xptxas -v lines
   3. kernels  each CUDA kernel against its plain PyTorch version on the card at
               the full-width shapes of the stage (the gather on f32 and on
@@ -131,7 +132,15 @@ Phases, each printing a line when it starts and when it ends:
               seconds and frames/s; 14c render_camera_path_video at 720x1280
               on a seeded full-width Fourier field over a 3-pose path at 4
               frames a segment: the mp4 decodes to 8 frames of that size at
-              >= 30 dB against the renders; seconds a frame
+              >= 30 dB against the renders; seconds a frame; 14d H.264: 14b's
+              60 frames, and 60 orbit frames at 1280x720 likewise blurred,
+              written as H.264 by the port's test-stream writer (CABAC, an I
+              picture then a P picture, QP 24; 1080 rows coded as 1088 and
+              cropped), decoded on the host: ms a frame to decode, the round
+              trip's PSNR (>= 30 dB); extract_sharpest_frames on the card keeps
+              the sharp frames; the 1080p file with a 90-degree display
+              matrix (a portrait phone video) keeps them as 1080x1920
+              portrait frames, cv2's rotation; frames/s of each
  15. hair parser training
               15a BiSeNet (the hair parser) and MODNet (the matte) at width
               1.0, flax's initialisers from a seed: one training step of 2
@@ -142,8 +151,8 @@ Phases, each printing a line when it starts and when it ends:
               then at 512x512 and batch 4 the steady ms a step (CUDA events
               over 20), the busy share and top operations (torch.profiler on
               one step), peak memory; 15b the train_hair_parser CLI at width
-              1.0 on 64+8 frames of 512x512, each net's steps cut to 30 s
-              (PARSER_BUDGET_S) at 15a's step time: the four files written,
+              1.0 on 64+8 frames of 512x512, each net's steps cut to 20 s
+              (PARSER_BUDGET_S / 2) at 15a's step time: the four files written,
               each net's mean loss over its last 25 steps below its first
               25's; printed: hair IoU and matte MAE through the runners (no
               gate at this cut), seconds of the frames and of each loop
@@ -189,6 +198,7 @@ from monohair_tpu_torch.constants import BUST_TO_ORIGIN, VOXEL_MAX, VOXEL_MIN, V
 from monohair_tpu_torch.coords import nerf_to_ngp, voxel_to_world
 from monohair_tpu_torch.io.cameras_io import load_cam_params, save_cam_params, subsample_views
 from monohair_tpu_torch.io.hair_io import load_hair, strands_from_flat
+from monohair_tpu_torch.io import h264_streams
 from monohair_tpu_torch.io import jpeg as jpeg_io
 from monohair_tpu_torch.io import video as video_io
 from monohair_tpu_torch.io.image_io import (imread_gray, load_depth_maps, load_masks,
@@ -324,13 +334,14 @@ def phase_device() -> dict:
 # phase 2
 # ---------------------------------------------------------------------------
 
-NATIVE_SOURCES = (pk.SOURCE, jpeg_io.SOURCE, video_io.SOURCE, strand_connect.SOURCE,
-                  nerf_marching.SOURCE)
+NATIVE_SOURCES = (pk.SOURCE, jpeg_io.SOURCE, video_io.SOURCE, video_io.H264_SOURCE,
+                  h264_streams.SOURCE, strand_connect.SOURCE, nerf_marching.SOURCE)
 
 
 def phase_build() -> None:
-    """nvcc of the CUDA kernels and g++ of the host C++ (the JPEG and mp4v
-    codecs, the scalp connection, marching tetrahedra), all started together."""
+    """nvcc of the CUDA kernels and g++ of the host C++ (the JPEG, mp4v and
+    H.264 codecs, the H.264 test-stream writer, the scalp connection,
+    marching tetrahedra), all started together."""
     from concurrent.futures import ThreadPoolExecutor
     t = time.perf_counter()
     with ThreadPoolExecutor(len(NATIVE_SOURCES)) as pool:
@@ -338,6 +349,8 @@ def phase_build() -> None:
     pk._lib()
     jpeg_io._lib()
     video_io._lib()
+    video_io._lib(video_io.H264_SOURCE)
+    h264_streams._lib()
     log(f"built {len(NATIVE_SOURCES)} native sources in {time.perf_counter() - t:.2f}s (wall)")
     for source in NATIVE_SOURCES:
         info = _build.BUILD_INFO[source]
@@ -2668,6 +2681,7 @@ VIDEO_FPS = 30
 VIDEO_INTERVAL = 5               # extract_sharpest_frames's default
 VIDEO_BLUR = 9                   # the box blur of the frames that are not sharp
 VIDEO_MIN_PSNR = 30.0            # the codec's round trip on the scene at qscale 3
+H264_QP = 24                     # 14d: the H.264 test-stream writer's fixed quantiser
 FLY_SIZE = (720, 1280)           # render_camera_path_video's default (H, W)
 FLY_POSES = 3
 FLY_FRAMES_PER_SEG = 4
@@ -2742,14 +2756,7 @@ def phase_video_extract(dev: torch.device, tmp: str) -> dict:
     """14b: a 1920x1080 orbit video, one sharp frame in every VIDEO_INTERVAL,
     through extract_sharpest_frames on the card."""
     H, W = CODEC_SIZES[0]
-    frames = orbit_frames(H, W, VIDEO_FRAMES)
-    sharp = [k * VIDEO_INTERVAL + k % VIDEO_INTERVAL for k in range(VIDEO_FRAMES // VIDEO_INTERVAL)]
-    pool = torch.nn.AvgPool2d(VIDEO_BLUR, stride=1, padding=VIDEO_BLUR // 2,
-                              count_include_pad=False)
-    for i in range(VIDEO_FRAMES):
-        if i not in sharp:
-            x = torch.as_tensor(frames[i], device=dev).permute(2, 0, 1).float()
-            frames[i] = pool(x[None])[0].round().byte().permute(1, 2, 0).cpu().numpy()
+    frames, sharp = sharp_orbit_frames(dev, H, W)
     video = os.path.join(tmp, "orbit.mp4")
     enc_s = write_video(video, frames, VIDEO_FPS)
     out_dir = os.path.join(tmp, "frames")
@@ -2779,13 +2786,128 @@ def phase_video_extract(dev: torch.device, tmp: str) -> dict:
     blurred = [host[i] for i in range(VIDEO_FRAMES) if i not in sharp]
     res = dict(seconds=seconds, frames_per_s=VIDEO_FRAMES / seconds, encode_s=enc_s,
                bytes=os.path.getsize(video), kept=len(kept), sharpness_rel_err=worst,
-               sharp_min=min(host[i] for i in sharp), blurred_max=max(blurred))
+               sharp_min=min(host[i] for i in sharp), blurred_max=max(blurred), frames=frames)
     log(f"14b extract_sharpest_frames on a {VIDEO_FRAMES}-frame {W}x{H} video "
         f"({res['bytes']} bytes, written in {enc_s:.3f} s): {seconds:.3f} s, "
         f"{res['frames_per_s']:.2f} frames/s; kept {len(kept)}, all the sharp ones; "
         f"card vs float64 host sharpness {worst:.3e}; sharpness sharp >= "
         f"{res['sharp_min']:.2f}, blurred <= {res['blurred_max']:.2f}")
     return res
+
+
+def sharp_orbit_frames(dev: torch.device, H: int, W: int) -> tuple:
+    """VIDEO_FRAMES orbit frames at H x W, all but one in every
+    VIDEO_INTERVAL box-blurred on the card, and the sharp ones' indices."""
+    frames = orbit_frames(H, W, VIDEO_FRAMES)
+    sharp = [k * VIDEO_INTERVAL + k % VIDEO_INTERVAL for k in range(VIDEO_FRAMES // VIDEO_INTERVAL)]
+    pool = torch.nn.AvgPool2d(VIDEO_BLUR, stride=1, padding=VIDEO_BLUR // 2,
+                              count_include_pad=False)
+    for i in range(VIDEO_FRAMES):
+        if i not in sharp:
+            x = torch.as_tensor(frames[i], device=dev).permute(2, 0, 1).float()
+            frames[i] = pool(x[None])[0].round().byte().permute(1, 2, 0).cpu().numpy()
+    return frames, sharp
+
+
+def rotate_display_matrix(src: str, dst: str) -> None:
+    """A copy of src whose track matrix turns it 90 degrees clockwise, as a
+    phone held upright writes it (cv2 then hands over portrait frames)."""
+    data = bytearray(open(src, "rb").read())
+    tkhd = data.index(b"tkhd") + 4
+    off = tkhd + (52 if data[tkhd] == 1 else 40)
+    data[off:off + 36] = b"".join(v.to_bytes(4, "big", signed=True)
+                                  for v in [0, 65536, 0, -65536, 0, 0, 0, 0, 1 << 30])
+    with open(dst, "wb") as f:
+        f.write(bytes(data))
+
+
+def check_kept(decoded: list, out_dir: str, kept: list, sharp: list, turn: bool,
+               what: str) -> None:
+    """The kept frames of extract_sharpest_frames are the sharp ones: each
+    window's sharpest decoded frame (float64 host Laplacian) is the sharp
+    frame, and each kept PNG holds it, turned 90 degrees clockwise (cv2's
+    rotation) when the file's display matrix says so. `decoded` are the
+    frames as coded (unturned)."""
+    host = [sharpness_rgb_f64(f[..., ::-1]) for f in decoded]
+    if len(kept) != len(sharp):
+        raise AssertionError(f"{what}: kept {len(kept)} of {len(sharp)} frames")
+    for k, name in enumerate(kept):
+        want = k * VIDEO_INTERVAL + int(np.argmax(host[k * VIDEO_INTERVAL:(k + 1) * VIDEO_INTERVAL]))
+        if want != sharp[k]:
+            raise AssertionError(f"{what}: window {k}: the sharpest decoded frame is {want}, "
+                                 f"the sharp one {sharp[k]}")
+        frame = decoded[sharp[k]][..., ::-1]
+        if turn:
+            frame = np.rot90(frame, -1)
+        if not np.array_equal(read_png(os.path.join(out_dir, name)), frame):
+            raise AssertionError(f"{what}: {name} is not decoded frame {sharp[k]}"
+                                 f"{' turned clockwise' if turn else ''}")
+
+
+def phase_video_h264(dev: torch.device, tmp: str, frames_first: list) -> dict:
+    """14d: H.264 at CODEC_SIZES (14b's frames at the first) through the
+    port's decoder, the extraction on the card, and a portrait copy of the
+    first."""
+    sharp = [k * VIDEO_INTERVAL + k % VIDEO_INTERVAL for k in range(VIDEO_FRAMES // VIDEO_INTERVAL)]
+    out = {}
+    for H, W in CODEC_SIZES:
+        first = (H, W) == CODEC_SIZES[0]
+        frames = frames_first if first else sharp_orbit_frames(dev, H, W)[0]
+        path = os.path.join(tmp, f"h264_{W}x{H}.mp4")
+        t = time.perf_counter()
+        h264_streams.write_frames(path, frames, fps=VIDEO_FPS, qp=H264_QP, gop=2, cabac=True)
+        enc_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with video_io.VideoReader(path) as reader:
+            decoded = list(reader)
+            stats = reader.stats
+        dec_s = time.perf_counter() - t
+        info = video_io.video_info(path)
+        psnrs = [video_psnr(a, b) for a, b in zip(decoded, frames)]
+        out_dir = os.path.join(tmp, f"h264_frames_{W}x{H}")
+        sync(dev)
+        t = time.perf_counter()
+        kept = extract_sharpest_frames(path, out_dir, interval=VIDEO_INTERVAL, device=dev)
+        sync(dev)
+        ext_s = time.perf_counter() - t
+        res = dict(encode_s=enc_s, decode_ms=dec_s / len(frames) * 1e3, min_psnr=min(psnrs),
+                   bytes=os.path.getsize(path), p_slices=stats["p_slices"],
+                   skip_mbs=stats["skip_mbs"], extract_s=ext_s,
+                   frames_per_s=VIDEO_FRAMES / ext_s, kept=len(kept))
+        coded = f"{-(-W // 16) * 16}x{-(-H // 16) * 16}"
+        log(f"14d H.264 at {W}x{H} (coded {coded}{', cropped' if H % 16 or W % 16 else ''}): "
+            f"{len(frames)} frames written in {enc_s:.3f} s ({res['bytes']} bytes, "
+            f"{stats['i_slices']} I and {stats['p_slices']} P slices, CABAC, "
+            f"{stats['skip_mbs']} skipped macroblocks); decode {res['decode_ms']:.3f} ms a frame "
+            f"on the host; round trip PSNR min {res['min_psnr']:.2f} dB; "
+            f"extract_sharpest_frames {ext_s:.3f} s, {res['frames_per_s']:.2f} frames/s, "
+            f"kept {len(kept)}")
+        if (info != (len(frames), float(VIDEO_FPS), W, H) or len(decoded) != len(frames)
+                or res["min_psnr"] < VIDEO_MIN_PSNR or stats["p_slices"] == 0
+                or stats["cabac_slices"] == 0):
+            raise AssertionError(f"14d: the H.264 round trip at {W}x{H}: {info}, {res}")
+        check_kept(decoded, out_dir, kept, sharp, False, f"14d {W}x{H}")
+        out[f"{W}x{H}"] = res
+        if first:
+            portrait = os.path.join(tmp, "h264_portrait.mp4")
+            rotate_display_matrix(path, portrait)
+            pdir = os.path.join(tmp, "h264_frames_portrait")
+            sync(dev)
+            t = time.perf_counter()
+            pkept = extract_sharpest_frames(portrait, pdir, interval=VIDEO_INTERVAL, device=dev)
+            sync(dev)
+            p_s = time.perf_counter() - t
+            pinfo = video_io.video_info(portrait)
+            shape = read_png(os.path.join(pdir, pkept[0])).shape
+            log(f"14d portrait copy (90-degree display matrix): video_info {pinfo}; "
+                f"extract_sharpest_frames {p_s:.3f} s, {VIDEO_FRAMES / p_s:.2f} frames/s, "
+                f"kept {len(pkept)} frames of {shape[1]}x{shape[0]}")
+            if pinfo != (VIDEO_FRAMES, float(VIDEO_FPS), H, W) or shape != (W, H, 3):
+                raise AssertionError(f"14d portrait: {pinfo}, kept frames {shape}")
+            check_kept(decoded, pdir, pkept, sharp, True, "14d portrait")
+            out["portrait"] = dict(seconds=p_s, frames_per_s=VIDEO_FRAMES / p_s, kept=len(pkept),
+                                   shape=list(shape))
+    return out
 
 
 def phase_video_fly(dev: torch.device, tmp: str) -> dict:
@@ -2830,11 +2952,14 @@ def phase_video_fly(dev: torch.device, tmp: str) -> dict:
 
 
 def phase_video(dev: torch.device) -> dict:
-    """Phase 14: the codec (14a), the extraction (14b), the fly-through (14c)."""
+    """Phase 14: the codec (14a), the extraction (14b), the fly-through (14c),
+    H.264 (14d)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
         pk.reset_launch_counts()
         res = dict(codec=phase_video_codec(tmp), extract=phase_video_extract(dev, tmp),
                    fly=phase_video_fly(dev, tmp))
+        frames = res["extract"].pop("frames")
+        res["h264"] = phase_video_h264(dev, tmp, frames)
         res["launches"] = dict(pk.LAUNCHES)
     return res
 
@@ -2847,7 +2972,7 @@ PARSER_SIZE = 512                # the tool's frames (S)
 PARSER_BATCH = 4                 # the tool's --batch
 PARSER_CHECK = (2, 256)          # 15a's card-vs-CPU step: batch and frame size
 PARSER_TIMED_STEPS = 20          # steady steps timed with CUDA events
-PARSER_BUDGET_S = 60.0           # 15b: the CLI's training time, both nets
+PARSER_BUDGET_S = 40.0           # 15b: the CLI's training time, both nets (the script's time)
 PARSER_FRAMES = (64, 8)          # 15b: training and eval frames (the tool's: 640 + 48)
 PARSER_GATE_WINDOW = 25          # 15b: the first and last steps whose mean losses are compared
 PARSER_NETS = {"parser": (lambda: BiSeNet(19, width=1.0), parser_loss, True, 0),

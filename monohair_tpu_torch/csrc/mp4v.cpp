@@ -4,10 +4,10 @@
 // monohair_tpu_torch/ops/_build.py (g++), called through ctypes by
 // monohair_tpu_torch/io/video.py.
 //
-// Demuxer: ISO-BMFF (ftyp, moov before or after mdat); the first video track's
-// stsd must hold an mp4v sample entry whose esds carries the decoder config
-// (VOS/VO/VOL); samples through stts/stsc/stsz/stco|co64. Edit lists are not
-// applied.
+// Demuxer: mp4.h's (shared with h264.cpp); the first video track's stsd must
+// hold an mp4v sample entry whose esds carries the decoder config
+// (VOS/VO/VOL). The frames are rotated by the display matrix as cv2 rotates
+// them.
 //
 // Decoder: ISO/IEC 14496-2 Simple Profile as libavcodec's mpeg4 encoder writes
 // it, with libavcodec's reconstruction rules so that the pixels are FFmpeg's:
@@ -26,9 +26,8 @@
 //   bitwise on cv2's files). For a stream whose user data names XviD,
 //   libavcodec switches to its XviD IDCT; such streams decode here with the
 //   simple one, so their pixels may differ from cv2's by its rounding.
-// - YUV 4:2:0 -> BGR24 as swscale's unscaled x86 converter (yuv2rgb, BT.601,
-//   limited range) computes it: 16-bit fixed point, products truncated as
-//   pmulhw does, chroma replicated over 2x2 pixels.
+// - YUV 4:2:0 -> BGR24 as swscale's unscaled x86 converter computes it
+//   (mp4.h's yuv420_to_bgr).
 // Anything else (B-VOPs, sprites/GMC, interlace, quarter-pel, data
 // partitioning, video packets, OBMC, the short video header, other shapes,
 // other sample entries) is refused by name (error code 2).
@@ -53,15 +52,9 @@
 #include <string>
 #include <vector>
 
+#include "mp4.h"
+
 namespace {
-
-struct Error {
-  int code;  // 1 malformed or I/O, 2 unsupported
-  std::string msg;
-};
-
-[[noreturn]] void fail(const std::string& msg) { throw Error{1, msg}; }
-[[noreturn]] void unsupported(const std::string& msg) { throw Error{2, msg}; }
 
 // ---------------------------------------------------------------- tables --
 // The TCOEF tables of ISO/IEC 14496-2 (B-16 intra, B-17 inter): (code, length)
@@ -349,8 +342,6 @@ inline void idct_col(const int16_t* col, int out[8]) {
   out[3] = (a3 + b3) >> 20;
   out[4] = (a3 - b3) >> 20;
 }
-
-inline uint8_t clip8(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
 
 // blk (raster order) -> dst (8x8, stride): put (intra) or add (inter)
 void idct_put(int16_t* blk, uint8_t* dst, int stride, bool add) {
@@ -980,232 +971,25 @@ struct Decoder {
   }
 };
 
-// ------------------------------------------------------ YUV -> BGR24 --
-// swscale's x86 yuv2rgb: Y, U, V scaled by 8, offsets 16 and 128 (x8)
-// removed, multiplied by the 16-bit coefficients (pmulhw: the product's high
-// half), summed and saturated to 0..255.
-void yuv_to_bgr(const Frame& f, int width, int height, uint8_t* out) {
-  const int yc = 9539, vr = 13075, ub = 16525, ug = -3209, vg = -6660;
-  for (int y = 0; y < height; y++) {
-    const uint8_t* Y = f.p[0].at(0, y);
-    const uint8_t* U = f.p[1].at(0, y >> 1);
-    const uint8_t* V = f.p[2].at(0, y >> 1);
-    uint8_t* o = out + (size_t)y * width * 3;
-    for (int x = 0; x < width; x++) {
-      int yy = ((Y[x] * 8 - 128) * yc) >> 16;
-      int u = U[x >> 1] * 8 - 1024, v = V[x >> 1] * 8 - 1024;
-      int b = yy + ((u * ub) >> 16);
-      int g = yy + (((u * ug) >> 16) + ((v * vg) >> 16));
-      int r = yy + ((v * vr) >> 16);
-      o[3 * x] = clip8(b);
-      o[3 * x + 1] = clip8(g);
-      o[3 * x + 2] = clip8(r);
-    }
-  }
-}
-
-// --------------------------------------------------------------- demux --
-struct Sample {
-  uint64_t offset;
-  uint32_t size;
-};
-
-struct Track {
-  std::string handler, entry;
-  uint32_t timescale = 0;
-  uint64_t duration = 0;
-  std::vector<uint8_t> dsi;  // esds DecoderSpecificInfo
-  int esds_object_type = -1;
-  int entry_w = 0, entry_h = 0;
-  std::vector<std::pair<uint32_t, uint32_t>> stts;              // count, delta
-  std::vector<std::array<uint32_t, 3>> stsc;                    // first, per chunk, desc
-  std::vector<uint32_t> stsz;
-  uint32_t stsz_fixed = 0, stsz_count = 0;
-  std::vector<uint64_t> chunks;
-};
-
-uint32_t be32(const uint8_t* p) { return (uint32_t(p[0]) << 24) | (p[1] << 16) | (p[2] << 8) | p[3]; }
-uint64_t be64(const uint8_t* p) { return (uint64_t(be32(p)) << 32) | be32(p + 4); }
-uint16_t be16(const uint8_t* p) { return (uint16_t)((p[0] << 8) | p[1]); }
-
-
-// Descriptor length of an esds: up to four 7-bit groups
-size_t desc_len(const uint8_t*& p, const uint8_t* end) {
-  size_t n = 0;
-  for (int i = 0; i < 4 && p < end; i++) {
-    uint8_t b = *p++;
-    n = (n << 7) | (b & 0x7F);
-    if (!(b & 0x80)) break;
-  }
-  return n;
-}
-
-void parse_esds(const uint8_t* p, const uint8_t* end, Track& t) {
-  p += 4;  // version, flags
-  while (p + 2 <= end) {
-    int tag = *p++;
-    size_t n = desc_len(p, end);
-    const uint8_t* body = p;
-    if (body + n > end) n = end - body;
-    if (tag == 3) {  // ES_Descriptor
-      const uint8_t* q = body + 2;
-      int flags = *q++;
-      if (flags & 0x80) q += 2;
-      if (flags & 0x40) q += 1 + *q;
-      if (flags & 0x20) q += 2;
-      p = q;  // its sub-descriptors follow
-      continue;
-    }
-    if (tag == 4) {  // DecoderConfigDescriptor
-      t.esds_object_type = body[0];
-      p = body + 13;
-      continue;
-    }
-    if (tag == 5) t.dsi.assign(body, body + n);  // DecoderSpecificInfo
-    p = body + n;
-  }
-}
-
-void parse_boxes(const uint8_t* p, const uint8_t* end, Track& t, std::vector<Track>& done);
-
-void parse_box(const std::string& type, const uint8_t* b, const uint8_t* e, Track& t,
-               std::vector<Track>& done) {
-  size_t n = e - b;
-  if (type == "moov" || type == "mdia" || type == "minf" || type == "stbl") {
-    parse_boxes(b, e, t, done);
-  } else if (type == "trak") {
-    Track nt;
-    parse_boxes(b, e, nt, done);
-    done.push_back(std::move(nt));
-  } else if (type == "mdhd" && n >= 24) {
-    if (b[0] == 1 && n >= 32) { t.timescale = be32(b + 20); t.duration = be64(b + 24); }
-    else { t.timescale = be32(b + 12); t.duration = be32(b + 16); }
-  } else if (type == "hdlr" && n >= 12) {
-    t.handler.assign((const char*)b + 8, 4);
-  } else if (type == "stsd" && n >= 16) {
-    const uint8_t* q = b + 8;  // the first sample entry
-    uint32_t size = be32(q);
-    t.entry.assign((const char*)q + 4, 4);
-    if (q + size > e || size < 86) return;
-    t.entry_w = be16(q + 32);
-    t.entry_h = be16(q + 34);
-    const uint8_t* c = q + 86;  // the visual sample entry's child boxes
-    while (c + 8 <= q + size) {
-      uint32_t cs = be32(c);
-      if (cs < 8 || c + cs > q + size) break;
-      if (memcmp(c + 4, "esds", 4) == 0) parse_esds(c + 8, c + cs, t);
-      c += cs;
-    }
-  } else if (type == "stts" && n >= 8) {
-    uint32_t cnt = be32(b + 4);
-    if (8 + (uint64_t)cnt * 8 > n) fail("truncated stts");
-    for (uint32_t i = 0; i < cnt; i++) t.stts.push_back({be32(b + 8 + 8 * i), be32(b + 12 + 8 * i)});
-  } else if (type == "stsc" && n >= 8) {
-    uint32_t cnt = be32(b + 4);
-    if (8 + (uint64_t)cnt * 12 > n) fail("truncated stsc");
-    for (uint32_t i = 0; i < cnt; i++)
-      t.stsc.push_back({be32(b + 8 + 12 * i), be32(b + 12 + 12 * i), be32(b + 16 + 12 * i)});
-  } else if (type == "stsz" && n >= 12) {
-    t.stsz_fixed = be32(b + 4);
-    t.stsz_count = be32(b + 8);
-    if (!t.stsz_fixed) {
-      if (12 + (uint64_t)t.stsz_count * 4 > n) fail("truncated stsz");
-      for (uint32_t i = 0; i < t.stsz_count; i++) t.stsz.push_back(be32(b + 12 + 4 * i));
-    }
-  } else if ((type == "stco" || type == "co64") && n >= 8) {
-    uint32_t cnt = be32(b + 4);
-    int w = type == "stco" ? 4 : 8;
-    if (8 + (uint64_t)cnt * w > n) fail("truncated " + type);
-    for (uint32_t i = 0; i < cnt; i++)
-      t.chunks.push_back(w == 4 ? be32(b + 8 + 4 * i) : be64(b + 8 + 8 * i));
-  }
-}
-
-void parse_boxes(const uint8_t* p, const uint8_t* end, Track& t, std::vector<Track>& done) {
-  while (p + 8 <= end) {
-    uint64_t size = be32(p);
-    size_t head = 8;
-    if (size == 1) {
-      if (p + 16 > end) fail("truncated box header");
-      size = be64(p + 8);
-      head = 16;
-    } else if (size == 0) {
-      size = end - p;
-    }
-    if (size < head || p + size > end) fail("box runs past its parent");
-    parse_box(std::string((const char*)p + 4, 4), p + head, p + size, t, done);
-    p += size;
-  }
-}
-
 struct Reader {
-  FILE* f = nullptr;
-  Track track;
-  std::vector<Sample> samples;
+  Movie movie;
   size_t next = 0;
   Decoder dec;
-  std::vector<uint8_t> buf;
-  uint64_t total_delta = 0;
-
-  ~Reader() {
-    if (f) fclose(f);
-  }
+  std::vector<uint8_t> buf, bgr;
 
   void open(const char* path) {
-    f = fopen(path, "rb");
-    if (!f) fail(std::string("cannot open ") + path);
-    fseek(f, 0, SEEK_END);
-    uint64_t fsize = (uint64_t)ftello(f);
-    uint64_t pos = 0;
-    std::vector<uint8_t> moov;
-    bool ftyp = false;
-    while (pos + 8 <= fsize) {
-      uint8_t h[16];
-      fseeko(f, (off_t)pos, SEEK_SET);
-      if (fread(h, 1, 8, f) != 8) fail("truncated box header");
-      uint64_t size = be32(h);
-      size_t head = 8;
-      if (size == 1) {
-        if (fread(h + 8, 1, 8, f) != 8) fail("truncated box header");
-        size = be64(h + 8);
-        head = 16;
-      } else if (size == 0) {
-        size = fsize - pos;
-      }
-      if (size < head) fail("box of size < 8");
-      if (pos == 0) {
-        if (memcmp(h + 4, "ftyp", 4) != 0 && memcmp(h + 4, "moov", 4) != 0 &&
-            memcmp(h + 4, "mdat", 4) != 0 && memcmp(h + 4, "free", 4) != 0 &&
-            memcmp(h + 4, "wide", 4) != 0)
-          fail("not an ISO base media (MP4) file");
-        ftyp = true;
-      }
-      if (memcmp(h + 4, "moov", 4) == 0) {
-        if (pos + size > fsize) fail("truncated moov");
-        moov.resize(size - head);
-        if (fread(moov.data(), 1, moov.size(), f) != moov.size()) fail("truncated moov");
-      }
-      pos += size;
-    }
-    if (!ftyp || moov.empty()) fail("no moov box (not a complete MP4 file)");
-    Track root;
-    std::vector<Track> tracks;
-    parse_boxes(moov.data(), moov.data() + moov.size(), root, tracks);
-    const Track* video = nullptr;
-    for (const Track& t : tracks)
-      if (t.handler == "vide") { video = &t; break; }
-    if (!video) fail("no video track");
-    track = *video;
+    movie.open(path);
+    const Track& track = movie.track;
     if (track.entry != "mp4v")
-      unsupported("sample entry '" + track.entry + "' (only mp4v, MPEG-4 Part 2)");
+      unsupported("sample entry '" + track.entry +
+                  "' (the port reads mp4v, MPEG-4 Part 2, and avc1/avc3, H.264)");
     if (track.esds_object_type != 0x20)
       unsupported("esds objectTypeIndication " + std::to_string(track.esds_object_type) +
                   " (only 0x20, MPEG-4 Visual)");
-    build_samples(fsize);
     if (!track.dsi.empty()) dec.decode(track.dsi.data(), track.dsi.size());
-    if (!dec.vol.have && !samples.empty()) {  // the VOL may be in the first sample
+    if (!dec.vol.have && !movie.samples.empty()) {  // the VOL may be in the first sample
       Decoder probe;
-      std::vector<uint8_t> s = read_sample(0);
+      std::vector<uint8_t> s = movie.read_sample(0);
       probe_headers(probe, s);
       dec.vol = probe.vol;
       if (dec.vol.have) dec.setup();
@@ -1224,39 +1008,21 @@ struct Reader {
     }
   }
 
-  void build_samples(uint64_t fsize) {
-    const Track& t = track;
-    uint32_t count = t.stsz_fixed ? t.stsz_count : (uint32_t)t.stsz.size();
-    size_t k = 0;
-    for (size_t c = 0; c < t.chunks.size() && k < count; c++) {
-      uint32_t per = 0;
-      for (const auto& e : t.stsc)
-        if (e[0] <= c + 1) per = e[1];
-      uint64_t off = t.chunks[c];
-      for (uint32_t j = 0; j < per && k < count; j++, k++) {
-        uint32_t sz = t.stsz_fixed ? t.stsz_fixed : t.stsz[k];
-        if (off + sz > fsize) fail("sample past the end of the file");
-        samples.push_back({off, sz});
-        off += sz;
-      }
-    }
-    if (k != count) fail("sample table lists more samples than its chunks hold");
-    for (const auto& e : t.stts) total_delta += (uint64_t)e.first * e.second;
-  }
-
-  std::vector<uint8_t> read_sample(size_t i) {
-    std::vector<uint8_t> s(samples[i].size);
-    fseeko(f, (off_t)samples[i].offset, SEEK_SET);
-    if (fread(s.data(), 1, s.size(), f) != s.size()) fail("truncated sample");
-    return s;
-  }
-
-  // 1 with a BGR frame in out, 0 at the end
+  // 1 with a BGR frame in out (rotated as the display matrix says), 0 at the end
   int next_frame(uint8_t* out) {
-    while (next < samples.size()) {
-      buf = read_sample(next++);
+    while (next < movie.samples.size()) {
+      buf = movie.read_sample(next++);
       if (!dec.decode(buf.data(), buf.size())) continue;
-      yuv_to_bgr(dec.cur, dec.vol.width, dec.vol.height, out);
+      const Frame& f = dec.cur;
+      int w = dec.vol.width, h = dec.vol.height;
+      uint8_t* dst = out;
+      if (movie.rotation) {
+        bgr.resize((size_t)w * h * 3);
+        dst = bgr.data();
+      }
+      yuv420_to_bgr(f.p[0].at(0, 0), f.p[0].w, f.p[1].at(0, 0), f.p[2].at(0, 0),
+                    f.p[1].w, w, h, dst);
+      if (movie.rotation) rotate_bgr(dst, w, h, movie.rotation, out);
       return 1;
     }
     return 0;
@@ -1411,10 +1177,6 @@ struct Writer {
 
   ~Writer() {
     if (f) fclose(f);
-  }
-
-  void put_be(std::vector<uint8_t>& v, uint64_t x, int n) {
-    for (int i = n - 1; i >= 0; i--) v.push_back((uint8_t)(x >> (8 * i)));
   }
 
   void open(const char* p, int w, int h, int num, int den, const EncoderOptions& opt) {
@@ -1751,13 +1513,6 @@ struct Writer {
   }
 
   // box helpers: a box is its 32-bit size, its type and its body
-  static void box(std::vector<uint8_t>& out, const char* type, const std::vector<uint8_t>& body) {
-    uint32_t n = (uint32_t)(8 + body.size());
-    for (int i = 3; i >= 0; i--) out.push_back((uint8_t)(n >> (8 * i)));
-    out.insert(out.end(), type, type + 4);
-    out.insert(out.end(), body.begin(), body.end());
-  }
-
   void descriptor(std::vector<uint8_t>& out, int tag, const std::vector<uint8_t>& body) {
     out.push_back((uint8_t)tag);
     size_t n = body.size();
@@ -1771,30 +1526,8 @@ struct Writer {
   void release() {
     uint64_t n = sizes.size();
     uint64_t dur = n * (uint64_t)delta;
-    uint64_t dur_ms = (uint64_t)((double)dur * 1000.0 / timescale + 0.5);
     uint64_t bitrate = dur ? (uint64_t)(written * 8.0 * timescale / dur) : 0;
-    const uint32_t matrix[9] = {0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000};
-    std::vector<uint8_t> mvhd, tkhd, mdhd, hdlr, vmhd, dref, url, stsd, entry, esds, es, dcd,
-        dsi, sl, stts, stss, stsc, stsz, stco;
-    put_be(mvhd, 0, 4); put_be(mvhd, 0, 4); put_be(mvhd, 0, 4);
-    put_be(mvhd, 1000, 4); put_be(mvhd, dur_ms, 4);
-    put_be(mvhd, 0x10000, 4); put_be(mvhd, 0x100, 2); put_be(mvhd, 0, 10);
-    for (uint32_t m : matrix) put_be(mvhd, m, 4);
-    put_be(mvhd, 0, 24); put_be(mvhd, 2, 4);
-    put_be(tkhd, 3, 4); put_be(tkhd, 0, 4); put_be(tkhd, 0, 4); put_be(tkhd, 1, 4);
-    put_be(tkhd, 0, 4); put_be(tkhd, dur_ms, 4); put_be(tkhd, 0, 8);
-    put_be(tkhd, 0, 2); put_be(tkhd, 0, 2); put_be(tkhd, 0, 2); put_be(tkhd, 0, 2);
-    for (uint32_t m : matrix) put_be(tkhd, m, 4);
-    put_be(tkhd, (uint64_t)width << 16, 4); put_be(tkhd, (uint64_t)height << 16, 4);
-    put_be(mdhd, 0, 4); put_be(mdhd, 0, 4); put_be(mdhd, 0, 4);
-    put_be(mdhd, timescale, 4); put_be(mdhd, dur, 4); put_be(mdhd, 0x55C4, 2); put_be(mdhd, 0, 2);
-    put_be(hdlr, 0, 4); put_be(hdlr, 0, 4); hdlr.insert(hdlr.end(), {'v', 'i', 'd', 'e'});
-    put_be(hdlr, 0, 12);
-    const char name[] = "VideoHandler";
-    hdlr.insert(hdlr.end(), name, name + sizeof(name));
-    put_be(vmhd, 1, 4); put_be(vmhd, 0, 8);
-    put_be(url, 1, 4);
-    put_be(dref, 0, 4); put_be(dref, 1, 4); box(dref, "url ", url);
+    std::vector<uint8_t> esds, es, dcd, sl;
     // the esds: ES_Descriptor(DecoderConfigDescriptor(DecoderSpecificInfo), SLConfig)
     dcd.push_back(0x20);  // MPEG-4 Visual
     dcd.push_back(0x11);  // visual stream
@@ -1806,33 +1539,19 @@ struct Writer {
     descriptor(es, 6, sl);
     put_be(esds, 0, 4);
     descriptor(esds, 3, es);
-    put_be(entry, 0, 6); put_be(entry, 1, 2); put_be(entry, 0, 16);
-    put_be(entry, width, 2); put_be(entry, height, 2);
-    put_be(entry, 0x480000, 4); put_be(entry, 0x480000, 4); put_be(entry, 0, 4);
-    put_be(entry, 1, 2); put_be(entry, 0, 32); put_be(entry, 0x18, 2); put_be(entry, 0xFFFF, 2);
-    box(entry, "esds", esds);
-    put_be(stsd, 0, 4); put_be(stsd, 1, 4); box(stsd, "mp4v", entry);
-    put_be(stts, 0, 4); put_be(stts, n ? 1 : 0, 4);
-    if (n) { put_be(stts, n, 4); put_be(stts, delta, 4); }
-    put_be(stss, 0, 4); put_be(stss, sync.size(), 4);
-    for (uint32_t s : sync) put_be(stss, s, 4);
-    put_be(stsc, 0, 4); put_be(stsc, n ? 1 : 0, 4);
-    if (n) { put_be(stsc, 1, 4); put_be(stsc, n, 4); put_be(stsc, 1, 4); }
-    put_be(stsz, 0, 4); put_be(stsz, 0, 4); put_be(stsz, n, 4);
-    for (uint32_t s : sizes) put_be(stsz, s, 4);
-    bool big = mdat_start + written > 0xFFFFFFFFull;
-    put_be(stco, 0, 4); put_be(stco, n ? 1 : 0, 4);
-    if (n) put_be(stco, mdat_start, big ? 8 : 4);
-    std::vector<uint8_t> stbl, minf, dinf, mdia, trak, moov, out;
-    box(stbl, "stsd", stsd); box(stbl, "stts", stts);
-    if (sync.size() != n) box(stbl, "stss", stss);
-    box(stbl, "stsc", stsc); box(stbl, "stsz", stsz); box(stbl, big ? "co64" : "stco", stco);
-    box(dinf, "dref", dref);
-    box(minf, "vmhd", vmhd); box(minf, "dinf", dinf); box(minf, "stbl", stbl);
-    box(mdia, "mdhd", mdhd); box(mdia, "hdlr", hdlr); box(mdia, "minf", minf);
-    box(trak, "tkhd", tkhd); box(trak, "mdia", mdia);
-    box(moov, "mvhd", mvhd); box(moov, "trak", trak);
-    box(out, "moov", moov);
+    MoovSpec spec;
+    spec.width = width;
+    spec.height = height;
+    spec.timescale = timescale;
+    spec.delta = delta;
+    spec.entry_type = "mp4v";
+    spec.entry = visual_entry(width, height);
+    box(spec.entry, "esds", esds);
+    spec.sizes = sizes;
+    spec.sync = sync;
+    spec.mdat_start = mdat_start;
+    spec.big = mdat_start + written > 0xFFFFFFFFull;
+    std::vector<uint8_t> out = build_moov(spec);
     if (fwrite(out.data(), 1, out.size(), f) != out.size()) fail("write failed");
     std::vector<uint8_t> size;
     put_be(size, 16 + written, 8);
@@ -1844,25 +1563,23 @@ struct Writer {
   }
 };
 
-int report(const Error& e, char* err, int errlen) {
-  if (err && errlen > 0) snprintf(err, errlen, "%s", e.msg.c_str());
-  return e.code == 2 ? -2 : -1;
-}
-
 }  // namespace
 
 extern "C" {
 
-// info = {frames, width, height, fps numerator, fps denominator}
+// info = {frames, width, height, fps numerator, fps denominator}; width and
+// height as displayed (after the display matrix's rotation)
 void* mp4v_open(const char* path, int64_t* info, char* err, int errlen) {
   Reader* r = new Reader();
   try {
     r->open(path);
-    info[0] = (int64_t)r->samples.size();
-    info[1] = r->dec.vol.width;
-    info[2] = r->dec.vol.height;
-    info[3] = (int64_t)r->samples.size() * r->track.timescale;
-    info[4] = (int64_t)r->total_delta;
+    const Movie& m = r->movie;
+    bool swap = m.rotation == 90 || m.rotation == 270;
+    info[0] = (int64_t)m.samples.size();
+    info[1] = swap ? r->dec.vol.height : r->dec.vol.width;
+    info[2] = swap ? r->dec.vol.width : r->dec.vol.height;
+    info[3] = (int64_t)m.samples.size() * m.track.timescale;
+    info[4] = (int64_t)m.total_delta;
     return r;
   } catch (const Error& e) {
     info[0] = report(e, err, errlen);

@@ -1,16 +1,33 @@
-"""MPEG-4 Part 2 video in MP4 ("mp4v") through the port's own codec
-(``csrc/mp4v.cpp``, built with g++ at first use and loaded with ctypes).
+"""Video in MP4 or QuickTime through the port's own codecs, built with g++
+at first use and loaded with ctypes: MPEG-4 Part 2 ("mp4v", ``csrc/mp4v.cpp``)
+and H.264 ("avc1"/"avc3", ``csrc/h264.cpp``), behind one demuxer
+(``csrc/mp4.h``).
 
 The JAX package reads videos with ``cv2.VideoCapture`` and writes the NeRF
 fly-through with ``cv2.VideoWriter(..., fourcc "mp4v")``, both through
-FFmpeg. The codec writes FFmpeg's decoding rules out, so ``read_video`` gives
-``cv2.VideoCapture``'s BGR frames bit for bit on mp4v files (I- and P-VOPs,
-any size; tests/test_torch_mp4v.py), and ``VideoWriter`` writes files that
-``cv2.VideoCapture`` reads back with the same frame count, size and frame
-rate. Streams the codec does not take (H.264/HEVC sample entries such as
-avc1 or hvc1, B-VOPs, sprites/GMC, interlace, quarter-pel, data
-partitioning, video packets, the short video header) raise
-``UnsupportedVideoError`` instead of being skipped.
+FFmpeg. ``VideoReader`` picks the codec by the first video track's sample
+entry. The mp4v codec writes FFmpeg's decoding rules out, so ``read_video``
+gives ``cv2.VideoCapture``'s BGR frames bit for bit on mp4v files (I- and
+P-VOPs, any size; tests/test_torch_mp4v.py), and ``VideoWriter`` writes files
+that ``cv2.VideoCapture`` reads back with the same frame count, size and
+frame rate. H.264 is bit-exact by its standard, so the H.264 decoder gives
+FFmpeg's YUV planes, and cv2's BGR frames bit for bit, on progressive 8-bit
+4:2:0 I and P slices of the Constrained Baseline, Main and High profiles,
+CAVLC and CABAC (tests/test_torch_h264.py), which is what a phone records
+when it does not use B-frames or HEVC. The display matrix of a phone's
+portrait video is applied as cv2 applies it: the frames come rotated by 90,
+180 or 270 degrees, and ``width``/``height`` are the rotated frame's.
+Streams the codecs do not take raise ``UnsupportedVideoError`` naming the
+feature instead of being skipped: other sample entries (hvc1, ...), an edit
+list other than the identity, a display matrix that is no rotation by a
+multiple of 90 degrees; in mp4v B-VOPs, sprites/GMC, interlace, quarter-pel,
+data partitioning, video packets and the short video header; in H.264 B, SP
+and SI slices, fields and MBAFF, other chroma formats and bit depths, slice
+groups, redundant pictures, data partitioning, the lossless transform bypass,
+gaps in frame_num, a left crop, and the colour descriptions whose frames cv2
+converts through colour management (BT.2020 primaries, PQ/HLG transfers, the
+GBR, YCgCo and BT.2020 matrices). Full range and the BT.601/BT.709 matrices
+convert as cv2 converts them.
 
 Frames are (H, W, 3) uint8 in BGR order, as cv2 hands them over.
 """
@@ -26,45 +43,63 @@ import numpy as np
 from ..ops import _build
 
 SOURCE = "mp4v.cpp"
+H264_SOURCE = "h264.cpp"
+H264_ENTRIES = ("avc1", "avc3")
 DEFAULT_QSCALE = 3   # the fixed quantiser: ~36 dB on smooth content
 DEFAULT_GOP = 12     # an I-VOP every 12 frames, P-VOPs between (cv2's GOP)
 # the counters of mp4v_stats, in the codec's order
 STAT_NAMES = ("i_vops", "p_vops", "rounding_vops", "intra_mbs", "inter_mbs", "four_mv_mbs",
               "not_coded_mbs", "half_pel_vectors", "escape1", "escape2", "escape3",
               "ac_pred_mbs", "dc_as_ac_blocks", "mpeg_quant_vops")
+# the counters of h264_stats, in the codec's order (long_term_refs: the
+# long-term reference pictures held, summed over the pictures decoded;
+# deblocked_slices: disable_deblocking_filter_idc 0 or 2;
+# slice_edge_unfiltered_slices: idc 2, whose slices' edges stay unfiltered;
+# scaling_list_slices: slices whose scaling lists are not flat)
+H264_STAT_NAMES = ("idr_pictures", "i_slices", "p_slices", "cabac_slices", "intra4x4_mbs",
+                   "intra8x8_mbs", "intra16x16_mbs", "pcm_mbs", "inter_mbs", "skip_mbs",
+                   "sub8x8_mbs", "transform8x8_mbs", "weighted_slices", "long_term_refs",
+                   "mmcos", "deblocked_slices", "slice_edge_unfiltered_slices",
+                   "scaling_list_slices", "ref_list_modified_slices")
 _ERRLEN = 256
 
 
 class UnsupportedVideoError(ValueError):
-    """A valid file of a kind the mp4v codec does not take: another sample
-    entry (avc1, hvc1, ...), B-VOPs, sprites, interlace, quarter-pel, data
-    partitioning, video packets or the short video header."""
+    """A valid file of a kind the port's codecs do not take: another sample
+    entry (hvc1, ...), another edit list or display matrix; in mp4v B-VOPs,
+    sprites, interlace, quarter-pel, data partitioning, video packets or the
+    short video header; in H.264 B/SP/SI slices, fields/MBAFF, other chroma
+    formats or bit depths, slice groups, redundant pictures, data
+    partitioning, the transform bypass or a gap in frame_num."""
 
 
-_LIB = None
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.load(SOURCE)
-        p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
-        lib.mp4v_open.argtypes = [s, p, s, i]
-        lib.mp4v_open.restype = p
-        lib.mp4v_read.argtypes = [p, p, s, i]
-        lib.mp4v_read.restype = i
-        lib.mp4v_stats.argtypes = [p, p]
-        lib.mp4v_stats.restype = i
-        lib.mp4v_close.argtypes = [p]
-        lib.mp4v_close.restype = None
-        lib.mp4v_writer_open.argtypes = [s, i, i, i, i, p, s, i]
-        lib.mp4v_writer_open.restype = p
-        lib.mp4v_writer_write.argtypes = [p, p, s, i]
-        lib.mp4v_writer_write.restype = i
-        lib.mp4v_writer_close.argtypes = [p, s, i]
-        lib.mp4v_writer_close.restype = i
-        _LIB = lib
-    return _LIB
+def _declare(lib: ctypes.CDLL, prefix: str) -> None:
+    p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
+    for name, args, res in (("open", [s, p, s, i], p), ("read", [p, p, s, i], i),
+                            ("stats", [p, p], i), ("close", [p], None)):
+        fn = getattr(lib, f"{prefix}_{name}")
+        fn.argtypes, fn.restype = args, res
+    lib.mp4_sample_entry.argtypes = [s, s, s, i]
+    lib.mp4_sample_entry.restype = i
+
+
+def _lib(source: str = SOURCE) -> ctypes.CDLL:
+    if source not in _LIBS:
+        lib = _build.load(source)
+        _declare(lib, "mp4v" if source == SOURCE else "h264")
+        if source == SOURCE:
+            p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
+            lib.mp4v_writer_open.argtypes = [s, i, i, i, i, p, s, i]
+            lib.mp4v_writer_open.restype = p
+            lib.mp4v_writer_write.argtypes = [p, p, s, i]
+            lib.mp4v_writer_write.restype = i
+            lib.mp4v_writer_close.argtypes = [p, s, i]
+            lib.mp4v_writer_close.restype = i
+        _LIBS[source] = lib
+    return _LIBS[source]
 
 
 def _raise(code: int, err: ctypes.Array, what: str) -> None:
@@ -72,17 +107,35 @@ def _raise(code: int, err: ctypes.Array, what: str) -> None:
     raise (UnsupportedVideoError if code == -2 else ValueError)(msg)
 
 
+def sample_entry(path: str) -> str:
+    """The first video track's sample entry: "mp4v", "avc1", "hvc1", ..."""
+    entry = ctypes.create_string_buffer(8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    code = _lib().mp4_sample_entry(path.encode(), entry, err, _ERRLEN)
+    if code:
+        _raise(code, err, path)
+    return entry.value.decode(errors="replace")
+
+
 class VideoReader:
-    """An open mp4v file: ``frames``, ``fps``, ``width``, ``height``; iterate
+    """An open mp4v or H.264 file: ``frames``, ``fps``, ``width``,
+    ``height`` (as displayed, after the display matrix's rotation); iterate
     for the decoded BGR frames, ``stats`` for what the stream used so far."""
 
     def __init__(self, path: str):
         self.path = path
         self._h = None
-        lib = _lib()
+        self.codec = "h264" if sample_entry(path) in H264_ENTRIES else "mp4v"
+        lib = _lib(H264_SOURCE if self.codec == "h264" else SOURCE)
+        prefix = self.codec
+        self._read, self._stats_fn = getattr(lib, f"{prefix}_read"), getattr(lib, f"{prefix}_stats")
+        # held here: at interpreter exit __del__ may run after the module's
+        # globals are gone
+        self._close = getattr(lib, f"{prefix}_close")
+        self._stat_names = H264_STAT_NAMES if self.codec == "h264" else STAT_NAMES
         info = np.zeros(5, np.int64)
         err = ctypes.create_string_buffer(_ERRLEN)
-        self._h = lib.mp4v_open(path.encode(), info.ctypes.data, err, _ERRLEN)
+        self._h = getattr(lib, f"{prefix}_open")(path.encode(), info.ctypes.data, err, _ERRLEN)
         if not self._h:
             _raise(int(info[0]), err, path)
         self.frames, self.width, self.height = (int(v) for v in info[:3])
@@ -95,16 +148,16 @@ class VideoReader:
             return None
         out = np.empty((self.height, self.width, 3), np.uint8)
         err = ctypes.create_string_buffer(_ERRLEN)
-        code = _lib().mp4v_read(self._h, out.ctypes.data, err, _ERRLEN)
+        code = self._read(self._h, out.ctypes.data, err, _ERRLEN)
         if code < 0:
             _raise(code, err, self.path)
         return out if code == 1 else None
 
     @property
     def stats(self) -> Dict[str, int]:
-        out = np.zeros(len(STAT_NAMES) + 2, np.int64)
-        n = _lib().mp4v_stats(self._h, out.ctypes.data)
-        return dict(zip(STAT_NAMES, (int(v) for v in out[:n])))
+        out = np.zeros(len(self._stat_names) + 2, np.int64)
+        n = self._stats_fn(self._h, out.ctypes.data)
+        return dict(zip(self._stat_names, (int(v) for v in out[:n])))
 
     def __iter__(self) -> Iterator[np.ndarray]:
         while True:
@@ -115,8 +168,8 @@ class VideoReader:
 
     def close(self) -> None:
         if self._h:
-            _lib().mp4v_close(self._h)
-            self._h = None
+            h, self._h = self._h, None
+            self._close(h)
 
     def __enter__(self) -> "VideoReader":
         return self
@@ -125,19 +178,21 @@ class VideoReader:
         self.close()
 
     def __del__(self) -> None:
-        self.close()
+        if getattr(self, "_h", None):
+            self.close()
 
 
 def video_info(path: str) -> Tuple[int, float, int, int]:
     """(frames, fps, width, height), as cv2.VideoCapture's CAP_PROP_FRAME_COUNT,
-    CAP_PROP_FPS, CAP_PROP_FRAME_WIDTH and CAP_PROP_FRAME_HEIGHT give them."""
+    CAP_PROP_FPS, CAP_PROP_FRAME_WIDTH and CAP_PROP_FRAME_HEIGHT give them
+    (the size after the display matrix's rotation)."""
     with VideoReader(path) as r:
         return r.frames, r.fps, r.width, r.height
 
 
 def read_video(path: str) -> Iterator[np.ndarray]:
-    """The frames of an mp4v file in order, each (H, W, 3) BGR uint8, as
-    ``cap.read()`` returns them."""
+    """The frames of an mp4v or H.264 file in order, each (H, W, 3) BGR
+    uint8, as ``cap.read()`` returns them."""
     with VideoReader(path) as r:
         yield from r
 

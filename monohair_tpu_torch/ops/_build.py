@@ -4,7 +4,8 @@ Each source under ``monohair_tpu_torch/csrc/`` compiles at first use into a
 shared library with a C interface, in ``build/monohair_tpu_torch/`` at the
 repository root (git-ignored): CUDA sources (``.cu``) with plain nvcc for
 sm_90a, host C++ sources (``.cpp``) with g++. The library's name carries a
-hash of the source and the flags (for host C++ also of the CPU that
+hash of the source, of the headers beside it (``csrc/*.h``, which the
+sources include) and of the flags (for host C++ also of the CPU that
 -march=native targets), so an unchanged source is not rebuilt, and
 it is renamed into place atomically, so concurrent builds (test workers) see
 all or nothing. A failed build raises with the compiler's output; there is no
@@ -79,8 +80,9 @@ def build(source: str) -> Path:
     cuda = src.suffix == ".cu"
     flags = NVCC_FLAGS if cuda else GXX_FLAGS
     target = "" if cuda else native_target()
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode() + target.encode()
-                            ).hexdigest()[:16]
+    headers = b"".join(h.name.encode() + h.read_bytes() for h in sorted(CSRC_DIR.glob("*.h")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()
+                            + target.encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{src.stem}-{digest}.so"
     if lib.exists():
         BUILD_INFO.setdefault(source, {"seconds": 0.0, "log": "", "path": str(lib)})

@@ -15,7 +15,9 @@ trains a few steps on a small written case and resumes,
 synthwig case, PMVO runs with bf16 maps on a mesh of two CPU shards beside
 the debug exports, `python -m monohair_tpu_torch.segment.convert` writes
 a public-named FAN checkpoint as a flax tree, and the mp4v codec writes and
-reads a video, from which extract_sharpest_frames keeps its frames, and
+reads a video, from which extract_sharpest_frames keeps its frames, as it
+does from an H.264 stream of the port's test-stream writer rotated by 90
+degrees, and
 writes a small NeRF fly-through, and `python -m
 monohair_tpu_torch.train_hair_parser` draws its frames, trains both nets a
 few steps at a tiny size and writes its four files."""
@@ -287,6 +289,15 @@ GUARDED = textwrap.dedent('''
         kept = extract_sharpest_frames(path, os.path.join(tmp, "frames"), interval=3,
                                        device="cpu")
         assert kept == ["frame_00000.png", "frame_00001.png"], kept
+        from monohair_tpu_torch.io.h264_streams import write_frames
+        h264 = os.path.join(tmp, "v264.mp4")
+        write_frames(h264, [rng.integers(0, 256, (24, 32, 3), dtype=np.uint8) if i in (1, 4)
+                            else np.full((24, 32, 3), 128, np.uint8) for i in range(6)],
+                     fps=10, rotation=90)
+        assert video_info(h264) == (6, 10.0, 24, 32)
+        kept = extract_sharpest_frames(h264, os.path.join(tmp, "frames264"), interval=3,
+                                       device="cpu")
+        assert kept == ["frame_00000.png", "frame_00001.png"], kept
         c2w = [np.eye(4), np.eye(4)]
         c2w[1][:3, 3] = [0.1, 0.0, 0.0]
         save_base_cam(os.path.join(tmp, "base_cam.json"),
@@ -297,8 +308,9 @@ GUARDED = textwrap.dedent('''
         assert render_camera_path_video(field, os.path.join(tmp, "base_cam.json"), out,
                                         H=8, W=16, frames_per_seg=2) == 2
         assert video_info(out) == (2, 24.0, 16, 8)
-    assert _build.BUILD_INFO["mp4v.cpp"]["path"].startswith(
-        os.path.join(os.getcwd(), "build", "monohair_tpu_torch") + os.sep)
+    for source in ("mp4v.cpp", "h264.cpp", "h264_writer.cpp"):
+        assert _build.BUILD_INFO[source]["path"].startswith(
+            os.path.join(os.getcwd(), "build", "monohair_tpu_torch") + os.sep)
 
     # the train_hair_parser CLI, as `python -m` runs it: 2 + 1 frames of 32x32,
     # both nets at width 0.125 for 2 steps, evaluated through the runners

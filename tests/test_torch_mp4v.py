@@ -12,8 +12,10 @@ least 30 dB against the source on smooth content, and the port decodes them
 to cv2's frames bitwise, also with the stream features that FFmpeg's
 default writer does not use (4MV, AC prediction, MPEG quantisation,
 intra DC coded as AC). A port file rewritten with moov before mdat, or
-with co64 chunk offsets, reads as cv2 reads it. An avc1 sample entry, a
-B-VOP and a video packet raise UnsupportedVideoError."""
+with co64 chunk offsets, reads as cv2 reads it. A display matrix of 90, 180
+or 270 degrees, on an mp4v file of cv2's and on an H.264 file of the port's
+test-stream writer, gives cv2's rotated frames and cv2's video_info. An hvc1
+sample entry, a B-VOP and a video packet raise UnsupportedVideoError."""
 
 import os
 import struct
@@ -237,10 +239,41 @@ def test_other_sample_entries_raise_unsupported(tmp_path):
     path = _port_file(tmp_path)
     data = open(path, "rb").read()
     assert data.count(b"mp4v") == 1
-    bad = tmp_path / "avc1.mp4"
-    bad.write_bytes(data.replace(b"mp4v", b"avc1"))
-    with pytest.raises(UnsupportedVideoError, match="avc1"):
+    bad = tmp_path / "hvc1.mp4"
+    bad.write_bytes(data.replace(b"mp4v", b"hvc1"))
+    with pytest.raises(UnsupportedVideoError, match="hvc1"):
         VideoReader(str(bad))
+
+
+# the tkhd matrix of a clockwise rotation, as a phone writes it (FFmpeg's sign
+# convention: cv2 rotates 90 degrees clockwise for [0 1; -1 0])
+ROTATIONS = {90: [0, 65536, 0, -65536, 0, 0, 0, 0, 1 << 30],
+             180: [-65536, 0, 0, 0, -65536, 0, 0, 0, 1 << 30],
+             270: [0, -65536, 0, 65536, 0, 0, 0, 0, 1 << 30]}
+
+
+@pytest.mark.parametrize("codec", ["mp4v", "h264"])
+@pytest.mark.parametrize("degrees", sorted(ROTATIONS))
+def test_display_matrix_rotates_as_cv2(codec, degrees, tmp_path):
+    from monohair_tpu_torch.io.h264_streams import write_random
+    path = str(tmp_path / "r.mp4")
+    if codec == "mp4v":
+        cv2_write(path, smooth_frames(48, 64, 4), 10)
+        data = bytearray(open(path, "rb").read())
+        tkhd = data.index(b"tkhd") + 4
+        off = tkhd + (52 if data[tkhd] == 1 else 40)
+        data[off:off + 36] = b"".join(v.to_bytes(4, "big", signed=True)
+                                      for v in ROTATIONS[degrees])
+        open(path, "wb").write(bytes(data))
+    else:
+        write_random(path, (64, 48), 4, seed=degrees, rotation=degrees)
+    want, props = cv2_read(path)
+    assert video_info(path) == props
+    assert props[2:] == ((48, 64) if degrees != 180 else (64, 48))
+    got = list(read_video(path))
+    assert_same_frames(got, want)
+    with VideoReader(path) as reader:
+        assert (reader.width, reader.height) == props[2:]
 
 
 def test_a_b_vop_raises_unsupported(tmp_path):

@@ -6,7 +6,9 @@ monohair_tpu_torch.nerf.pipeline.render_camera_path_video
 Held: on the same cv2-written video, the port keeps the JAX function's frame
 names, and its PNGs hold the same pixels (the decoder gives cv2's frames
 bitwise, so no tolerance) and its JPEGs the same bytes; tests/test_video.py's
-case. The fly-through's frames before encoding, on a small Fourier field
+case. The same on an H.264 file of the port's test-stream writer, on one
+whose display matrix turns it by 90 degrees (a portrait phone video: the
+kept frames are portrait in both packages) and on an mp4v file so turned. The fly-through's frames before encoding, on a small Fourier field
 carried across with nerf/convert.py along a 3-pose path: the same count and
 size as the JAX function's, and the same uint8 values but for truncation at
 the edge of a quantisation step (the renders agree to ~1e-6 relative, so a
@@ -24,6 +26,7 @@ import torch
 
 from monohair_tpu.nerf import pipeline as jpipe
 from monohair_tpu.video import extract_sharpest_frames as jax_extract
+from monohair_tpu_torch.io.h264_streams import write_frames
 from monohair_tpu_torch.io.video import read_video
 from monohair_tpu_torch.nerf import pipeline
 from monohair_tpu_torch.nerf.poses import save_base_cam
@@ -77,6 +80,44 @@ def test_extract_sharpest_frames_keeps_the_jax_frames(ext, tmp_path):
     kept = cv2.imread(str(tmp_path / "jax" / got[1])) if ext == ".png" else None
     if kept is not None:
         assert np.array_equal(kept, frames[6])
+
+
+def _rotate_90(path):
+    data = bytearray(open(path, "rb").read())
+    tkhd = data.index(b"tkhd") + 4
+    off = tkhd + (52 if data[tkhd] == 1 else 40)
+    data[off:off + 36] = b"".join(v.to_bytes(4, "big", signed=True)
+                                  for v in [0, 65536, 0, -65536, 0, 0, 0, 0, 1 << 30])
+    open(path, "wb").write(bytes(data))
+
+
+@pytest.mark.parametrize("ext", [".png", ".jpg"])
+@pytest.mark.parametrize("kind", ["h264", "h264_rotated", "mp4v_rotated"])
+def test_extract_sharpest_frames_from_h264_and_rotated_videos(kind, ext, tmp_path):
+    video = str(tmp_path / "v.mp4")
+    frames = sharp_and_blurred(13)
+    if kind == "mp4v_rotated":
+        cv2_write(video, frames, 30)
+        _rotate_90(video)
+    else:
+        write_frames(video, frames, fps=30, qp=20, gop=4,
+                     rotation=90 if kind == "h264_rotated" else 0)
+    fmt = "frame_{:05d}" + ext
+    want = jax_extract(video, str(tmp_path / "jax"), interval=5, name_fmt=fmt)
+    got = extract_sharpest_frames(video, str(tmp_path / "port"), interval=5, name_fmt=fmt,
+                                  device="cpu")
+    assert got == want and len(got) == 2
+    shape = (64, 48, 3) if kind.endswith("rotated") else (48, 64, 3)
+    for name in got:
+        a, b = (str(tmp_path / d / name) for d in ("port", "jax"))
+        if ext == ".png":
+            assert cv2.imread(a).shape == shape
+            assert np.array_equal(cv2.imread(a), cv2.imread(b)), name
+        else:
+            assert open(a, "rb").read() == open(b, "rb").read(), name
+    if ext == ".png":  # the sharp frame of the second window: frame 6
+        assert np.array_equal(cv2.imread(str(tmp_path / "port" / got[1])),
+                              list(read_video(video))[6])
 
 
 def test_the_jax_packages_case(tmp_path, rng):
