@@ -140,7 +140,12 @@ Phases, each printing a line when it starts and when it ends:
               trip's PSNR (>= 30 dB); extract_sharpest_frames on the card keeps
               the sharp frames; the 1080p file with a 90-degree display
               matrix (a portrait phone video) keeps them as 1080x1920
-              portrait frames, cv2's rotation; frames/s of each
+              portrait frames, cv2's rotation; frames/s of each; then 14b's
+              frames as I/P/B (two B pictures between anchors, the middle
+              one a reference, implicit weights, CABAC, QP 24, with the MP4
+              composition offsets and edit list of FFmpeg's muxer): ms a
+              frame to decode, PSNR (>= 30 dB), the extraction's frames/s
+              and kept frames
  15. hair parser training
               15a BiSeNet (the hair parser) and MODNet (the matte) at width
               1.0, flax's initialisers from a seed: one training step of 2
@@ -1846,7 +1851,7 @@ def phase_ngp(dev: torch.device) -> dict:
 # ---------------------------------------------------------------------------
 
 FIT_ITERS = 1000                 # half run_bust_fit's default 2000 (optimize.iter): room for phase 14
-FIT_BUDGET_S = 120.0             # the fit's share of the smoke run's time limit
+FIT_BUDGET_S = 60.0              # the fit's share of the smoke run's time limit
 FIT_TIMED_STEPS = 20             # steady steps timed with CUDA events
 FAN_CHECK_FRAMES = 2             # frames whose heatmaps are held card against CPU
 
@@ -2682,6 +2687,7 @@ VIDEO_INTERVAL = 5               # extract_sharpest_frames's default
 VIDEO_BLUR = 9                   # the box blur of the frames that are not sharp
 VIDEO_MIN_PSNR = 30.0            # the codec's round trip on the scene at qscale 3
 H264_QP = 24                     # 14d: the H.264 test-stream writer's fixed quantiser
+H264_B = dict(bframes=2, pyramid=1, bipred_idc=2, refs=3, gop=12)  # 14d's I/P/B stream
 FLY_SIZE = (720, 1280)           # render_camera_path_video's default (H, W)
 FLY_POSES = 3
 FLY_FRAMES_PER_SEG = 4
@@ -2907,7 +2913,53 @@ def phase_video_h264(dev: torch.device, tmp: str, frames_first: list) -> dict:
             check_kept(decoded, pdir, pkept, sharp, True, "14d portrait")
             out["portrait"] = dict(seconds=p_s, frames_per_s=VIDEO_FRAMES / p_s, kept=len(pkept),
                                    shape=list(shape))
+    out["b_frames"] = phase_video_h264_b(dev, tmp, frames_first, sharp)
     return out
+
+
+def phase_video_h264_b(dev: torch.device, tmp: str, frames: list, sharp: list) -> dict:
+    """14d, I/P/B: 14b's 1920x1080 frames with B pictures as x264 writes them
+    by default (B references, implicit weights), decoded on the host and
+    through the extraction on the card."""
+    H, W = CODEC_SIZES[0]
+    path = os.path.join(tmp, "h264_b.mp4")
+    t = time.perf_counter()
+    h264_streams.write_frames(path, frames, fps=VIDEO_FPS, qp=H264_QP, cabac=True, **H264_B)
+    enc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with video_io.VideoReader(path) as reader:
+        decoded = list(reader)
+        stats = reader.stats
+    dec_s = time.perf_counter() - t
+    info = video_io.video_info(path)
+    psnrs = [video_psnr(a, b) for a, b in zip(decoded, frames)]
+    out_dir = os.path.join(tmp, "h264_b_frames")
+    sync(dev)
+    t = time.perf_counter()
+    kept = extract_sharpest_frames(path, out_dir, interval=VIDEO_INTERVAL, device=dev)
+    sync(dev)
+    ext_s = time.perf_counter() - t
+    res = dict(encode_s=enc_s, decode_ms=dec_s / len(frames) * 1e3, min_psnr=min(psnrs),
+               bytes=os.path.getsize(path), extract_s=ext_s, frames_per_s=VIDEO_FRAMES / ext_s,
+               kept=len(kept), **{k: stats[k] for k in (
+                   "i_slices", "p_slices", "b_slices", "b_skip_mbs", "direct_mbs",
+                   "bipred_partitions", "implicit_weighted_slices", "b_reference_pictures",
+                   "dropped_pictures")})
+    log(f"14d H.264 I/P/B at {W}x{H} ({H264_B}): {len(frames)} frames written in "
+        f"{enc_s:.3f} s ({res['bytes']} bytes, {stats['i_slices']} I, {stats['p_slices']} P and "
+        f"{stats['b_slices']} B slices, {stats['b_reference_pictures']} B references, "
+        f"{stats['b_skip_mbs']} B_Skip and {stats['direct_mbs']} direct macroblocks, "
+        f"{stats['bipred_partitions']} bi-predicted partitions); decode {res['decode_ms']:.3f} ms "
+        f"a frame on the host; round trip PSNR min {res['min_psnr']:.2f} dB; "
+        f"extract_sharpest_frames {ext_s:.3f} s, {res['frames_per_s']:.2f} frames/s, "
+        f"kept {len(kept)}")
+    if (info != (len(frames), float(VIDEO_FPS), W, H) or len(decoded) != len(frames)
+            or res["min_psnr"] < VIDEO_MIN_PSNR or not stats["b_slices"]
+            or not stats["implicit_weighted_slices"] or not stats["b_reference_pictures"]
+            or stats["dropped_pictures"] or not stats["cabac_slices"]):
+        raise AssertionError(f"14d: the H.264 I/P/B round trip: {info}, {res}")
+    check_kept(decoded, out_dir, kept, sharp, False, "14d I/P/B")
+    return res
 
 
 def phase_video_fly(dev: torch.device, tmp: str) -> dict:
@@ -2972,7 +3024,7 @@ PARSER_SIZE = 512                # the tool's frames (S)
 PARSER_BATCH = 4                 # the tool's --batch
 PARSER_CHECK = (2, 256)          # 15a's card-vs-CPU step: batch and frame size
 PARSER_TIMED_STEPS = 20          # steady steps timed with CUDA events
-PARSER_BUDGET_S = 40.0           # 15b: the CLI's training time, both nets (the script's time)
+PARSER_BUDGET_S = 30.0           # 15b: the CLI's training time, both nets (the script's time)
 PARSER_FRAMES = (64, 8)          # 15b: training and eval frames (the tool's: 640 + 48)
 PARSER_GATE_WINDOW = 25          # 15b: the first and last steps whose mean losses are compared
 PARSER_NETS = {"parser": (lambda: BiSeNet(19, width=1.0), parser_loss, True, 0),

@@ -15,9 +15,12 @@
 // swscale, then rotated by the display matrix. What cv2 converts otherwise
 // is refused by name: a left crop (FFmpeg aligns the planes and cv2 then
 // rescales), BT.2020 or other primaries (gamut mapping), PQ/HLG transfers
-// (tone mapping), the GBR, YCgCo and BT.2020 matrices. Frames leave in POC order, as FFmpeg hands
-// them to cv2 (held back by max_num_reorder_frames when the VUI gives it),
-// and the last ones are flushed at the end of the stream.
+// (tone mapping), the GBR, YCgCo and BT.2020 matrices. Frames leave in the
+// order FFmpeg hands them to cv2: held back by the reorder delay that the
+// container's composition offsets (ctts) and the VUI's
+// max_num_reorder_frames give, and without the VUI by the delay FFmpeg
+// learns from the POCs it sees, dropping the pictures that come too late as
+// it does; the last ones are flushed at the end of the stream.
 //
 // Bit parsing is serial, so this stays on the host, as FFmpeg does in the
 // JAX package.
@@ -84,6 +87,7 @@ struct Reader {
       });
     }
     if (!coded_w) fail("no sequence parameter set");
+    codec.has_b_frames = movie.video_delay;
   }
 
   template <class F>

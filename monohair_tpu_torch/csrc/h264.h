@@ -10,17 +10,27 @@
 // pictures. The writer's streams are held against FFmpeg's decoder (cv2),
 // never only against this decoder.
 //
-// Scope: progressive (frame_mbs_only_flag 1) 8-bit 4:2:0 I and P slices of
+// Scope: progressive (frame_mbs_only_flag 1) 8-bit 4:2:0 I, P and B slices of
 // the Constrained Baseline, Main and High profiles, CAVLC and CABAC: Intra
 // 4x4/8x8/16x16 and I_PCM, P_L0 16x16/16x8/8x16, P_8x8(ref0) with
-// sub-partitions, P_Skip, the 8x8 transform, flat or loaded scaling lists
+// sub-partitions, P_Skip, every B mb_type and sub_mb_type, B_Skip and
+// B_Direct_16x16 with spatial and temporal direct prediction (with and
+// without direct_8x8_inference), bi-prediction with default, explicit and
+// implicit weights, the 8x8 transform, flat or loaded scaling lists
 // (fall-back rules A and B), explicit weighted prediction, long-term
-// references and MMCO 1-6, ref_pic_list_modification, POC types 0-2, several
-// slices a picture, the deblocking filter with disable_deblocking_filter_idc
-// 0-2 and its offsets, constrained_intra_pred. Everything else is refused by
-// name (Error code 2): B, SP and SI slices, fields and MBAFF, chroma formats
-// other than 4:2:0, bit depths above 8, the transform bypass, slice groups,
-// redundant pictures, data partitioning, gaps in frame_num.
+// references and MMCO 1-6, ref_pic_list_modification of both lists, B
+// pictures used as references, POC types 0-2, several slices a picture of
+// mixed types, the deblocking filter with disable_deblocking_filter_idc 0-2
+// and its offsets, constrained_intra_pred. Where FFmpeg (cv2) departs from the
+// standard, its way is taken, as each place says: the pictures it outputs
+// and drops (h264_select_output_frame), the POC it keeps after an MMCO 5,
+// the co-located picture's lists that
+// its frame threads keep, the weighting of its x86 SIMD, its fast loop
+// filter's bS for 8x8-transform macroblocks. Everything else is
+// refused by name (Error code 2): SP and SI slices, fields and MBAFF, chroma
+// formats other than 4:2:0, bit depths above 8, the transform bypass, slice
+// groups, redundant pictures, data partitioning, gaps in frame_num, reference
+// lists longer than the references held.
 
 #pragma once
 
@@ -476,10 +486,10 @@ void sps_syntax(Bits& b, SPS& s) {
     }
     s.timing = b.flag(s.timing);
     if (s.timing) {
-      s.units_in_tick = b.u(16, s.units_in_tick >> 16) << 16;
-      s.units_in_tick |= b.u(16, s.units_in_tick & 0xFFFF);
-      s.time_scale = b.u(16, s.time_scale >> 16) << 16;
-      s.time_scale |= b.u(16, s.time_scale & 0xFFFF);
+      uint32_t hi = b.u(16, s.units_in_tick >> 16);
+      s.units_in_tick = hi << 16 | b.u(16, s.units_in_tick & 0xFFFF);
+      hi = b.u(16, s.time_scale >> 16);
+      s.time_scale = hi << 16 | b.u(16, s.time_scale & 0xFFFF);
       s.fixed_rate = b.flag(s.fixed_rate);
     }
     s.nal_hrd = b.flag(s.nal_hrd);
@@ -535,6 +545,7 @@ void pps_syntax(Bits& b, PPS& p, const SPS* sps_table) {
     fail("num_ref_idx_default_active > 32");
   p.weighted_pred = b.flag(p.weighted_pred);
   p.weighted_bipred_idc = b.u(2, p.weighted_bipred_idc);
+  if (p.weighted_bipred_idc > 2) fail("weighted_bipred_idc 3");
   p.pic_init_qp = b.se(p.pic_init_qp - 26) + 26;
   p.pic_init_qs = b.se(p.pic_init_qs - 26) + 26;
   p.cb_qp_offset = b.se(p.cb_qp_offset);
@@ -601,18 +612,65 @@ struct SliceHeader {
   int pps_id = 0, frame_num = 0, idr_pic_id = 0, poc_lsb = 0, delta_poc_bottom = 0;
   int delta_poc[2] = {0, 0};
   int redundant_pic_cnt = 0;
-  int override = 0, num_ref_idx_active = 1;
-  int ref_mod_flag = 0;
-  std::vector<RefMod> mods;
+  int direct_spatial = 1;
+  int override = 0, num_ref_idx_active[2] = {1, 1};
+  int ref_mod_flag[2] = {0, 0};
+  std::vector<RefMod> mods[2];
   int luma_log2_wd = 0, chroma_log2_wd = 0;
-  int luma_flag[32] = {0}, chroma_flag[32] = {0};
-  int luma_w[32], luma_o[32], chroma_w[32][2], chroma_o[32][2];
+  int luma_flag[2][32] = {{0}}, chroma_flag[2][32] = {{0}};
+  int luma_w[2][32], luma_o[2][32], chroma_w[2][32][2], chroma_o[2][32][2];
   int no_output_prior = 0, long_term_ref = 0, adaptive = 0;
   std::vector<Mmco> mmcos;
   int cabac_init_idc = 0, qp_delta = 0, qp = 26;
   int disable_deblock = 0, alpha_div2 = 0, beta_div2 = 0;
   bool idr() const { return nal_type == 5; }
+  int lists() const { return type == 1 ? 2 : type == 0 ? 1 : 0; }
 };
+
+// ref_pic_list_modification( ) of one list
+void ref_mods_syntax(Bits& b, int& flag, std::vector<RefMod>& mods) {
+  flag = b.flag(flag);
+  if (!flag) return;
+  if (!b.writing) mods.clear();
+  for (size_t i = 0;; i++) {
+    if (!b.writing) mods.push_back(RefMod());
+    if (i >= mods.size()) fail("internal: ref_pic_list_modification without its end");
+    RefMod& m = mods[i];
+    m.idc = b.ue(m.idc);
+    if (m.idc == 3) break;
+    if (m.idc > 3) fail("modification_of_pic_nums_idc > 3");
+    m.val = b.ue(m.val);
+    if (i > 64) fail("too many reference list modifications");
+  }
+}
+
+// pred_weight_table( ): list 0, and list 1 of a B slice
+void weight_table_syntax(Bits& b, SliceHeader& h) {
+  h.luma_log2_wd = b.ue(h.luma_log2_wd);
+  h.chroma_log2_wd = b.ue(h.chroma_log2_wd);
+  if (h.luma_log2_wd > 7 || h.chroma_log2_wd > 7) fail("log2_weight_denom > 7");
+  for (int l = 0; l < h.lists(); l++)
+    for (int i = 0; i < h.num_ref_idx_active[l]; i++) {
+      h.luma_flag[l][i] = b.flag(h.luma_flag[l][i]);
+      if (h.luma_flag[l][i]) {
+        h.luma_w[l][i] = b.se(h.luma_w[l][i]);
+        h.luma_o[l][i] = b.se(h.luma_o[l][i]);
+      } else {
+        h.luma_w[l][i] = 1 << h.luma_log2_wd;
+        h.luma_o[l][i] = 0;
+      }
+      h.chroma_flag[l][i] = b.flag(h.chroma_flag[l][i]);
+      for (int c = 0; c < 2; c++) {
+        if (h.chroma_flag[l][i]) {
+          h.chroma_w[l][i][c] = b.se(h.chroma_w[l][i][c]);
+          h.chroma_o[l][i][c] = b.se(h.chroma_o[l][i][c]);
+        } else {
+          h.chroma_w[l][i][c] = 1 << h.chroma_log2_wd;
+          h.chroma_o[l][i][c] = 0;
+        }
+      }
+    }
+}
 
 // slice_header( ); refuses what is out of scope as soon as it shows
 void slice_header_syntax(Bits& b, SliceHeader& h, const SPS* sps_table, const PPS* pps_table,
@@ -621,7 +679,6 @@ void slice_header_syntax(Bits& b, SliceHeader& h, const SPS* sps_table, const PP
   h.slice_type = b.ue(h.slice_type);
   if (h.slice_type > 9) fail("slice_type > 9");
   h.type = h.slice_type % 5;
-  if (h.type == 1) unsupported("B slices (slice_type " + std::to_string(h.slice_type) + ")");
   if (h.type == 3) unsupported("SP slices");
   if (h.type == 4) unsupported("SI slices");
   h.pps_id = b.ue(h.pps_id);
@@ -644,50 +701,17 @@ void slice_header_syntax(Bits& b, SliceHeader& h, const SPS* sps_table, const PP
     h.redundant_pic_cnt = b.ue(h.redundant_pic_cnt);
     if (h.redundant_pic_cnt) unsupported("redundant pictures (redundant_pic_cnt > 0)");
   }
-  if (h.type == 0) {
+  if (h.type == 1) h.direct_spatial = b.flag(h.direct_spatial);
+  if (h.type != 2) {
     h.override = b.flag(h.override);
-    if (h.override) h.num_ref_idx_active = b.ue(h.num_ref_idx_active - 1) + 1;
-    else h.num_ref_idx_active = p.num_ref_idx_default[0];
-    if (h.num_ref_idx_active > 32) fail("num_ref_idx_l0_active > 32");
-    h.ref_mod_flag = b.flag(h.ref_mod_flag);
-    if (h.ref_mod_flag) {
-      if (!b.writing) h.mods.clear();
-      for (size_t i = 0;; i++) {
-        if (!b.writing) h.mods.push_back(RefMod());
-        if (i >= h.mods.size()) fail("internal: ref_pic_list_modification without its end");
-        RefMod& m = h.mods[i];
-        m.idc = b.ue(m.idc);
-        if (m.idc == 3) break;
-        if (m.idc > 3) fail("modification_of_pic_nums_idc > 3");
-        m.val = b.ue(m.val);
-        if (i > 64) fail("too many reference list modifications");
-      }
+    for (int l = 0; l < h.lists(); l++) {
+      if (h.override) h.num_ref_idx_active[l] = b.ue(h.num_ref_idx_active[l] - 1) + 1;
+      else h.num_ref_idx_active[l] = p.num_ref_idx_default[l];
+      if (h.num_ref_idx_active[l] > 32) fail("num_ref_idx_active > 32");
     }
-    if (p.weighted_pred) {
-      h.luma_log2_wd = b.ue(h.luma_log2_wd);
-      h.chroma_log2_wd = b.ue(h.chroma_log2_wd);
-      if (h.luma_log2_wd > 7 || h.chroma_log2_wd > 7) fail("log2_weight_denom > 7");
-      for (int i = 0; i < h.num_ref_idx_active; i++) {
-        h.luma_flag[i] = b.flag(h.luma_flag[i]);
-        if (h.luma_flag[i]) {
-          h.luma_w[i] = b.se(h.luma_w[i]);
-          h.luma_o[i] = b.se(h.luma_o[i]);
-        } else {
-          h.luma_w[i] = 1 << h.luma_log2_wd;
-          h.luma_o[i] = 0;
-        }
-        h.chroma_flag[i] = b.flag(h.chroma_flag[i]);
-        for (int c = 0; c < 2; c++) {
-          if (h.chroma_flag[i]) {
-            h.chroma_w[i][c] = b.se(h.chroma_w[i][c]);
-            h.chroma_o[i][c] = b.se(h.chroma_o[i][c]);
-          } else {
-            h.chroma_w[i][c] = 1 << h.chroma_log2_wd;
-            h.chroma_o[i][c] = 0;
-          }
-        }
-      }
-    }
+    for (int l = 0; l < h.lists(); l++) ref_mods_syntax(b, h.ref_mod_flag[l], h.mods[l]);
+    if ((p.weighted_pred && h.type == 0) || (p.weighted_bipred_idc == 1 && h.type == 1))
+      weight_table_syntax(b, h);
   }
   if (h.nal_ref_idc) {
     if (h.idr()) {
@@ -738,6 +762,15 @@ void slice_header_syntax(Bits& b, SliceHeader& h, const SPS* sps_table, const PP
 }
 
 // ------------------------------------------------------------ pictures --
+// What a decoded picture keeps of a macroblock for the B pictures that take
+// it as their co-located picture (8.4.1.2.1)
+struct ColMb {
+  bool intra = true;
+  int shape = 0;        // FFmpeg's partition of it: 0 16x16 (or intra), 1 16x8, 2 8x16, 3 8x8
+  int8_t ref[2][4];     // refIdxLX by 8x8 in its slice, -1 list not used
+  int16_t mv[2][16][2];
+};
+
 struct Picture {
   int w = 0, h = 0;  // luma, whole macroblocks
   std::vector<uint8_t> p[3];
@@ -746,6 +779,15 @@ struct Picture {
   int long_idx = -1;
   bool ref_short = false, ref_long = false, mmco5 = false, idr = false;
   int id = 0;  // unique, for the deblocking filter's "same reference picture"
+  int first_type = 2;  // the type of its first slice
+  bool has_b = false;  // it has a B slice
+  int types = 0;       // its slice types (bits)
+  bool key = false, mmco_reset = false;  // FFmpeg's output marks: IDR, MMCO 5 before or at it
+  std::vector<ColMb> col;
+  // its last slice's reference lists as FFmpeg keeps them for the temporal
+  // direct mode's map: 4 * frame_num + 3 of each entry
+  int list_count[2] = {0, 0};
+  int list_key[2][32];
   void alloc(int width, int height) {
     w = width;
     h = height;
@@ -760,13 +802,21 @@ struct Picture {
 };
 typedef std::shared_ptr<Picture> PicPtr;
 
-// macroblock kinds
-enum Kind { I4 = 0, I8, I16, IPCM, P16x16, P16x8, P8x16, P8x8, PSKIP };
+// the narrowest prediction block whose weighting FFmpeg's x86 SIMD computes
+// (in 16-bit lanes that saturate; its weighted average halves the weights
+// when one is 128); narrower ones (chroma of 4-wide partitions) take its C code
+const int kSimdWidth = 4;
+inline int sat16(int v) { return v < -32768 ? -32768 : v > 32767 ? 32767 : v; }
+
+// macroblock kinds: the inter kinds of P and B slices share their partition
+// shapes (16x16, 16x8, 8x16, 8x8); BSKIP and BDIRECT are B_Skip and B_Direct_16x16
+enum Kind { I4 = 0, I8, I16, IPCM, P16x16, P16x8, P8x16, P8x8, PSKIP, BSKIP, BDIRECT };
 
 // What a decoded macroblock leaves for its neighbours and the deblocking filter
 struct MbInfo {
   int slice = -1;      // the slice's number in the picture; -1 not yet decoded
   int kind = I4;
+  int lists = 0;       // its slice's reference lists: 0 I, 1 P, 2 B
   bool intra = true, t8 = false;
   int cbp = 0;         // luma | chroma << 4
   int qp = 0;          // QPY (0 for I_PCM, as the deblocking filter takes it)
@@ -775,10 +825,13 @@ struct MbInfo {
   int cmode = 0;       // intra_chroma_pred_mode
   uint8_t nnz[24];     // coefficients a 4x4 block: luma raster 0..15, Cb 16..19, Cr 20..23
   bool dc[3] = {false, false, false};  // coded_block_flag of luma DC, Cb DC, Cr DC
-  int16_t mv[16][2];
-  int8_t ref[4];       // refIdxL0 by 8x8, -1 intra
-  int refpic[4];       // the referenced picture's id
-  int16_t mvd[16][2];
+  uint8_t direct = 0;  // its 8x8 blocks predicted in direct mode (bits)
+  int shape = 0;       // FFmpeg's partition of it (ColMb::shape)
+  uint8_t mcw[16];     // the width of FFmpeg's prediction block holding each 4x4 block
+  int16_t mv[2][16][2];
+  int8_t ref[2][4];    // refIdxLX by 8x8, -1 intra or list not used
+  int refpic[2][4];    // the referenced picture's id, 0 none
+  int16_t mvd[2][16][2];
 };
 
 // One macroblock's syntax: the writer fills it, the decoder reads into it
@@ -792,8 +845,8 @@ struct Mb {
   int ipred[16];       // intra 4x4 modes by luma4x4BlkIdx, 8x8 modes by 8x8 index
   int cmode = 0;
   int sub[4] = {0, 0, 0, 0};
-  int ref[4] = {0, 0, 0, 0};
-  int mv[16][2];       // the writer's motion vectors by partition (then sub-partition)
+  int ref[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+  int mv[2][16][2];    // the writer's motion vectors by list and partition (then sub-partition)
   int qp_delta = 0;
   int16_t luma[16][16];  // levels by luma4x4BlkIdx in scan order (8x8: 4 x 64 in luma8)
   int16_t luma8[4][64];
@@ -804,17 +857,33 @@ struct Mb {
 };
 
 struct WeightTable {
-  int on = 0, lwd = 0, cwd = 0;
-  int lw[32], lo[32], cw[32][2], co[32][2];
+  int on = 0;  // 0 none, 1 explicit, 2 implicit
+  int lwd = 0, cwd = 0;
+  int lw[2][32], lo[2][32], cw[2][32][2], co[2][32][2];
+  int implicit[32][32];  // w0 of (refIdxL0, refIdxL1); w1 = 64 - w0
 };
 
 // sub_mb_type of P: (partitions, width, height)
 const int kSubParts[4][3] = {{1, 8, 8}, {2, 8, 4}, {2, 4, 8}, {4, 4, 4}};
+// sub_mb_type of B (Table 7-18): (partitions, width, height, prediction:
+// 1 L0, 2 L1, 3 both); 0 is B_Direct_8x8
+const int kBSubParts[13][4] = {{4, 4, 4, 0}, {1, 8, 8, 1}, {1, 8, 8, 2}, {1, 8, 8, 3},
+                               {2, 8, 4, 1}, {2, 4, 8, 1}, {2, 8, 4, 2}, {2, 4, 8, 2},
+                               {2, 8, 4, 3}, {2, 4, 8, 3}, {4, 4, 4, 1}, {4, 4, 4, 2},
+                               {4, 4, 4, 3}};
+// mb_type 1..21 of B (Table 7-14): (kind, prediction of partition 0, of partition 1)
+const int kBTypes[22][3] = {
+    {BDIRECT, 0, 0}, {P16x16, 1, 0}, {P16x16, 2, 0}, {P16x16, 3, 0},
+    {P16x8, 1, 1}, {P8x16, 1, 1}, {P16x8, 2, 2}, {P8x16, 2, 2}, {P16x8, 1, 2}, {P8x16, 1, 2},
+    {P16x8, 2, 1}, {P8x16, 2, 1}, {P16x8, 1, 3}, {P8x16, 1, 3}, {P16x8, 2, 3}, {P8x16, 2, 3},
+    {P16x8, 3, 1}, {P8x16, 3, 1}, {P16x8, 3, 2}, {P8x16, 3, 2}, {P16x8, 3, 3}, {P8x16, 3, 3}};
 
 // the decoder's stream counters (io/video.py's H264_STAT_NAMES, in order)
 enum Stat {
   S_IDR, S_ISLICE, S_PSLICE, S_CABAC, S_I4, S_I8, S_I16, S_PCM, S_INTER, S_SKIP, S_SUB8,
-  S_T8, S_WEIGHTED, S_LONGTERM, S_MMCO, S_DEBLOCK, S_DEBLOCK2, S_SCALED, S_REFMOD, kStatCount
+  S_T8, S_WEIGHTED, S_LONGTERM, S_MMCO, S_DEBLOCK, S_DEBLOCK2, S_SCALED, S_REFMOD,
+  S_BSLICE, S_SPATIAL, S_TEMPORAL, S_BSKIP, S_DIRECT, S_BIPRED, S_IMPLICIT, S_BREF,
+  S_DROPPED, S_LTCOL, S_MIXED, kStatCount
 };
 
 
@@ -839,10 +908,10 @@ struct Codec {
   std::vector<SliceDb> slices;
   PicPtr cur;
   std::vector<PicPtr> dpb;    // reference pictures
-  std::vector<PicPtr> list0;  // RefPicList0 of the slice
+  std::vector<PicPtr> list[2];  // RefPicList0 and RefPicList1 of the slice
   std::vector<PicPtr> ready;  // decoded pictures in output order
-  std::vector<PicPtr> pending;
   WeightTable wt;
+  int dist_scale[32], col_map[2][32];  // temporal direct, per slice
   int64_t stats[kStatCount] = {0};
   int next_id = 1;
   bool started = false;  // an IDR picture was seen
@@ -861,7 +930,10 @@ struct Codec {
   uint16_t done = 0;  // its 4x4 blocks whose motion is known (raster bits)
   std::function<void(Mb&)> choose;  // the writer's
 
-  Codec() { cabac.b = &bits; }
+  Codec() {
+    cabac.b = &bits;
+    last_pocs_reset();
+  }
   bool W() const { return bits.writing; }
   MbInfo& ci() { return info[addr]; }
 
@@ -972,19 +1044,20 @@ struct Codec {
     return val;
   }
   // mb_type of an I macroblock (Table 9-36): in I slices from ctxIdx 3 with
-  // the neighbours' increment, in P slices the suffix from ctxIdx 17
-  int mb_type_i(int v, bool islice) {
+  // the neighbours' increment, in P and B slices the suffix from ctxIdx 17
+  // and 32 (base)
+  int mb_type_i(int v, bool islice, int base) {
     int first;
     if (islice) {
       MbInfo *a = mbA(), *b = mbB();
       int inc = (a && a->kind != I4 && a->kind != I8) + (b && b->kind != I4 && b->kind != I8);
-      first = 3 + inc;
+      first = base + inc;
     } else {
-      first = 17;
+      first = base;
     }
     if (!cabac.bin(first, v != 0)) return 0;
     if (cabac.terminate(v == 25)) return 25;
-    int t = v - 1, si = islice ? 1 : 0, s0 = islice ? 5 : 17;
+    int t = v - 1, si = islice ? 1 : 0, s0 = islice ? base + 2 : base;
     int luma = cabac.bin(s0 + 1, t >= 12);
     int chroma = 0;
     if (cabac.bin(s0 + 2, (t / 4) % 3 != 0)) chroma = 1 + cabac.bin(s0 + 2 + si, (t / 4) % 3 == 2);
@@ -997,12 +1070,52 @@ struct Codec {
       if (!cabac.bin(15, v == 1 || v == 2)) return 3 * cabac.bin(16, v == 3);
       return 2 - cabac.bin(17, v == 1);
     }
-    return 5 + mb_type_i(v - 5, false);
+    return 5 + mb_type_i(v - 5, false, 17);
+  }
+  // mb_type of B (Table 9-37 (b)) as FFmpeg's decode_cabac_mb_type_b walks
+  // it: ctxIdx 27 + the neighbours that are neither B_Skip nor
+  // B_Direct_16x16, then 27 + 3, 4, 5
+  int mb_type_b(int v) {
+    MbInfo *a = mbA(), *b = mbB();
+    int inc = (a && a->kind != BSKIP && a->kind != BDIRECT) +
+              (b && b->kind != BSKIP && b->kind != BDIRECT);
+    if (!cabac.bin(27 + inc, v != 0)) return 0;
+    if (!cabac.bin(27 + 3, v >= 3)) return 1 + cabac.bin(27 + 5, v == 2);
+    // bits: 4 bins after "11"; 0-7: types 3-10, 13: intra, 14: 11, 15: 22 (B_8x8),
+    // else 5 bins: types 12-21
+    int want = 0;
+    if (W()) {
+      if (v >= 3 && v <= 10) want = v - 3;
+      else if (v >= 23) want = 13;
+      else if (v == 11) want = 14;
+      else if (v == 22) want = 15;
+      else want = (v + 4) >> 1;  // 12-21: 5 bins (v + 4), the first four
+    }
+    int bits4 = cabac.bin(27 + 4, (want >> 3) & 1) << 3;
+    bits4 |= cabac.bin(27 + 5, (want >> 2) & 1) << 2;
+    bits4 |= cabac.bin(27 + 5, (want >> 1) & 1) << 1;
+    bits4 |= cabac.bin(27 + 5, want & 1);
+    if (bits4 < 8) return bits4 + 3;
+    if (bits4 == 13) return 23 + mb_type_i(v - 23, false, 32);
+    if (bits4 == 14) return 11;
+    if (bits4 == 15) return 22;
+    return ((bits4 << 1) | cabac.bin(27 + 5, (v + 4) & 1)) - 4;
   }
   int sub_type_p(int v) {
     if (cabac.bin(21, v == 0)) return 0;
     if (!cabac.bin(22, v != 1)) return 1;
     return cabac.bin(23, v == 2) ? 2 : 3;
+  }
+  // sub_mb_type of B (FFmpeg's decode_cabac_b_mb_sub_type)
+  int sub_type_b(int v) {
+    if (!cabac.bin(36, v != 0)) return 0;
+    if (!cabac.bin(37, v >= 3)) return 1 + cabac.bin(39, v == 2);
+    if (cabac.bin(38, v >= 7)) {
+      if (cabac.bin(39, v >= 11)) return 11 + cabac.bin(39, v == 12);
+      return 7 + 2 * cabac.bin(39, ((v - 7) >> 1) & 1) + cabac.bin(39, (v - 7) & 1);
+    }
+    int t = 3 + 2 * cabac.bin(39, ((v - 3) >> 1) & 1);
+    return t + cabac.bin(39, (v - 3) & 1);
   }
   int ref_idx_cabac(int v, int inc) {
     int r = 0;
@@ -1032,7 +1145,7 @@ struct Codec {
   int cbf_cond(MbInfo* n, int cat, int blk, int c) {
     if (!n) return ci().intra ? 1 : 0;
     if (n->kind == IPCM) return 1;
-    if (n->kind == PSKIP) return 0;
+    if (n->kind == PSKIP || n->kind == BSKIP) return 0;
     switch (cat) {
       case 0: return n->kind == I16 ? n->dc[0] : 0;
       case 1:
@@ -1210,20 +1323,22 @@ struct Codec {
     bool avail;
     int ref, mv[2];
   };
-  Nb nb(int xN, int yN) {
+  // list l of the block holding the luma location (xN, yN) relative to the
+  // current macroblock; blocks of the current one count once decoded (done)
+  Nb nb(int xN, int yN, int l) {
     int blk;
     bool cur;
     MbInfo* n = luma_neighbour(xN, yN, blk, cur);
     if (!n || (cur && !((done >> blk) & 1))) return {false, -1, {0, 0}};
     if (n->intra) return {true, -1, {0, 0}};
     int b8 = ((blk >> 3) << 1) | ((blk & 3) >> 1);
-    return {true, n->ref[b8], {n->mv[blk][0], n->mv[blk][1]}};
+    return {true, n->ref[l][b8], {n->mv[l][blk][0], n->mv[l][blk][1]}};
   }
   // mvpLX of 8.4.1.3 for the partition at (x, y) of w x h; shape: 1 16x8,
   // 2 8x16 (part: the partition's index), 0 otherwise
-  void mvp(int x, int y, int w, int ref, int shape, int part, int out[2]) {
-    Nb A = nb(x - 1, y), B = nb(x, y - 1), C = nb(x + w, y - 1);
-    if (!C.avail) C = nb(x - 1, y - 1);
+  void mvp(int x, int y, int w, int ref, int shape, int part, int l, int out[2]) {
+    Nb A = nb(x - 1, y, l), B = nb(x, y - 1, l), C = nb(x + w, y - 1, l);
+    if (!C.avail) C = nb(x - 1, y - 1, l);
     if (shape == 1) {
       if (part == 0 && B.ref == ref) { out[0] = B.mv[0]; out[1] = B.mv[1]; return; }
       if (part == 1 && A.ref == ref) { out[0] = A.mv[0]; out[1] = A.mv[1]; return; }
@@ -1242,36 +1357,37 @@ struct Codec {
     for (int k = 0; k < 2; k++) out[k] = median3(A.mv[k], B.mv[k], C.mv[k]);
   }
   void skip_mv(int out[2]) {
-    Nb A = nb(-1, 0), B = nb(0, -1);
+    Nb A = nb(-1, 0, 0), B = nb(0, -1, 0);
     out[0] = out[1] = 0;
     if (!A.avail || !B.avail) return;
     if ((A.ref == 0 && !A.mv[0] && !A.mv[1]) || (B.ref == 0 && !B.mv[0] && !B.mv[1])) return;
-    mvp(0, 0, 16, 0, 0, 0, out);
+    mvp(0, 0, 16, 0, 0, 0, 0, out);
   }
-  // the partition's blocks get its motion (and mvd, for CABAC's contexts)
-  void set_motion(int x, int y, int w, int h, const int mv[2], const int mvd[2]) {
+  // list l of the partition's blocks gets its motion (and mvd, for CABAC's
+  // contexts); the blocks count as decoded
+  void set_motion(int l, int x, int y, int w, int h, const int mv[2], const int mvd[2]) {
     MbInfo& c = ci();
     for (int by = y >> 2; by < (y + h) >> 2; by++)
       for (int bx = x >> 2; bx < (x + w) >> 2; bx++) {
         int b = by * 4 + bx;
-        c.mv[b][0] = (int16_t)mv[0];
-        c.mv[b][1] = (int16_t)mv[1];
-        c.mvd[b][0] = (int16_t)mvd[0];
-        c.mvd[b][1] = (int16_t)mvd[1];
+        c.mv[l][b][0] = (int16_t)mv[0];
+        c.mv[l][b][1] = (int16_t)mv[1];
+        c.mvd[l][b][0] = (int16_t)mvd[0];
+        c.mvd[l][b][1] = (int16_t)mvd[1];
         done |= 1 << b;
       }
   }
-  int mvd_inc(int x, int y, int comp) {
+  int mvd_inc(int x, int y, int comp, int l) {
     int sum = 0;
     for (int k = 0; k < 2; k++) {
       int blk;
       bool cur;
       MbInfo* n = luma_neighbour(k ? x : x - 1, k ? y - 1 : y, blk, cur);
-      if (n && !n->intra && n->kind != PSKIP) sum += std::abs(n->mvd[blk][comp]);
+      if (n) sum += std::abs(n->mvd[l][blk][comp]);  // 0 for intra, skipped and direct blocks
     }
     return sum < 3 ? 0 : sum <= 32 ? 1 : 2;
   }
-  int ref_inc(int x, int y) {
+  int ref_inc(int x, int y, int l) {
     int inc = 0;
     for (int k = 0; k < 2; k++) {
       int blk;
@@ -1279,33 +1395,132 @@ struct Codec {
       MbInfo* n = luma_neighbour(k ? x : x - 1, k ? y - 1 : y, blk, cur);
       if (!n || n->intra || n->kind == PSKIP) continue;
       int b8 = ((blk >> 3) << 1) | ((blk & 3) >> 1);
-      if (n->ref[b8] > 0) inc += k ? 2 : 1;
+      if ((n->direct >> b8) & 1) continue;  // B_Skip, B_Direct_16x16, B_Direct_8x8
+      if (n->ref[l][b8] > 0) inc += k ? 2 : 1;
     }
     return inc;
   }
-  // one partition's mvd_l0 (after every ref_idx_l0 of the macroblock)
-  void partition_motion(Mb& m, int idx, int x, int y, int w, int h, int shape, int part) {
+  // one partition's mvd_lX (after every ref_idx of the macroblock)
+  void partition_motion(Mb& m, int l, int idx, int x, int y, int w, int h, int shape, int part) {
     MbInfo& c = ci();
-    int ref = c.ref[((y >> 3) << 1) | (x >> 3)];
+    int ref = c.ref[l][((y >> 3) << 1) | (x >> 3)];
     int pred[2], mvd[2], mv[2];
-    mvp(x, y, w, ref, shape, part, pred);
+    mvp(x, y, w, ref, shape, part, l, pred);
     for (int k = 0; k < 2; k++) {
-      int want = W() ? m.mv[idx][k] - pred[k] : 0;
-      mvd[k] = p->cabac ? mvd_cabac(k, want, mvd_inc(x, y, k)) : bits.se(want);
+      int want = W() ? m.mv[l][idx][k] - pred[k] : 0;
+      mvd[k] = p->cabac ? mvd_cabac(k, want, mvd_inc(x, y, k, l)) : bits.se(want);
       mv[k] = pred[k] + mvd[k];
       if (mv[k] < -32768 || mv[k] > 32767) fail("motion vector out of range");
     }
-    set_motion(x, y, w, h, mv, mvd);
+    set_motion(l, x, y, w, h, mv, mvd);
   }
-  int ref_syntax(int v, int x, int y) {
-    int n = sh.num_ref_idx_active;
+  int ref_syntax(int v, int x, int y, int l) {
+    int n = sh.num_ref_idx_active[l];
     if (n <= 1) return 0;
     int r;
-    if (p->cabac) r = ref_idx_cabac(v, ref_inc(x, y));
+    if (p->cabac) r = ref_idx_cabac(v, ref_inc(x, y, l));
     else if (n == 2) r = !bits.u(1, !v);
     else r = (int)bits.ue(v);
-    if (r >= n) fail("ref_idx_l0 beyond the list");
+    if (r >= n) fail("ref_idx beyond the list");
     return r;
+  }
+
+  // the direct mode's motion (8.4.1.2) of the 8x8 blocks in mask, both
+  // lists, as FFmpeg derives it: spatial from the neighbours A, B, C of the
+  // macroblock, temporal from the co-located picture's motion scaled by the
+  // POC distances; the blocks' mvds are 0
+  static int min_positive(int a, int b) { return a >= 0 && b >= 0 ? std::min(a, b) : std::max(a, b); }
+  // the prediction blocks' width over the 4x4 blocks of the 8x8 blocks in mask
+  void set_mcw(int mask, int w) {
+    for (int b8 = 0; b8 < 4; b8++)
+      if ((mask >> b8) & 1)
+        for (int j = 0; j < 4; j++) ci().mcw[(b8 >> 1) * 8 + (b8 & 1) * 2 + (j >> 1) * 4 + (j & 1)] = (uint8_t)w;
+  }
+  // FFmpeg's partition of a direct macroblock (B_Skip, B_Direct_16x16): the
+  // co-located one's, 8x8 when that is 8x8 (4x4 sub-blocks without
+  // direct_8x8_inference); a B_8x8 macroblock stays 8x8
+  void direct_shape(int shape, bool b8x8) {
+    if (b8x8) return;
+    ci().shape = shape;
+    if (shape != 3) set_mcw(15, shape == 2 ? 8 : 16);
+  }
+  void direct_motion(int mask, bool b8x8 = false) {
+    MbInfo& c = ci();
+    if (list[1].empty() || !list[1][0]) fail("direct prediction without a list 1 picture");
+    const Picture& colpic = *list[1][0];
+    const ColMb& col = colpic.col[addr];
+    bool infer = s->direct_8x8_inference != 0;
+    static const int corner[4] = {0, 3, 12, 15};  // raster 4x4 blocks at the corners
+    c.direct |= (uint8_t)mask;
+    int sub_w = infer ? 8 : 4;  // the direct 8x8 blocks' prediction blocks
+    if (!b8x8) c.shape = 3;
+    if (sh.direct_spatial) {
+      int ref[2], mv[2][2] = {{0, 0}, {0, 0}};
+      for (int l = 0; l < 2; l++) {
+        Nb A = nb(-1, 0, l), B = nb(0, -1, l), C = nb(16, -1, l);
+        if (!C.avail) C = nb(-1, -1, l);
+        ref[l] = min_positive(A.ref, min_positive(B.ref, C.ref));
+        if (ref[l] >= 0) mvp(0, 0, 16, ref[l], 0, 0, l, mv[l]);
+      }
+      if (ref[0] < 0 && ref[1] < 0) ref[0] = ref[1] = 0;
+      bool still = !mv[0][0] && !mv[0][1] && !mv[1][0] && !mv[1][1];
+      int nzero = 0;  // FFmpeg's n: the 4x4 blocks the co-located motion zeroes
+      for (int b8 = 0; b8 < 4; b8++) {
+        if (!((mask >> b8) & 1)) continue;
+        bool col_ok = !colpic.ref_long && !col.intra &&
+                      (col.ref[0][b8] == 0 || (col.ref[0][b8] < 0 && col.ref[1][b8] == 0));
+        int cl = col.ref[0][b8] == 0 ? 0 : 1;
+        for (int l = 0; l < 2; l++) c.ref[l][b8] = (int8_t)ref[l];
+        int m = 0;
+        for (int j = 0; j < 4; j++) {
+          int blk = (b8 >> 1) * 8 + (b8 & 1) * 2 + (j >> 1) * 4 + (j & 1);
+          const int16_t* cm = col.mv[cl][infer ? corner[b8] : blk];
+          bool zero = col_ok && std::abs(cm[0]) <= 1 && std::abs(cm[1]) <= 1;
+          m += zero;
+          for (int l = 0; l < 2; l++) {
+            bool z = ref[l] < 0 || (zero && ref[l] == 0);
+            c.mv[l][blk][0] = z ? 0 : (int16_t)mv[l][0];
+            c.mv[l][blk][1] = z ? 0 : (int16_t)mv[l][1];
+            c.mvd[l][blk][0] = c.mvd[l][blk][1] = 0;
+          }
+        }
+        // a 4x4-divided block whose co-located blocks all or none zero is predicted whole
+        set_mcw(1 << b8, sub_w == 4 && col_ok && !(m & 3) ? 8 : sub_w);
+        nzero += col_ok ? m : 0;
+      }
+      if (still || col.shape == 0 || !(nzero & 15)) direct_shape(0, b8x8);
+      else direct_shape(col.shape, b8x8);
+      return;
+    }
+    set_mcw(mask, sub_w);
+    direct_shape(col.shape, b8x8);
+    for (int b8 = 0; b8 < 4; b8++) {
+      if (!((mask >> b8) & 1)) continue;
+      int ref0 = 0, scale = 256, cl = 0;
+      if (!col.intra) {
+        int r = col.ref[0][b8];
+        if (r < 0) { cl = 1; r = col.ref[1][b8]; }
+        ref0 = r >= 0 && r < 32 ? col_map[cl][r] : 0;
+        scale = dist_scale[ref0];
+      }
+      c.ref[0][b8] = (int8_t)ref0;
+      c.ref[1][b8] = 0;
+      for (int j = 0; j < 4; j++) {
+        int blk = (b8 >> 1) * 8 + (b8 & 1) * 2 + (j >> 1) * 4 + (j & 1);
+        int cm[2] = {0, 0};
+        if (!col.intra) {
+          const int16_t* v = col.mv[cl][infer ? corner[b8] : blk];
+          cm[0] = v[0];
+          cm[1] = v[1];
+        }
+        for (int k = 0; k < 2; k++) {
+          int m0 = (scale * cm[k] + 128) >> 8;
+          c.mv[0][blk][k] = (int16_t)m0;
+          c.mv[1][blk][k] = (int16_t)(m0 - cm[k]);
+          c.mvd[0][blk][k] = c.mvd[1][blk][k] = 0;
+        }
+      }
+    }
   }
 
   // ---------------------------------------------------- intra modes --
@@ -1337,25 +1552,36 @@ struct Codec {
   }
 
   // ------------------------------------------------ macroblock layer --
+  // the 8x8 blocks of partition k of a 16x16, 16x8 or 8x16 macroblock (bits)
+  static int part_blocks(int kind, int k) {
+    return kind == P16x16 ? 15 : kind == P16x8 ? (k ? 12 : 3) : (k ? 10 : 5);
+  }
   void macroblock(Mb& m) {
     MbInfo& c = ci();
-    bool islice = sh.type == 2;
-    if (p->cabac) m.mb_type = islice ? mb_type_i(m.mb_type, true) : mb_type_p(m.mb_type);
-    else m.mb_type = bits.ue(m.mb_type);
+    int st = sh.type, nl = sh.lists();
+    if (p->cabac)
+      m.mb_type = st == 2 ? mb_type_i(m.mb_type, true, 3) : st == 0 ? mb_type_p(m.mb_type)
+                                                                 : mb_type_b(m.mb_type);
+    else
+      m.mb_type = bits.ue(m.mb_type);
     int t = m.mb_type;
-    bool intra = islice;
-    if (!islice) {
-      if (t > 30) fail("mb_type > 30 in a P slice");
-      if (t >= 5) { intra = true; t -= 5; }
-    } else if (t > 25) {
-      fail("mb_type > 25 in an I slice");
-    }
+    int first_intra = st == 2 ? 0 : st == 0 ? 5 : 23;  // mb_type of I_NxN in this slice type
+    if (t > first_intra + 25) fail("mb_type " + std::to_string(t) + " beyond the slice type's table");
+    bool intra = t >= first_intra;
+    if (intra) t -= first_intra;
     c.intra = intra;
     c.t8 = false;
     c.cmode = 0;
-    for (int k = 0; k < 16; k++) c.ipred[k] = -1;
     int cbp = 0;
+    int pred[2] = {1, 1};  // the partitions' lists (1 L0, 2 L1, 3 both)
     if (intra) {
+      for (int l = 0; l < 2; l++)
+        for (int k = 0; k < 4; k++) c.ref[l][k] = -1;
+      memset(c.mv, 0, sizeof c.mv);
+      memset(c.mvd, 0, sizeof c.mvd);
+      c.direct = 0;
+      c.shape = 0;
+      memset(c.mcw, 16, sizeof c.mcw);
       if (t == 0) m.kind = I4;
       else if (t == 25) m.kind = IPCM;
       else {
@@ -1363,13 +1589,15 @@ struct Codec {
         m.i16 = (t - 1) % 4;
         cbp = (((t - 1) / 4) % 3) << 4 | (t >= 13 ? 15 : 0);
       }
-      for (int k = 0; k < 4; k++) c.ref[k] = -1;
-      memset(c.mv, 0, sizeof c.mv);
-      memset(c.mvd, 0, sizeof c.mvd);
-    } else {
+    } else if (st == 0) {
       if (t == 4 && p->cabac) fail("P_8x8ref0 in a CABAC slice");
       m.kind = t == 0 ? P16x16 : t == 1 ? P16x8 : t == 2 ? P8x16 : P8x8;
-      memset(c.mvd, 0, sizeof c.mvd);
+    } else if (t == 22) {
+      m.kind = P8x8;
+    } else {
+      m.kind = kBTypes[t][0];
+      pred[0] = kBTypes[t][1];
+      pred[1] = kBTypes[t][2];
     }
     c.kind = m.kind;
     if (m.kind == IPCM) {
@@ -1386,29 +1614,98 @@ struct Codec {
       last_dqp = 0;
       return;
     }
-    bool sub = m.kind == P8x8;
-    bool small = false;  // a sub-macroblock partition below 8x8
-    if (sub) {
+    // noSubMbPartSizeLessThan8x8Flag == 0 (and B_Direct_16x16 without
+    // direct_8x8_inference): no 8x8 transform
+    bool small = false;
+    if (m.kind == BDIRECT) {
+      direct_motion(15);
+      stats[S_DIRECT]++;
+      small = !s->direct_8x8_inference;
+    } else if (m.kind == P8x8) {
+      int direct = 0;
+      bool sub8 = false;  // a sub-macroblock partition below 8x8
       for (int k = 0; k < 4; k++) {
-        m.sub[k] = p->cabac ? sub_type_p(m.sub[k]) : (int)bits.ue(m.sub[k]);
-        if (m.sub[k] > 3) fail("sub_mb_type > 3 in a P slice");
-        if (m.sub[k]) small = true;
-      }
-      for (int k = 0; k < 4; k++) {
-        m.ref[k] = t == 4 ? 0 : ref_syntax(m.ref[k], (k & 1) * 8, (k >> 1) * 8);
-        c.ref[k] = (int8_t)m.ref[k];
-      }
-      done = 0;
-      int idx = 0;
-      for (int k = 0; k < 4; k++) {
-        int n = kSubParts[m.sub[k]][0], w = kSubParts[m.sub[k]][1], h = kSubParts[m.sub[k]][2];
-        for (int j = 0; j < n; j++) {
-          int x = (k & 1) * 8 + (w == 4 ? (j & 1) * 4 : 0);
-          int y = (k >> 1) * 8 + (h == 4 ? (w == 4 ? (j >> 1) : j) * 4 : 0);
-          partition_motion(m, idx++, x, y, w, h, 0, 0);
+        if (st == 0) {
+          m.sub[k] = p->cabac ? sub_type_p(m.sub[k]) : (int)bits.ue(m.sub[k]);
+          if (m.sub[k] > 3) fail("sub_mb_type > 3 in a P slice");
+          if (m.sub[k]) sub8 = true;
+        } else {
+          m.sub[k] = p->cabac ? sub_type_b(m.sub[k]) : (int)bits.ue(m.sub[k]);
+          if (m.sub[k] > 12) fail("sub_mb_type > 12 in a B slice");
+          if (m.sub[k] == 0) {
+            direct |= 1 << k;
+            if (!s->direct_8x8_inference) small = true;
+          } else if (kBSubParts[m.sub[k]][0] > 1) {
+            sub8 = true;
+          }
         }
       }
-      if (small) stats[S_SUB8]++;
+      small |= sub8;
+      c.shape = 3;
+      for (int k = 0; k < 4; k++)
+        if (!((direct >> k) & 1)) set_mcw(1 << k, st == 0 ? kSubParts[m.sub[k]][1] : kBSubParts[m.sub[k]][1]);
+      if (direct) {
+        direct_motion(direct, true);
+        stats[S_DIRECT]++;
+      }
+      auto uses = [&](int k, int l) {
+        return st == 0 ? l == 0 : !((direct >> k) & 1) && ((kBSubParts[m.sub[k]][3] >> l) & 1);
+      };
+      for (int l = 0; l < nl; l++)
+        for (int k = 0; k < 4; k++)
+          if (uses(k, l)) {
+            m.ref[l][k] = t == 4 && st == 0 ? 0 : ref_syntax(m.ref[l][k], (k & 1) * 8, (k >> 1) * 8, l);
+            c.ref[l][k] = (int8_t)m.ref[l][k];
+          }
+      const int zero[2] = {0, 0};
+      for (int l = 0; l < nl; l++) {
+        done = 0;
+        for (int k = 0; k < 4; k++) {
+          int x0 = (k & 1) * 8, y0 = (k >> 1) * 8;
+          if ((direct >> k) & 1) {
+            done |= 0x33 << ((k >> 1) * 8 + (k & 1) * 2);
+            continue;
+          }
+          int n = st == 0 ? kSubParts[m.sub[k]][0] : kBSubParts[m.sub[k]][0];
+          int w = st == 0 ? kSubParts[m.sub[k]][1] : kBSubParts[m.sub[k]][1];
+          int h = st == 0 ? kSubParts[m.sub[k]][2] : kBSubParts[m.sub[k]][2];
+          for (int j = 0; j < n; j++) {
+            int x = x0 + (w == 4 ? (j & 1) * 4 : 0);
+            int y = y0 + (h == 4 ? (w == 4 ? (j >> 1) : j) * 4 : 0);
+            if (uses(k, l)) partition_motion(m, l, 4 * k + j, x, y, w, h, 0, 0);
+            else set_motion(l, x, y, w, h, zero, zero);
+          }
+        }
+      }
+      if (st == 1)
+        for (int k = 0; k < 4; k++)
+          if (!((direct >> k) & 1) && kBSubParts[m.sub[k]][3] == 3) stats[S_BIPRED]++;
+      if (sub8) stats[S_SUB8]++;
+    } else if (!intra) {
+      int np = m.kind == P16x16 ? 1 : 2;
+      c.shape = m.kind == P16x16 ? 0 : m.kind == P16x8 ? 1 : 2;
+      set_mcw(15, m.kind == P8x16 ? 8 : 16);
+      for (int l = 0; l < nl; l++)
+        for (int k = 0; k < np; k++) {
+          if (!((pred[k] >> l) & 1)) continue;
+          int x = m.kind == P8x16 ? k * 8 : 0, y = m.kind == P16x8 ? k * 8 : 0;
+          m.ref[l][k] = ref_syntax(m.ref[l][k], x, y, l);
+          for (int j = 0; j < 4; j++)
+            if ((part_blocks(m.kind, k) >> j) & 1) c.ref[l][j] = (int8_t)m.ref[l][k];
+        }
+      const int zero[2] = {0, 0};
+      for (int l = 0; l < nl; l++) {
+        done = 0;
+        for (int k = 0; k < np; k++) {
+          int x = m.kind == P8x16 ? 8 * k : 0, y = m.kind == P16x8 ? 8 * k : 0;
+          int w = m.kind == P8x16 ? 8 : 16, h = m.kind == P16x8 ? 8 : 16;
+          int shape = m.kind == P16x16 ? 0 : m.kind == P16x8 ? 1 : 2;
+          if ((pred[k] >> l) & 1) partition_motion(m, l, k, x, y, w, h, shape, k);
+          else set_motion(l, x, y, w, h, zero, zero);
+        }
+      }
+      if (st == 1)
+        for (int k = 0; k < np; k++) stats[S_BIPRED] += pred[k] == 3;
     } else {
       if (m.kind == I4 && p->transform_8x8) {
         MbInfo *a = mbA(), *b = mbB();
@@ -1428,36 +1725,18 @@ struct Codec {
           for (int j = 0; j < 4; j++) c.ipred[(by + (j >> 1)) * 4 + bx + (j & 1)] = (int8_t)m.ipred[k];
         }
       }
-      if (intra) {
-        if (p->cabac) {
-          MbInfo *a = mbA(), *b = mbB();
-          int inc = (a && a->intra && a->kind != IPCM && a->cmode) +
-                    (b && b->intra && b->kind != IPCM && b->cmode);
-          int n = 0;
-          while (n < 3 && cabac.bin(n == 0 ? 64 + inc : 67, n < m.cmode)) n++;
-          m.cmode = n;
-        } else {
-          m.cmode = bits.ue(m.cmode);
-          if (m.cmode > 3) fail("intra_chroma_pred_mode > 3");
-        }
-        c.cmode = m.cmode;
+      if (p->cabac) {
+        MbInfo *a = mbA(), *b = mbB();
+        int inc = (a && a->intra && a->kind != IPCM && a->cmode) +
+                  (b && b->intra && b->kind != IPCM && b->cmode);
+        int n = 0;
+        while (n < 3 && cabac.bin(n == 0 ? 64 + inc : 67, n < m.cmode)) n++;
+        m.cmode = n;
       } else {
-        int np = m.kind == P16x16 ? 1 : 2;
-        for (int k = 0; k < np; k++) {
-          int x = m.kind == P8x16 ? k * 8 : 0, y = m.kind == P16x8 ? k * 8 : 0;
-          m.ref[k] = ref_syntax(m.ref[k], x, y);
-          for (int j = 0; j < 4; j++) {
-            bool in = m.kind == P16x16 || (m.kind == P16x8 ? (j >> 1) == k : (j & 1) == k);
-            if (in) c.ref[j] = (int8_t)m.ref[k];
-          }
-        }
-        done = 0;
-        for (int k = 0; k < np; k++) {
-          if (m.kind == P16x16) partition_motion(m, 0, 0, 0, 16, 16, 0, 0);
-          else if (m.kind == P16x8) partition_motion(m, k, 0, 8 * k, 16, 8, 1, k);
-          else partition_motion(m, k, 8 * k, 0, 8, 16, 2, k);
-        }
+        m.cmode = bits.ue(m.cmode);
+        if (m.cmode > 3) fail("intra_chroma_pred_mode > 3");
       }
+      c.cmode = m.cmode;
     }
     if (m.kind != I16) {
       if (p->cabac) {
@@ -1970,29 +2249,122 @@ struct Codec {
       }
     }
   }
-  // the prediction of one partition into the picture, weighted when the
-  // slice has a weight table (8.4.2.3)
-  void predict_partition(int x, int y, int w, int h, int ref, const int mv[2]) {
-    if (ref >= (int)list0.size() || !list0[ref]) fail("reference to a missing picture");
-    const Picture& r = *list0[ref];
+  const Picture& ref_pic(int l, int r) const {
+    if (r < 0 || r >= (int)list[l].size() || !list[l][r]) fail("reference to a missing picture");
+    return *list[l][r];
+  }
+  // the prediction of one block into the picture (8.4.2): list 0, list 1 or
+  // both (ref < 0: list not used), weighted as the slice says (8.4.2.3)
+  // mcw: the width of FFmpeg's prediction block, which picks its weighting code
+  void predict_partition(int x, int y, int w, int h, const int ref[2], const int mv[2][2],
+                         int mcw = 16) {
     int px = mbx * 16 + x, py = mby * 16 + y;
-    mc_luma(r, px, py, w, h, mv[0], mv[1], pix(0, px, py), cur->stride(0));
+    uint8_t* d[3] = {pix(0, px, py), pix(1, px / 2, py / 2), pix(2, px / 2, py / 2)};
+    int st[3] = {cur->stride(0), cur->stride(1), cur->stride(2)};
+    int l0 = ref[0] >= 0 ? 0 : 1;
+    const Picture& r0 = ref_pic(l0, ref[l0]);
+    mc_luma(r0, px, py, w, h, mv[l0][0], mv[l0][1], d[0], st[0]);
     for (int c = 1; c < 3; c++)
-      mc_chroma(r, c, px / 2, py / 2, w / 2, h / 2, mv[0], mv[1], pix(c, px / 2, py / 2),
-                cur->stride(c));
-    if (!wt.on) return;
+      mc_chroma(r0, c, px / 2, py / 2, w / 2, h / 2, mv[l0][0], mv[l0][1], d[c], st[c]);
+    if (l0 == 1 || ref[1] < 0) {  // one list
+      if (wt.on != 1) return;
+      int l = l0, r = ref[l];
+      for (int c = 0; c < 3; c++) {
+        // (v w + 2^(logWD - 1)) >> logWD, + o: (v w + (o << logWD) + 2^(logWD - 1)) >> logWD
+        int lwd = c ? wt.cwd : wt.lwd;
+        int wv = c ? wt.cw[l][r][c - 1] : wt.lw[l][r], o = c ? wt.co[l][r][c - 1] : wt.lo[l][r];
+        int bw = c ? w / 2 : w, bh = c ? h / 2 : h;
+        bool simd = (c ? mcw / 2 : mcw) >= kSimdWidth;
+        int add = o * (1 << lwd) + (lwd ? 1 << (lwd - 1) : 0);
+        if (simd) add = (int16_t)add;
+        for (int j = 0; j < bh; j++)
+          for (int i = 0; i < bw; i++) {
+            uint8_t& v = d[c][j * st[c] + i];
+            int x = v * wv + add;
+            v = clip8((simd ? sat16(x) : x) >> lwd);
+          }
+      }
+      return;
+    }
+    // both lists: list 1's prediction beside list 0's, then their average
+    uint8_t t[3][256];
+    const Picture& r1 = ref_pic(1, ref[1]);
+    mc_luma(r1, px, py, w, h, mv[1][0], mv[1][1], t[0], 16);
+    for (int c = 1; c < 3; c++)
+      mc_chroma(r1, c, px / 2, py / 2, w / 2, h / 2, mv[1][0], mv[1][1], t[c], 8);
     for (int c = 0; c < 3; c++) {
-      int lwd = c ? wt.cwd : wt.lwd;
-      int wv = c ? wt.cw[ref][c - 1] : wt.lw[ref], o = c ? wt.co[ref][c - 1] : wt.lo[ref];
-      int bw = c ? w / 2 : w, bh = c ? h / 2 : h;
-      uint8_t* d = c ? pix(c, px / 2, py / 2) : pix(0, px, py);
-      int st = cur->stride(c);
+      int bw = c ? w / 2 : w, bh = c ? h / 2 : h, ts = c ? 8 : 16;
+      if (!wt.on) {  // the default average
+        for (int j = 0; j < bh; j++)
+          for (int i = 0; i < bw; i++) {
+            uint8_t& v = d[c][j * st[c] + i];
+            v = (uint8_t)((v + t[c][j * ts + i] + 1) >> 1);
+          }
+        continue;
+      }
+      // weighted (8.4.2.3): ((a w0 + b w1 + 2^logWD) >> (logWD + 1)) + ((o0 + o1 + 1) >> 1)
+      // as FFmpeg's biweight computes it, offset folded into the rounding:
+      // (a w0 + b w1 + (((o0 + o1 + 1) | 1) << logWD)) >> (logWD + 1); its
+      // SIMD takes the weights as signed bytes and when one is 128 halves
+      // both weights (rounding down), the offset term and the shift
+      int w0, w1, sum = 0, lwd = 5;
+      if (wt.on == 1) {
+        lwd = c ? wt.cwd : wt.lwd;
+        w0 = c ? wt.cw[0][ref[0]][c - 1] : wt.lw[0][ref[0]];
+        w1 = c ? wt.cw[1][ref[1]][c - 1] : wt.lw[1][ref[1]];
+        sum = c ? wt.co[0][ref[0]][c - 1] + wt.co[1][ref[1]][c - 1] : wt.lo[0][ref[0]] + wt.lo[1][ref[1]];
+      } else {
+        w0 = wt.implicit[ref[0]][ref[1]];
+        w1 = 64 - w0;
+      }
+      int off = (sum + 1) | 1, shift = lwd + 1;
+      bool simd = (c ? mcw / 2 : mcw) >= kSimdWidth;
+      if ((w0 == 128 || w1 == 128) && simd) {
+        w0 >>= 1;
+        w1 >>= 1;
+        off >>= 1;
+        shift--;
+      }
+      int round = (int)(((int64_t)off << shift) >> 1);
+      if (simd) round = (int16_t)round;
       for (int j = 0; j < bh; j++)
         for (int i = 0; i < bw; i++) {
-          int v = d[j * st + i];
-          d[j * st + i] = lwd >= 1 ? clip8(((v * wv + (1 << (lwd - 1))) >> lwd) + o)
-                                   : clip8(v * wv + o);
+          uint8_t& v = d[c][j * st[c] + i];
+          int x = v * w0 + t[c][j * ts + i] * w1;
+          v = clip8((simd ? sat16(sat16(x) + round) : x + round) >> shift);
         }
+    }
+  }
+  // the inter prediction of the macroblock: block by block (sample
+  // interpolation and weighting are per sample), as one 16x16 block when its
+  // motion is uniform, else by 8x8 quadrants, else by 4x4 blocks
+  void predict_inter() {
+    const MbInfo& c = ci();
+    auto same = [&](int a, int b) {
+      if (c.mcw[a] != c.mcw[b]) return false;
+      for (int l = 0; l < 2; l++) {
+        int ra = c.ref[l][((a >> 3) << 1) | ((a & 3) >> 1)], rb = c.ref[l][((b >> 3) << 1) | ((b & 3) >> 1)];
+        if (ra != rb) return false;
+        if (ra >= 0 && (c.mv[l][a][0] != c.mv[l][b][0] || c.mv[l][a][1] != c.mv[l][b][1])) return false;
+      }
+      return true;
+    };
+    auto block = [&](int blk, int size) {
+      int b8 = ((blk >> 3) << 1) | ((blk & 3) >> 1);
+      int ref[2] = {c.ref[0][b8], c.ref[1][b8]};
+      int mv[2][2] = {{c.mv[0][blk][0], c.mv[0][blk][1]}, {c.mv[1][blk][0], c.mv[1][blk][1]}};
+      predict_partition((blk & 3) * 4, (blk >> 2) * 4, size, size, ref, mv, c.mcw[blk]);
+    };
+    bool all = true;
+    for (int b = 1; b < 16 && all; b++) all = same(0, b);
+    if (all) { block(0, 16); return; }
+    for (int q = 0; q < 4; q++) {
+      int b0 = (q >> 1) * 8 + (q & 1) * 2;
+      if (same(b0, b0 + 1) && same(b0, b0 + 4) && same(b0, b0 + 5)) {
+        block(b0, 8);
+      } else {
+        for (int j = 0; j < 4; j++) block(b0 + (j >> 1) * 4 + (j & 1), 4);
+      }
     }
   }
 
@@ -2008,30 +2380,7 @@ struct Codec {
     int q = c.qp;
     bool intra = c.intra;
     int d[64];
-    if (!intra) {
-      if (m.kind == PSKIP || m.kind == P16x16) {
-        int mv[2] = {c.mv[0][0], c.mv[0][1]};
-        predict_partition(0, 0, 16, 16, c.ref[0], mv);
-      } else if (m.kind == P16x8 || m.kind == P8x16) {
-        for (int k = 0; k < 2; k++) {
-          int x = m.kind == P8x16 ? 8 * k : 0, y = m.kind == P16x8 ? 8 * k : 0;
-          int b = (y >> 2) * 4 + (x >> 2);
-          int mv[2] = {c.mv[b][0], c.mv[b][1]};
-          predict_partition(x, y, m.kind == P8x16 ? 8 : 16, m.kind == P16x8 ? 8 : 16,
-                            c.ref[((y >> 3) << 1) | (x >> 3)], mv);
-        }
-      } else {
-        for (int k = 0; k < 4; k++) {
-          int w = kSubParts[m.sub[k]][1], h = kSubParts[m.sub[k]][2];
-          for (int y = (k >> 1) * 8; y < (k >> 1) * 8 + 8; y += h)
-            for (int x = (k & 1) * 8; x < (k & 1) * 8 + 8; x += w) {
-              int b = (y >> 2) * 4 + (x >> 2);
-              int mv[2] = {c.mv[b][0], c.mv[b][1]};
-              predict_partition(x, y, w, h, c.ref[k], mv);
-            }
-        }
-      }
-    }
+    if (!intra) predict_inter();
     int ylist = intra ? 0 : 3;
     if (m.kind == I16) {
       pred16(m.i16, pix(0, px, py), st, intra_ok(mbx - 1, mby), intra_ok(mbx, mby - 1),
@@ -2101,7 +2450,7 @@ struct Codec {
     bool islice = sh.type == 2;
     qp = sh.qp;
     last_dqp = 0;
-    stats[islice ? S_ISLICE : S_PSLICE]++;
+    stats[islice ? S_ISLICE : sh.type == 1 ? S_BSLICE : S_PSLICE]++;
     if (p->cabac) {
       stats[S_CABAC]++;
       while (!bits.aligned()) bits.u(1, 1);  // cabac_alignment_one_bit
@@ -2156,8 +2505,8 @@ struct Codec {
       if (!W()) begin_mb();
       if (!islice) {
         MbInfo *a = mbA(), *b = mbB();
-        int inc = (a && a->kind != PSKIP) + (b && b->kind != PSKIP);
-        m.skip = cabac.bin(11 + inc, m.skip);
+        int inc = (a && a->kind != PSKIP && a->kind != BSKIP) + (b && b->kind != PSKIP && b->kind != BSKIP);
+        m.skip = cabac.bin((sh.type == 1 ? 24 : 11) + inc, m.skip);
       }
       if (m.skip) {
         skip_mb(m);
@@ -2184,37 +2533,44 @@ struct Codec {
     MbInfo& c = ci();
     c = MbInfo();
     c.slice = slice_num;
+    c.lists = sh.lists();
     for (int k = 0; k < 16; k++) c.ipred[k] = -1;
     memset(c.nnz, 0, sizeof c.nnz);
     memset(c.mv, 0, sizeof c.mv);
     memset(c.mvd, 0, sizeof c.mvd);
-    for (int k = 0; k < 4; k++) { c.ref[k] = -1; c.refpic[k] = 0; }
+    for (int l = 0; l < 2; l++)
+      for (int k = 0; k < 4; k++) { c.ref[l][k] = -1; c.refpic[l][k] = 0; }
+    memset(c.mcw, 16, sizeof c.mcw);
     done = 0;
   }
+  // P_Skip, or B_Skip (direct prediction, no residual)
   void skip_mb(Mb& m) {
     MbInfo& c = ci();
-    c.kind = PSKIP;
     c.intra = false;
     c.cbp = 0;
     c.qp = qp;
     c.qpc[0] = chroma_qp(0, qp);
     c.qpc[1] = chroma_qp(1, qp);
-    for (int k = 0; k < 4; k++) c.ref[k] = 0;
-    int mv[2], zero[2] = {0, 0};
-    skip_mv(mv);
-    set_motion(0, 0, 16, 16, mv, zero);
+    if (sh.type == 1) {
+      c.kind = m.kind = BSKIP;
+      direct_motion(15);
+      stats[S_BSKIP]++;
+    } else {
+      c.kind = m.kind = PSKIP;
+      for (int k = 0; k < 4; k++) c.ref[0][k] = 0;
+      int mv[2], zero[2] = {0, 0};
+      skip_mv(mv);
+      set_motion(0, 0, 0, 16, 16, mv, zero);
+    }
     last_dqp = 0;
     stats[S_SKIP]++;
-    m.kind = PSKIP;
     reconstruct(m);
     finish_mb_refs();
   }
   void finish_mb_refs() {
     MbInfo& c = ci();
-    for (int k = 0; k < 4; k++) {
-      if (c.ref[k] >= (int)list0.size() || !list0[c.ref[k]]) fail("reference to a missing picture");
-      c.refpic[k] = list0[c.ref[k]]->id;
-    }
+    for (int l = 0; l < 2; l++)
+      for (int k = 0; k < 4; k++) c.refpic[l][k] = c.ref[l][k] >= 0 ? ref_pic(l, c.ref[l][k]).id : 0;
   }
 
   // ------------------------------------------------- deblocking filter --
@@ -2223,14 +2579,24 @@ struct Codec {
     int b8x = (blk & 3) >> 1, b8y = blk >> 3, base = b8y * 8 + b8x * 2;
     return m.nnz[base] || m.nnz[base + 1] || m.nnz[base + 4] || m.nnz[base + 5];
   }
+  // bS of one edge segment (8.7.2.1) with FFmpeg's check_mv: the lists of
+  // Q's slice are compared pairwise (same picture, mvs within 4 quarter
+  // samples), and when that fails, across (L0 with L1)
   int bs(const MbInfo& P, int pb, const MbInfo& Q, int qb, bool mb_edge) const {
     if (P.intra || Q.intra) return mb_edge ? 4 : 3;
     if (nonzero(P, pb) || nonzero(Q, qb)) return 2;
     int p8 = ((pb >> 3) << 1) | ((pb & 3) >> 1), q8 = ((qb >> 3) << 1) | ((qb & 3) >> 1);
-    if (P.refpic[p8] != Q.refpic[q8]) return 1;
-    if (std::abs(P.mv[pb][0] - Q.mv[qb][0]) >= 4 || std::abs(P.mv[pb][1] - Q.mv[qb][1]) >= 4)
-      return 1;
-    return 0;
+    auto far = [&](int lq, int lp) {
+      return std::abs(Q.mv[lq][qb][0] - P.mv[lp][pb][0]) >= 4 ||
+             std::abs(Q.mv[lq][qb][1] - P.mv[lp][pb][1]) >= 4;
+    };
+    bool v = Q.refpic[0][q8] != P.refpic[0][p8];
+    if (!v && Q.refpic[0][q8]) v = far(0, 0);
+    if (Q.lists < 2) return v;
+    if (!v) v = Q.refpic[1][q8] != P.refpic[1][p8] || far(1, 1);
+    if (!v) return 0;
+    if (Q.refpic[0][q8] != P.refpic[1][p8] || Q.refpic[1][q8] != P.refpic[0][p8]) return 1;
+    return far(0, 1) || far(1, 0);
   }
   static void filter_line(uint8_t* q, int step, int b, int alpha, int beta, int tc0, bool chroma) {
     int p0 = q[-step], p1 = q[-2 * step], q0 = q[0], q1 = q[step];
@@ -2288,6 +2654,7 @@ struct Codec {
     const MbInfo* B = y > 0 ? &info[(y - 1) * mbw + x] : nullptr;
     bool left = A && (sd.disable != 2 || A->slice == Q.slice);
     bool top = B && (sd.disable != 2 || B->slice == Q.slice);
+    bool fast8x8 = !Q.intra && Q.t8 && (Q.cbp & 7) == 7 && p->cb_qp_offset == p->cr_qp_offset;
     for (int dir = 0; dir < 2; dir++) {  // 0: vertical edges, 1: horizontal
       for (int e = 0; e < 4; e++) {
         if (e == 0 && !(dir ? top : left)) continue;
@@ -2299,6 +2666,13 @@ struct Codec {
           int pb = e ? (dir ? qb - 4 : qb - 1) : (dir ? 12 + k : k * 4 + 3);
           b[k] = bs(P, pb, Q, qb, e == 0);
         }
+        // FFmpeg's fast loop filter (frames whose two chroma QP offsets are
+        // equal) takes an 8x8-transform inter macroblock with its first three
+        // 8x8 blocks coded as having coefficients in each: bS 2 on its 8x8
+        // edges and its macroblock edges (4 beside an intra one). With CABAC
+        // a coded 8x8 block has coefficients; with CAVLC it may have none.
+        if (fast8x8 && !(e & 1))
+          for (int k = 0; k < 4; k++) b[k] = e == 0 && P.intra ? 4 : 2;
         if (!b[0] && !b[1] && !b[2] && !b[3]) continue;
         for (int c = 0; c < 3; c++) {
           if (c && (e & 1)) continue;  // chroma edges at 0 and 4 (luma 0 and 8)
@@ -2390,10 +2764,49 @@ struct Codec {
     slice_num = -1;
     if (sh.idr()) stats[S_IDR]++;
   }
-  // per slice: the reference list, weights, level scales
+  // 4 * frame_num + 3: how FFmpeg names a frame in a picture's lists
+  static int pic_key(const Picture& r) { return 4 * r.frame_num + 3; }
+  // ref_pic_list_modification( ) of list l (8.2.4.3)
+  void modify_list(int l) {
+    std::vector<PicPtr>& L = list[l];
+    int n = sh.num_ref_idx_active[l];
+    int pred = sh.frame_num, mfn = max_frame_num(), idx = 0;
+    for (const RefMod& m : sh.mods[l]) {
+      if (m.idc == 3) break;
+      if (idx >= n) fail("more reference list modifications than entries");
+      PicPtr pic;
+      if (m.idc < 2) {
+        int d = m.val + 1;
+        if (d > mfn) fail("abs_diff_pic_num_minus1 out of range");
+        int nw = m.idc == 0 ? pred - d : pred + d;
+        if (nw < 0) nw += mfn;
+        else if (nw >= mfn) nw -= mfn;
+        pred = nw;
+        int num = nw > sh.frame_num ? nw - mfn : nw;
+        for (const PicPtr& r : dpb)
+          if (r->ref_short && frame_num_wrap(*r) == num) pic = r;
+        if (!pic) fail("reference list modification names a missing short-term picture");
+      } else {
+        for (const PicPtr& r : dpb)
+          if (r->ref_long && r->long_idx == m.val) pic = r;
+        if (!pic) fail("reference list modification names a missing long-term picture");
+      }
+      L.insert(L.begin() + idx, pic);
+      idx++;
+      int k = idx;
+      for (int c = idx; c < (int)L.size(); c++)
+        if (L[c] != pic) L[k++] = L[c];
+      L.resize(n);
+    }
+  }
+  // per slice: the reference lists (8.2.4), weights, level scales, and for
+  // B slices the direct mode's scale factors and map
   void start_slice() {
     slice_num++;
     slices.push_back({sh.disable_deblock, sh.alpha_div2, sh.beta_div2});
+    if (slice_num == 0) cur->first_type = sh.type;
+    cur->has_b |= sh.type == 1;
+    cur->types |= 1 << sh.type;
     if (sh.disable_deblock != 1) stats[S_DEBLOCK]++;
     if (sh.disable_deblock == 2) stats[S_DEBLOCK2]++;
     bool flat = true;
@@ -2402,77 +2815,155 @@ struct Codec {
     for (int l = 0; l < 2 * p->transform_8x8; l++)
       for (int k = 0; k < 64; k++) flat &= p->sl8[l][k] == 16;
     if (!flat) stats[S_SCALED]++;
-    if (sh.type == 0 && sh.ref_mod_flag) stats[S_REFMOD]++;
+    if (sh.ref_mod_flag[0] || (sh.type == 1 && sh.ref_mod_flag[1])) stats[S_REFMOD]++;
     level_scales();
-    list0.clear();
+    list[0].clear();
+    list[1].clear();
     wt.on = 0;
-    if (sh.type != 0) return;
+    int nl = sh.lists();
+    if (!nl) return;
     std::vector<PicPtr> st, lt;
     for (const PicPtr& r : dpb) {
       if (r->ref_short) st.push_back(r);
       if (r->ref_long) lt.push_back(r);
     }
-    std::sort(st.begin(), st.end(), [&](const PicPtr& a, const PicPtr& b) {
-      return frame_num_wrap(*a) > frame_num_wrap(*b);
-    });
     std::sort(lt.begin(), lt.end(), [](const PicPtr& a, const PicPtr& b) { return a->long_idx < b->long_idx; });
-    list0 = st;
-    list0.insert(list0.end(), lt.begin(), lt.end());
-    int n = sh.num_ref_idx_active;
-    list0.resize(n);
-    if (sh.ref_mod_flag) {
-      int pred = sh.frame_num, mfn = max_frame_num(), idx = 0;
-      for (const RefMod& m : sh.mods) {
-        if (m.idc == 3) break;
-        if (idx >= n) fail("more reference list modifications than entries");
-        PicPtr pic;
-        if (m.idc < 2) {
-          int d = m.val + 1;
-          if (d > mfn) fail("abs_diff_pic_num_minus1 out of range");
-          int nw = m.idc == 0 ? pred - d : pred + d;
-          if (nw < 0) nw += mfn;
-          else if (nw >= mfn) nw -= mfn;
-          pred = nw;
-          int num = nw > sh.frame_num ? nw - mfn : nw;
-          for (const PicPtr& r : dpb)
-            if (r->ref_short && frame_num_wrap(*r) == num) pic = r;
-          if (!pic) fail("reference list modification names a missing short-term picture");
-        } else {
-          for (const PicPtr& r : dpb)
-            if (r->ref_long && r->long_idx == m.val) pic = r;
-          if (!pic) fail("reference list modification names a missing long-term picture");
-        }
-        list0.insert(list0.begin() + idx, pic);
-        idx++;
-        int k = idx;
-        for (int c = idx; c < (int)list0.size(); c++)
-          if (list0[c] != pic) list0[k++] = list0[c];
-        list0.resize(n);
-      }
+    if (sh.type == 0) {  // by descending PicNum (8.2.4.2.1)
+      std::sort(st.begin(), st.end(), [&](const PicPtr& a, const PicPtr& b) {
+        return frame_num_wrap(*a) > frame_num_wrap(*b);
+      });
+      list[0] = st;
+    } else {  // by POC around the current picture's (8.2.4.2.3)
+      int poc = cur->poc;
+      for (size_t i = 0; i < st.size(); i++)
+        for (size_t j = i + 1; j < st.size(); j++)
+          if (st[i]->poc == st[j]->poc)  // after an MMCO 5; FFmpeg then keeps one of them
+            unsupported("a B slice whose short-term references share POC " +
+                        std::to_string(st[i]->poc) + " (after an MMCO 5)");
+      std::vector<PicPtr> before, after;
+      // (FFmpeg's add_sorted: a POC equal to the current one counts as before it)
+      for (const PicPtr& r : st) (r->poc <= poc ? before : after).push_back(r);
+      std::sort(before.begin(), before.end(), [](const PicPtr& a, const PicPtr& b) { return a->poc > b->poc; });
+      std::sort(after.begin(), after.end(), [](const PicPtr& a, const PicPtr& b) { return a->poc < b->poc; });
+      list[0] = before;
+      list[0].insert(list[0].end(), after.begin(), after.end());
+      list[1] = after;
+      list[1].insert(list[1].end(), before.begin(), before.end());
+      list[1].insert(list[1].end(), lt.begin(), lt.end());
     }
-    if (p->weighted_pred) {
-      wt.on = 1;
+    list[0].insert(list[0].end(), lt.begin(), lt.end());
+    if (sh.type == 1 && list[1].size() > 1 && list[1] == list[0]) std::swap(list[1][0], list[1][1]);
+    for (int l = 0; l < nl; l++) {
+      list[l].resize(sh.num_ref_idx_active[l]);
+      if (sh.ref_mod_flag[l]) modify_list(l);
+      for (const PicPtr& r : list[l])
+        if (!r)  // FFmpeg substitutes a default picture and forgets its output order
+          unsupported("num_ref_idx_l" + std::to_string(l) + "_active " +
+                      std::to_string(sh.num_ref_idx_active[l]) + " beyond the " +
+                      std::to_string(st.size() + lt.size()) + " reference frames held");
+    }
+    // the lists FFmpeg keeps with the picture for the temporal direct mode:
+    // each slice's overwrite the last, but its frame threads (cv2 decodes
+    // with one a core) copy the picture once its first slice has set up, and
+    // the copy travels on: the first slice's lists, and none where it has none
+    if (slice_num == 0)
+    for (int l = 0; l < nl; l++) {
+      cur->list_count[l] = sh.num_ref_idx_active[l];
+      for (int i = 0; i < sh.num_ref_idx_active[l]; i++)
+        cur->list_key[l][i] = list[l][i] ? pic_key(*list[l][i]) : -1;
+    }
+    if ((sh.type == 0 && p->weighted_pred) || (sh.type == 1 && p->weighted_bipred_idc == 1)) {
       stats[S_WEIGHTED]++;
       wt.lwd = sh.luma_log2_wd;
       wt.cwd = sh.chroma_log2_wd;
-      for (int i = 0; i < n; i++) {
-        wt.lw[i] = sh.luma_w[i];
-        wt.lo[i] = sh.luma_o[i];
-        for (int c = 0; c < 2; c++) {
-          wt.cw[i][c] = sh.chroma_w[i][c];
-          wt.co[i][c] = sh.chroma_o[i][c];
+      // FFmpeg weights only when a weight or offset differs from the default,
+      // and then both components whatever their own tables say
+      bool luma = false, chroma = false;
+      for (int l = 0; l < nl; l++)
+        for (int i = 0; i < sh.num_ref_idx_active[l]; i++) {
+          wt.lw[l][i] = sh.luma_w[l][i];
+          wt.lo[l][i] = sh.luma_o[l][i];
+          luma |= wt.lw[l][i] != 1 << wt.lwd || wt.lo[l][i];
+          for (int c = 0; c < 2; c++) {
+            wt.cw[l][i][c] = sh.chroma_w[l][i][c];
+            wt.co[l][i][c] = sh.chroma_o[l][i][c];
+            chroma |= wt.cw[l][i][c] != 1 << wt.cwd || wt.co[l][i][c];
+          }
         }
+      wt.on = luma || chroma ? 1 : 0;
+    }
+    if (sh.type != 1) return;
+    stats[sh.direct_spatial ? S_SPATIAL : S_TEMPORAL]++;
+    if (list[1][0]->ref_long) stats[S_LTCOL]++;
+    int n0 = sh.num_ref_idx_active[0], n1 = sh.num_ref_idx_active[1];
+    int cur_poc = cur->poc;
+    if (p->weighted_bipred_idc == 2) {  // implicit weights (8.4.2.3.1), FFmpeg's implicit_weight_table
+      wt.on = 2;
+      stats[S_IMPLICIT]++;
+      for (int i = 0; i < n0; i++)
+        for (int j = 0; j < n1; j++) {
+          int w = 32;
+          const Picture &a = *list[0][i], &b = *list[1][j];
+          if (!a.ref_long && !b.ref_long) {
+            int td = clip3(-128, 127, b.poc - a.poc);
+            if (td) {
+              int tb = clip3(-128, 127, cur_poc - a.poc);
+              int tx = (16384 + std::abs(td) / 2) / td;
+              int dsf = (tb * tx + 32) >> 8;
+              if (dsf >= -64 && dsf <= 128) w = 64 - dsf;
+            }
+          }
+          wt.implicit[i][j] = w;
+        }
+    }
+    if (sh.direct_spatial) return;
+    // temporal direct: DistScaleFactor by refIdxL0 (FFmpeg's get_scale_factor)
+    const Picture& colpic = *list[1][0];
+    for (int i = 0; i < n0; i++) {
+      const Picture& a = *list[0][i];
+      int td = clip3(-128, 127, colpic.poc - a.poc);
+      if (td == 0 || a.ref_long) {
+        dist_scale[i] = 256;
+      } else {
+        int tb = clip3(-128, 127, cur_poc - a.poc);
+        int tx = (16384 + std::abs(td) / 2) / td;
+        dist_scale[i] = clip3(-1024, 1023, (tb * tx + 32) >> 6);
       }
     }
+    // the co-located picture's reference indices to the lowest refIdxL0 of
+    // the same frame, through the lists it kept (FFmpeg's fill_colmap; 0 when
+    // the frame is not in list 0)
+    for (int l = 0; l < 2; l++)
+      for (int r = 0; r < 32; r++) {
+        col_map[l][r] = 0;
+        if (r >= colpic.list_count[l]) continue;
+        for (int j = 0; j < n0; j++)
+          if (pic_key(*list[0][j]) == colpic.list_key[l][r]) { col_map[l][r] = j; break; }
+      }
   }
-  // after the picture's last slice: deblocking, reference marking (8.2.5),
-  // output in POC order
+  // after the picture's last slice: the output choice FFmpeg makes as the
+  // picture starts, deblocking, the co-located motion, reference marking
+  // (8.2.5)
   void finish_picture() {
     for (const MbInfo& m : info)
       if (m.slice < 0) fail("picture not fully covered by its slices");
+    if (cur->idr) last_pocs_reset();
+    cur->key = cur->idr;
+    select_output();
     deblock();
-    bool mmco5 = false;
+    cur->col.resize(info.size());
+    for (size_t i = 0; i < info.size(); i++) {
+      const MbInfo& m = info[i];
+      ColMb& c = cur->col[i];
+      c.intra = m.intra;
+      memcpy(c.ref, m.ref, sizeof c.ref);
+      memcpy(c.mv, m.mv, sizeof c.mv);
+      c.shape = m.intra ? 0 : m.shape;
+    }
+    bool mmco5 = false, assigned = false;
+    if (cur->types & (cur->types - 1)) stats[S_MIXED]++;
     if (sh.nal_ref_idc) {
+      if (cur->has_b) stats[S_BREF]++;
       if (sh.idr()) {
         for (const PicPtr& r : dpb) r->ref_short = r->ref_long = false;
         if (sh.long_term_ref) {
@@ -2484,6 +2975,9 @@ struct Codec {
         }
       } else if (sh.adaptive) {
         for (const Mmco& m : sh.mmcos) {
+          // (an MMCO 2, 3 or 4 after an MMCO 6 that takes the current
+          // picture's long-term index from it unmarks it, as in FFmpeg, and
+          // it stays so)
           if (m.op == 0) break;
           stats[S_MMCO]++;
           int cur_num = sh.frame_num;
@@ -2499,6 +2993,7 @@ struct Codec {
               if (m.lt_idx > max_long_idx) fail("long_term_frame_idx above MaxLongTermFrameIdx");
               for (const PicPtr& r : dpb)
                 if (r->ref_long && r->long_idx == m.lt_idx && r != pic) r->ref_long = false;
+              if (cur->ref_long && cur->long_idx == m.lt_idx) cur->ref_long = false;
               pic->ref_short = false;
               pic->ref_long = true;
               pic->long_idx = m.lt_idx;
@@ -2507,11 +3002,13 @@ struct Codec {
             bool hit = false;
             for (const PicPtr& r : dpb)
               if (r->ref_long && r->long_idx == m.lt_pic_num) { r->ref_long = false; hit = true; }
+            if (cur->ref_long && cur->long_idx == m.lt_pic_num) { cur->ref_long = false; hit = true; }
             if (!hit) fail("MMCO 2 names a missing long-term picture");
           } else if (m.op == 4) {
             max_long_idx = m.max_lt_plus1 - 1;
             for (const PicPtr& r : dpb)
               if (r->ref_long && r->long_idx > max_long_idx) r->ref_long = false;
+            if (cur->ref_long && cur->long_idx > max_long_idx) cur->ref_long = false;
           } else if (m.op == 5) {
             for (const PicPtr& r : dpb) r->ref_short = r->ref_long = false;
             max_long_idx = -1;
@@ -2522,6 +3019,7 @@ struct Codec {
               if (r->ref_long && r->long_idx == m.lt_idx) r->ref_long = false;
             cur->ref_long = true;
             cur->long_idx = m.lt_idx;
+            assigned = true;
           }
         }
       } else {  // the sliding window
@@ -2534,7 +3032,7 @@ struct Codec {
           oldest->ref_short = false;
         }
       }
-      if (!cur->ref_long) cur->ref_short = true;
+      if (!cur->ref_long && !assigned) cur->ref_short = true;
       int nref = 0;
       for (const PicPtr& r : dpb) nref += r->is_ref();
       if (nref + 1 > std::max(s->max_num_ref_frames, 1)) fail("more reference frames than max_num_ref_frames");
@@ -2546,16 +3044,19 @@ struct Codec {
     int nlong = 0;
     for (const PicPtr& r : dpb) nlong += r->ref_long;
     stats[S_LONGTERM] += nlong + cur->ref_long;
-    if (mmco5) {
+    if (mmco5) {  // tempPicOrderCnt for the next POCs; FFmpeg keeps its own POC (output, lists)
       int t = std::min(cur->top_poc, cur->bottom_poc);
       cur->top_poc -= t;
       cur->bottom_poc -= t;
-      cur->poc = 0;
       cur->mmco5 = true;
       cur->frame_num = 0;  // inferred after MMCO 5 (7.4.3)
+      // FFmpeg marks this picture and the next one and forgets the POCs seen
+      cur->mmco_reset = true;
+      next_mmco_reset = true;
+      last_pocs_reset();
     }
     if (sh.nal_ref_idc) {
-      dpb.push_back(cur);
+      if (cur->is_ref()) dpb.push_back(cur);
       prev_ref_frame_num = mmco5 ? 0 : sh.frame_num;
       prev_ref_mmco5 = mmco5;
       prev_ref_top_after_mmco5 = cur->top_poc;
@@ -2565,23 +3066,76 @@ struct Codec {
     prev_mmco5 = mmco5;
     prev_frame_num = mmco5 ? 0 : sh.frame_num;
     prev_frame_num_offset = cur->frame_num_offset;
-    // output: FFmpeg hands frames over in POC order, holding back as many as
-    // the stream's VUI says it reorders; an IDR or MMCO 5 flushes the others
-    if (cur->idr || cur->mmco5) flush_output();
-    pending.push_back(cur);
-    int reorder = s->restriction ? s->num_reorder : 0;
-    while ((int)pending.size() > reorder) pop_output();
     cur.reset();
   }
-  void pop_output() {
-    size_t best = 0;
-    for (size_t i = 1; i < pending.size(); i++)
-      if (pending[i]->poc < pending[best]->poc) best = i;
-    ready.push_back(pending[best]);
-    pending.erase(pending.begin() + best);
+
+  // ---------------------------------------------------------- output --
+  // FFmpeg's h264_select_output_frame, which decides what cv2 sees: a
+  // picture waits until more than has_b_frames wait, then the lowest POC
+  // before the next IDR or MMCO 5 leaves; has_b_frames starts at the
+  // container's video_delay, takes the VUI's max_num_reorder_frames, and
+  // without the VUI grows with the pictures seen out of POC order; a picture
+  // whose POC is below the last one output is dropped
+  int has_b_frames = 0;
+  int last_pocs[16];
+  int next_outputed_poc = INT32_MIN;
+  bool next_mmco_reset = false;
+  std::vector<PicPtr> delayed;
+  void last_pocs_reset() {
+    for (int& v : last_pocs) v = INT32_MIN;
   }
+  void select_output() {
+    const int kMax = 16;
+    cur->mmco_reset = next_mmco_reset;
+    next_mmco_reset = false;
+    if (s->restriction) has_b_frames = std::max(has_b_frames, s->num_reorder);
+    int i = 0;
+    for (;; i++) {
+      if (i == kMax || cur->poc < last_pocs[i]) {
+        if (i) last_pocs[i - 1] = cur->poc;
+        break;
+      } else if (i) {
+        last_pocs[i - 1] = last_pocs[i];
+      }
+    }
+    int out_of_order = kMax - i;
+    if (cur->first_type == 1 ||
+        (last_pocs[kMax - 2] > INT32_MIN && (int64_t)last_pocs[kMax - 1] - last_pocs[kMax - 2] > 2))
+      out_of_order = std::max(out_of_order, 1);
+    if (out_of_order == kMax) {
+      last_pocs_reset();
+      last_pocs[0] = cur->poc;
+      cur->mmco_reset = true;
+    } else if (has_b_frames < out_of_order && !s->restriction) {
+      has_b_frames = out_of_order;
+    }
+    delayed.push_back(cur);
+    size_t pics = delayed.size(), out_idx = 0;
+    for (size_t k = 1; k < delayed.size() && !delayed[k]->key && !delayed[k]->mmco_reset; k++)
+      if (delayed[k]->poc < delayed[out_idx]->poc) out_idx = k;
+    PicPtr out = delayed[out_idx];
+    if (has_b_frames == 0 && (delayed[0]->key || delayed[0]->mmco_reset)) next_outputed_poc = INT32_MIN;
+    bool dropped = out->poc < next_outputed_poc;
+    if (dropped || (int)pics > has_b_frames) delayed.erase(delayed.begin() + out_idx);
+    if (dropped) {
+      stats[S_DROPPED]++;
+    } else if ((int)pics > has_b_frames) {
+      ready.push_back(out);
+      if (out_idx == 0 && !delayed.empty() && (delayed[0]->key || delayed[0]->mmco_reset))
+        next_outputed_poc = INT32_MIN;
+      else
+        next_outputed_poc = out->poc;
+    }
+  }
+  // the end of the stream: the rest in the same order, none dropped
   void flush_output() {
-    while (!pending.empty()) pop_output();
+    while (!delayed.empty()) {
+      size_t out_idx = 0;
+      for (size_t k = 1; k < delayed.size() && !delayed[k]->key && !delayed[k]->mmco_reset; k++)
+        if (delayed[k]->poc < delayed[out_idx]->poc) out_idx = k;
+      ready.push_back(delayed[out_idx]);
+      delayed.erase(delayed.begin() + out_idx);
+    }
   }
 };
 

@@ -10,18 +10,26 @@
 //
 // Two modes:
 // - random: syntax drawn from a seed, every decoded picture of it legal: each
-//   macroblock and sub-macroblock type, each intra mode the neighbours allow,
-//   I_PCM, motion vectors, coefficients (CAVLC escapes and CABAC's
-//   Exp-Golomb suffixes), QP deltas, several slices a picture of I or P
-//   type, reference indices and list modifications, MMCO 1-6 and long-term
-//   references, explicit weights, scaling lists, the 8x8 transform, the
-//   deblocking filter's modes and offsets, cropping; CAVLC or CABAC.
-// - frames: BGR frames in, an I/P stream of them out: Intra 16x16 (the best
-//   of the allowed modes) with residual, P_L0_16x16 from a small integer
-//   search around the skip vector (and zero) refined to quarter samples, or
-//   P_Skip, at a fixed QP.
-// The MP4 (ftyp "isom" or "qt  ", mdat, moov with an avc1 or avc3 sample
-// entry and its avcC) can carry a rotation in tkhd's matrix and an edit list.
+//   macroblock and sub-macroblock type of I, P and B slices, each intra mode
+//   the neighbours allow, I_PCM, motion vectors, coefficients (CAVLC escapes
+//   and CABAC's Exp-Golomb suffixes), QP deltas, several slices a picture of
+//   I, P or B type, reference indices and modifications of both lists, MMCO
+//   1-6 and long-term references, explicit weights, spatial and temporal
+//   direct prediction, implicit bi-prediction weights, scaling lists, the 8x8
+//   transform, the deblocking filter's modes and offsets, cropping; CAVLC or
+//   CABAC.
+// - frames: BGR frames in, an I/P or I/P/B stream of them out: Intra 16x16
+//   (the best of the allowed modes) with residual, P_L0_16x16 from a small
+//   integer search around the skip vector (and zero) refined to quarter
+//   samples, or P_Skip; in B pictures B_Skip, B_Direct_16x16 or
+//   B_L0/L1/Bi_16x16 from the same search around each list's prediction; at
+//   a fixed QP.
+// B pictures (bframes between anchors) wait in display order until the
+// anchor that follows them is coded, then come in decode order: with pyramid
+// the middle one first, as a reference. The MP4 (ftyp "isom" or "qt  ",
+// mdat, moov with an avc1 or avc3 sample entry and its avcC) can carry a
+// rotation in tkhd's matrix, the composition offsets of reordered pictures
+// (ctts version 0 or 1) and an edit list.
 // The NAL units carry 4-byte lengths, or 1 or 2 (length_size). Options come
 // as "key=value;..." (see Options).
 
@@ -109,6 +117,18 @@ struct Writer {
   uint64_t mdat_start = 0, written = 0;
   int frame = 0, since_reset = 0;  // since_reset: pictures since the last IDR or MMCO 5
   bool prev_nonref = false;
+  // B pictures: bframes between anchors, coded after the anchor that follows
+  // them (the middle one first, as a reference, with pyramid); frames wait
+  // in display order until their group is complete
+  int bframes = 0, pyramid = 0;
+  std::string direct;  // spatial, temporal or mixed (per slice)
+  struct Pending {
+    int display;
+    std::vector<uint8_t> bgr;
+  };
+  std::vector<Pending> group;
+  int display = 0, reset_display = 0, prev_anchor = 0;  // display indices
+  std::vector<int> sample_display;  // each sample's display index (decode order)
   std::string refuse;
   bool ended = false;  // a refused feature was written: no more pictures
   // frames mode: the source picture (coded size, edges replicated)
@@ -134,6 +154,13 @@ struct Writer {
     rng = Rng((uint64_t)o.get("seed", 0));
     refuse = o.gets("refuse", "");
     enc_qp = o.get("qp", 24);
+    bframes = o.get("bframes", 0);
+    pyramid = o.get("pyramid", 0);
+    direct = o.gets("direct", "spatial");
+    if (bframes < 0 || bframes > 7) fail("bframes must be within 0..7");
+    if (direct != "spatial" && direct != "temporal" && direct != "mixed")
+      fail("direct must be spatial, temporal or mixed");
+    if (bframes && o.get("poc_type", 0) != 0) fail("B pictures out of display order need poc_type 0");
     mbw = (w + 15) / 16;
     mbh = (h + 15) / 16;
     build_sps();
@@ -159,7 +186,8 @@ struct Writer {
     SPS& s = sps;
     bool high = o.get("t8", 0) || o.get("scaling", 0);
     bool cabac = o.get("cabac", 0);
-    s.profile_idc = high ? 100 : cabac || o.get("weighted", 0) ? 77 : 66;
+    bool main = cabac || o.get("weighted", 0) || o.get("bframes", 0) || o.get("bslices", 0.0);
+    s.profile_idc = high ? 100 : main ? 77 : 66;
     s.constraint_flags = s.profile_idc == 66 ? 0xC0 : 0;
     s.level_idc = 51;
     s.log2_max_frame_num = 4;  // small, so frame_num and the POC lsb wrap
@@ -176,7 +204,7 @@ struct Writer {
     s.gaps_allowed = 0;
     s.mbw = mbw;
     s.mbh = mbh;
-    s.direct_8x8_inference = 1;
+    s.direct_8x8_inference = o.get("direct8x8", 1);
     int cr = (16 * mbw - width) / 2, cb = (16 * mbh - height) / 2;
     int cl = o.get("crop_left", 0), ct = o.get("crop_top", 0);
     if (cl || ct) {  // a left/top crop inside the same coded size
@@ -218,7 +246,7 @@ struct Writer {
       s.pic_struct = o.get("hrd", 0);
       s.restriction = o.get("reorder", -1) >= 0;
       s.num_reorder = std::max(0, o.get("reorder", 0));
-      s.max_dec_buffering = std::max(s.max_num_ref_frames, 1);
+      s.max_dec_buffering = std::max(std::max(s.max_num_ref_frames, 1), s.num_reorder);
     }
     if (refuse == "chroma422" || refuse == "bit_depth10" || refuse == "transform_bypass")
       s.profile_idc = 122;
@@ -253,6 +281,8 @@ struct Writer {
     p.cabac = o.get("cabac", 0);
     p.num_ref_idx_default[0] = 1;
     p.weighted_pred = o.get("weighted", 0);
+    p.weighted_bipred_idc = o.get("bipred_idc", 0);
+    if (p.weighted_bipred_idc < 0 || p.weighted_bipred_idc > 2) fail("bipred_idc must be 0, 1 or 2");
     p.pic_init_qp = random_mode ? 26 : enc_qp;
     p.cb_qp_offset = random_mode ? rng.range(-4, 4) : 0;
     p.cr_qp_offset = p.cb_qp_offset;
@@ -265,6 +295,7 @@ struct Writer {
       p.scaling_matrix_present = (o.get("scaling", 0) >> 1) & 1;  // bit 1: the PPS's
       if (p.scaling_matrix_present) random_lists(p.list_present, p.use_default, p.lists, 6 + 2 * p.transform_8x8);
       p.cr_qp_offset = random_mode ? rng.range(-4, 4) : 0;
+      if (o.get("equal_chroma_offsets", 0)) p.cr_qp_offset = p.cb_qp_offset;
     }
     if (refuse == "slice_groups") p.num_slice_groups = 2;
     pps_nal = param_nal(8);
@@ -296,15 +327,49 @@ struct Writer {
   }
 
   // --------------------------------------------------------- pictures --
+  // one frame in display order: coded now (no B pictures, or an IDR), or
+  // when its group of bframes + 1 is complete
   void write(const uint8_t* bgr) {
     if (ended && !(frame == 0 && param_refusal())) return;
-    if (!random_mode) {
-      if (!bgr) fail("frames mode needs a frame");
-      load_source(bgr);
+    if (!random_mode && !bgr) fail("frames mode needs a frame");
+    int idr_period = o.get("idr_period", 0);
+    int d = display++;
+    if (!bframes) {
+      code_picture(d, bgr, frame == 0 || (idr_period && frame % idr_period == 0) ? 'I' : 'A');
+      return;
     }
-    int gop = o.get("gop", random_mode ? 4 : 2), idr_period = o.get("idr_period", 0);
-    bool idr = frame == 0 || (idr_period && frame % idr_period == 0);
-    bool intra_pic = idr || (gop > 0 && frame % gop == 0) || o.get("intra_only", 0);
+    if (d == 0 || (idr_period && d % idr_period == 0)) {
+      flush_group();
+      code_picture(d, bgr, 'I');
+      return;
+    }
+    group.push_back({d, bgr ? std::vector<uint8_t>(bgr, bgr + (size_t)width * height * 3)
+                            : std::vector<uint8_t>()});
+    if ((int)group.size() == bframes + 1) flush_group();
+  }
+  // the group's last frame as the anchor, then its B pictures: with pyramid
+  // the middle one first (a reference), then the others in display order
+  void flush_group() {
+    if (group.empty()) return;
+    std::vector<Pending> g;
+    g.swap(group);
+    auto data = [](const Pending& q) { return q.bgr.empty() ? nullptr : q.bgr.data(); };
+    code_picture(g.back().display, data(g.back()), 'A');
+    int nb = (int)g.size() - 1, mid = pyramid && nb >= 2 ? nb / 2 : -1;
+    if (mid >= 0) code_picture(g[mid].display, data(g[mid]), 'b');
+    for (int k = 0; k < nb; k++)
+      if (k != mid) code_picture(g[k].display, data(g[k]), 'B');
+  }
+  // role: I an IDR picture, A an anchor (I every gop frames, else P), B a
+  // non-reference B picture, b a reference one
+  void code_picture(int d, const uint8_t* bgr, char role) {
+    if (!random_mode) load_source(bgr);
+    int gop = o.get("gop", random_mode ? 4 : 2);
+    bool idr = role == 'I', bpic = role == 'B' || role == 'b';
+    bool intra_pic = idr || o.get("intra_only", 0);
+    if (role == 'A')
+      intra_pic |= gop > 0 && (bframes ? d / gop != prev_anchor / gop : frame % gop == 0);
+    if (role == 'I' || role == 'A') prev_anchor = d;
     std::vector<uint8_t> sample;
     int ls = length_size();
     auto append = [&](const std::vector<uint8_t>& n) {
@@ -317,7 +382,7 @@ struct Writer {
       // the refused parameter set travels in band before the first picture
       append(sps_nal);
       append(pps_nal);
-      finish_sample(sample, true);
+      finish_sample(sample, true, d);
       ended = true;
       frame++;
       return;
@@ -329,22 +394,27 @@ struct Writer {
     if (refuse == "partitioning" && frame == 1) {
       std::vector<uint8_t> part = {0x12, 0x34, 0x80};
       append(nal_unit(2, 2, part));
-      finish_sample(sample, false);
+      finish_sample(sample, false, d);
       ended = true;
       return;
     }
     SliceHeader h;
     h.nal_type = idr ? 5 : 1;
-    bool nonref = !idr && random_mode && rng.chance(o.getf("nonref", 0.0)) && !prev_nonref;
-    h.nal_ref_idc = nonref ? 0 : random_mode ? rng.range(1, 3) : 3;
-    prev_nonref = nonref;
+    if (bpic) {
+      h.nal_ref_idc = role == 'B' ? 0 : random_mode ? rng.range(1, 3) : 2;
+    } else {
+      bool nonref = !idr && random_mode && rng.chance(o.getf("nonref", 0.0)) && !prev_nonref;
+      h.nal_ref_idc = nonref ? 0 : random_mode ? rng.range(1, 3) : 3;
+      prev_nonref = nonref;
+    }
     int mfn = 1 << sps.log2_max_frame_num;
     // a gap: the decoder sees frame_num skip one value (the writer's own state moves on)
     if (refuse == "frame_num_gap" && frame == 2) codec.prev_ref_frame_num = (codec.prev_ref_frame_num + 1) % mfn;
     h.frame_num = idr ? 0 : (codec.prev_ref_frame_num + 1) % mfn;
-    if (idr) since_reset = 0;
-    h.idr_pic_id = idr ? (frame / std::max(1, idr_period)) % 4 : 0;
-    h.poc_lsb = (2 * since_reset) % (1 << sps.log2_max_poc_lsb);
+    if (idr) { since_reset = 0; reset_display = d; }
+    h.idr_pic_id = idr ? ((bframes ? d : frame) / std::max(1, o.get("idr_period", 0))) % 4 : 0;
+    int poc = bframes ? 2 * (d - reset_display) : 2 * since_reset;
+    h.poc_lsb = poc % (1 << sps.log2_max_poc_lsb);
     if (h.nal_ref_idc) choose_marking(h, idr);
     int nslices = random_mode ? rng.range(1, std::max(1, o.get("slices", 1))) : 1;
     int n = mbw * mbh;
@@ -352,16 +422,20 @@ struct Writer {
     for (int k = 1; k < nslices; k++) starts.push_back(rng.range(1, n - 1));
     std::sort(starts.begin(), starts.end());
     starts.erase(std::unique(starts.begin(), starts.end()), starts.end());
-    bool refused_slice = refuse == "b_slice" || refuse == "sp_slice" || refuse == "si_slice" ||
-                         refuse == "redundant";
+    bool refused_slice = refuse == "sp_slice" || refuse == "si_slice" || refuse == "redundant";
+    double bslices = o.getf("bslices", 0.0), pslices = o.getf("pslices", 0.0);
     for (size_t k = 0; k < starts.size(); k++) {
       SliceHeader sh = h;
       sh.first_mb = starts[k];
       int end = k + 1 < starts.size() ? starts[k + 1] : n;
       bool islice = intra_pic || (random_mode && rng.chance(0.1));
-      sh.slice_type = islice ? 2 : 0;
+      int type = islice ? 2 : bpic ? 1 : 0;
+      // mixed slice types: P slices in B pictures, B slices in P pictures
+      if (!islice && random_mode && bpic && pslices > 0 && rng.chance(pslices)) type = 0;
+      if (!islice && random_mode && !bpic && bslices > 0 && rng.chance(bslices)) type = 1;
+      sh.slice_type = type;
       if (refused_slice && frame == 1) {
-        sh.slice_type = refuse == "b_slice" ? 1 : refuse == "sp_slice" ? 3 : refuse == "si_slice" ? 4 : 0;
+        sh.slice_type = refuse == "sp_slice" ? 3 : refuse == "si_slice" ? 4 : 0;
         if (refuse == "redundant") sh.redundant_pic_cnt = 1;
       }
       sh.type = sh.slice_type % 5;
@@ -376,7 +450,7 @@ struct Writer {
         if (e.code != 2 || refuse.empty()) throw;
         b.trailing();
         append(nal_unit(sh.nal_ref_idc, sh.nal_type, b.out));
-        finish_sample(sample, false);
+        finish_sample(sample, false, d);
         ended = true;
         return;
       }
@@ -394,7 +468,7 @@ struct Writer {
     codec.ready.clear();
     since_reset = codec.prev_mmco5 ? 1 : since_reset + 1;
     frame++;
-    finish_sample(sample, idr);
+    finish_sample(sample, idr, d);
   }
   int length_size() const {
     int n = o.get("length_size", 4);
@@ -406,10 +480,11 @@ struct Writer {
            refuse == "fields" || refuse == "slice_groups";
   }
 
-  void finish_sample(const std::vector<uint8_t>& sample, bool key) {
+  void finish_sample(const std::vector<uint8_t>& sample, bool key, int d) {
     if (fwrite(sample.data(), 1, sample.size(), f) != sample.size()) fail("write failed");
     written += sample.size();
     sizes.push_back((uint32_t)sample.size());
+    sample_display.push_back(d);
     if (key) sync.push_back((uint32_t)sizes.size());
   }
 
@@ -420,7 +495,7 @@ struct Writer {
     h.long_term_ref = 0;
     bool lt = o.get("mmco", 0);
     if (idr) {
-      h.long_term_ref = lt && rng.chance(0.3);
+      h.long_term_ref = lt && rng.chance(o.getf("idr_long", 0.3));
       return;
     }
     std::vector<PicPtr> st, ltp;
@@ -448,6 +523,8 @@ struct Writer {
     for (int k = 0; k < nops; k++) {
       int op = rng.range(1, 6);
       if (op == 5 && !rng.chance(0.3)) op = 4;
+      // POCs restart: no B pictures around it, no B slices after it
+      if (op == 5 && (bframes || o.getf("bslices", 0.0) > 0)) op = 4;
       Mmco m;
       m.op = op;
       if (op == 1 || op == 3) {
@@ -471,7 +548,7 @@ struct Writer {
       } else if (op == 4) {
         m.max_lt_plus1 = rng.range(0, std::max(1, sps.max_num_ref_frames));
         bool later = false;
-        for (const Mmco& q : h.mmcos) later |= q.op == 2 || q.op == 3;
+        for (const Mmco& q : h.mmcos) later |= q.op == 2 || q.op == 3 || q.op == 6;
         if (later) continue;
         maxl = m.max_lt_plus1 - 1;
       } else if (op == 5) {
@@ -545,11 +622,12 @@ struct Writer {
     return n <= std::max(1, sps.max_num_ref_frames);
   }
 
-  // the slice's QP, deblocking, CABAC table, reference list and weights
+  // the slice's QP, deblocking, CABAC table, reference lists and weights
   void choose_slice(SliceHeader& sh) {
+    sh.direct_spatial = direct == "spatial" || (direct == "mixed" && rng.chance(0.5));
     if (!random_mode) {
       sh.qp_delta = 0;
-      sh.num_ref_idx_active = 1;
+      sh.num_ref_idx_active[0] = sh.num_ref_idx_active[1] = 1;
       sh.override = pps.num_ref_idx_default[0] != 1;
       sh.cabac_init_idc = 0;
       return;
@@ -561,19 +639,25 @@ struct Writer {
       sh.alpha_div2 = rng.range(-6, 6);
       sh.beta_div2 = rng.range(-6, 6);
     }
-    if (sh.type != 0) return;
+    if (sh.type == 2) return;
     int nref = 0;
     for (const PicPtr& r : codec.dpb) nref += r->is_ref();
-    if (nref == 0) fail("internal: a P slice without references");
-    sh.num_ref_idx_active = rng.range(1, std::min(nref, 8));
-    sh.override = sh.num_ref_idx_active != pps.num_ref_idx_default[0] || rng.chance(0.2);
-    if (!sh.override) sh.num_ref_idx_active = pps.num_ref_idx_default[0];
-    sh.mods.clear();
-    sh.ref_mod_flag = 0;
-    if (rng.chance(0.6)) {
-      sh.ref_mod_flag = 1;
+    if (nref == 0) fail("internal: an inter slice without references");
+    bool differ = false;
+    for (int l = 0; l < sh.lists(); l++) {
+      sh.num_ref_idx_active[l] = rng.range(1, std::min(nref, 8));
+      differ |= sh.num_ref_idx_active[l] != pps.num_ref_idx_default[l];
+    }
+    sh.override = differ || rng.chance(0.2);
+    if (!sh.override)
+      for (int l = 0; l < sh.lists(); l++) sh.num_ref_idx_active[l] = pps.num_ref_idx_default[l];
+    for (int l = 0; l < sh.lists(); l++) {
+      sh.mods[l].clear();
+      sh.ref_mod_flag[l] = 0;
+      if (!rng.chance(0.6)) continue;
+      sh.ref_mod_flag[l] = 1;
       int mfn = 1 << sps.log2_max_frame_num, pred = sh.frame_num;
-      int nm = rng.range(0, std::min(3, sh.num_ref_idx_active));
+      int nm = rng.range(0, std::min(3, sh.num_ref_idx_active[l]));
       for (int k = 0; k < nm; k++) {
         const PicPtr& r = codec.dpb[rng.range(0, (int)codec.dpb.size() - 1)];
         RefMod m;
@@ -594,24 +678,41 @@ struct Writer {
           }
           pred = target;
         }
-        sh.mods.push_back(m);
+        sh.mods[l].push_back(m);
       }
-      sh.mods.push_back(RefMod());
+      sh.mods[l].push_back(RefMod());
     }
-    if (pps.weighted_pred) {
+    // a long-term reference as the co-located picture, when one is held
+    std::vector<PicPtr> longs;
+    for (const PicPtr& r : codec.dpb)
+      if (r->ref_long) longs.push_back(r);
+    double ltcol = o.getf("ltcol", 0.0);
+    if (sh.type == 1 && !longs.empty() && ltcol > 0 && rng.chance(ltcol)) {
+      RefMod m;
+      m.idc = 2;
+      m.val = longs[rng.range(0, (int)longs.size() - 1)]->long_idx;
+      sh.ref_mod_flag[1] = 1;
+      sh.mods[1] = {m, RefMod()};
+    }
+    bool bi = sh.type == 1;
+    if ((pps.weighted_pred && !bi) || (pps.weighted_bipred_idc == 1 && bi)) {
       sh.luma_log2_wd = rng.range(0, 7);
       sh.chroma_log2_wd = rng.range(0, 7);
-      for (int i = 0; i < sh.num_ref_idx_active; i++) {
-        // |v * w| + |o| << denom stays inside 16 bits, as FFmpeg's SIMD needs
-        sh.luma_flag[i] = rng.chance(0.7);
-        sh.luma_w[i] = rng.range(-64, 64);
-        sh.luma_o[i] = rng.range(-std::min(127, 8000 >> sh.luma_log2_wd), std::min(127, 8000 >> sh.luma_log2_wd));
-        sh.chroma_flag[i] = rng.chance(0.6);
-        for (int c = 0; c < 2; c++) {
-          sh.chroma_w[i][c] = rng.range(-64, 64);
-          sh.chroma_o[i][c] = rng.range(-std::min(127, 8000 >> sh.chroma_log2_wd), std::min(127, 8000 >> sh.chroma_log2_wd));
+      // |v * w| + |o| << denom stays inside 16 bits, as FFmpeg's SIMD needs;
+      // for two lists the sum of both (its biweight takes signed byte weights)
+      int wmax = bi ? 48 : 64;
+      auto omax = [&](int wd) { return bi ? std::min(127, (4000 >> wd) - 2) : std::min(127, 8000 >> wd); };
+      for (int l = 0; l < sh.lists(); l++)
+        for (int i = 0; i < sh.num_ref_idx_active[l]; i++) {
+          sh.luma_flag[l][i] = rng.chance(0.7);
+          sh.luma_w[l][i] = rng.range(-wmax, wmax);
+          sh.luma_o[l][i] = rng.range(-omax(sh.luma_log2_wd), omax(sh.luma_log2_wd));
+          sh.chroma_flag[l][i] = rng.chance(0.6);
+          for (int c = 0; c < 2; c++) {
+            sh.chroma_w[l][i][c] = rng.range(-wmax, wmax);
+            sh.chroma_o[l][i][c] = rng.range(-omax(sh.chroma_log2_wd), omax(sh.chroma_log2_wd));
+          }
         }
-      }
     }
   }
 
@@ -655,7 +756,8 @@ struct Writer {
       return;
     }
     if (islice || rng.chance(0.15)) choose_intra(m, islice);
-    else choose_inter(m);
+    else if (codec.sh.type == 0) choose_inter(m);
+    else choose_inter_b(m);
   }
   void choose_intra(Mb& m, bool islice) {
     Codec& c = codec;
@@ -665,7 +767,7 @@ struct Writer {
     m.kind = r < pcm ? IPCM : (t8 && r < 40) ? I8 : r < 65 ? I4 : I16;
     bool L = c.intra_ok(c.mbx - 1, c.mby), T = c.intra_ok(c.mbx, c.mby - 1),
          TL = c.intra_ok(c.mbx - 1, c.mby - 1);
-    int base = islice ? 0 : 5;
+    int base = islice ? 0 : codec.sh.type == 0 ? 5 : 23;
     if (m.kind == IPCM) {
       m.mb_type = base + 25;
       for (int k = 0; k < 384; k++) m.pcm[k] = (uint8_t)rng.range(1, 255);
@@ -703,10 +805,23 @@ struct Writer {
     m.qp_delta = new_qp_delta();
     random_levels(m, true);
   }
+  // a random vector for a partition of the macroblock, within 12 samples
+  // of the picture
+  int random_mv(int j, int l) {
+    Codec& c = codec;
+    MbInfo* a = c.mbA();
+    int lim = j ? 16 * mbh : 16 * mbw, pos = j ? 16 * c.mby : 16 * c.mbx;
+    int lo = (-12 - pos) * 4, hi = (lim + 12 - pos - 16) * 4;
+    int v;
+    if (a && !a->intra && rng.chance(0.4)) v = a->mv[l][0][j] + rng.range(-3, 3);
+    else if (rng.chance(0.5)) v = rng.range(-20, 20);
+    else v = rng.range(std::max(lo, -256), std::min(hi, 256));
+    return clip3(lo, hi, v);
+  }
   void choose_inter(Mb& m) {
     Codec& c = codec;
     int nref = 0;
-    for (const PicPtr& r : c.list0) nref += r != nullptr;
+    for (const PicPtr& r : c.list[0]) nref += r != nullptr;
     int r = rng.range(0, 99);
     int t = r < 35 ? 0 : r < 50 ? 1 : r < 65 ? 2 : 3;
     if (t == 3 && !c.p->cabac && rng.chance(0.25)) t = 4;  // P_8x8ref0
@@ -714,27 +829,45 @@ struct Writer {
     int np = t == 0 ? 1 : t < 3 ? 2 : 4;
     bool small = false;
     for (int k = 0; k < 4; k++) {
-      m.ref[k] = rng.range(0, nref - 1);
+      m.ref[0][k] = rng.range(0, nref - 1);
       m.sub[k] = t >= 3 ? rng.range(0, 3) : 0;
       small |= m.sub[k] != 0;
     }
-    int nmv = 0;
-    for (int k = 0; k < np; k++) nmv += t >= 3 ? kSubParts[m.sub[k]][0] : 1;
-    MbInfo* a = c.mbA();
-    for (int k = 0; k < nmv; k++)
-      for (int j = 0; j < 2; j++) {
-        int lim = j ? 16 * mbh : 16 * mbw, pos = j ? 16 * c.mby : 16 * c.mbx;
-        int lo = (-12 - pos) * 4, hi = (lim + 12 - pos - 16) * 4;
-        int v;
-        if (a && !a->intra && rng.chance(0.4)) v = a->mv[0][j] + rng.range(-3, 3);
-        else if (rng.chance(0.5)) v = rng.range(-20, 20);
-        else v = rng.range(std::max(lo, -256), std::min(hi, 256));
-        m.mv[k][j] = clip3(lo, hi, v);
-      }
+    // partitions 0..np-1; sub-macroblock k's sub-partitions at 4 k + j
+    for (int k = 0; k < np; k++) {
+      int n = t >= 3 ? kSubParts[m.sub[k]][0] : 1;
+      for (int i = 0; i < n; i++)
+        for (int j = 0; j < 2; j++) m.mv[0][t >= 3 ? 4 * k + i : k][j] = random_mv(j, 0);
+    }
     m.cbp = rng.range(0, 15) | rng.range(0, 2) << 4;
     if (rng.chance(0.2)) m.cbp = 0;
     m.t8 = c.p->transform_8x8 && (m.cbp & 15) && !small && rng.chance(0.5);
     m.kind = t == 0 ? P16x16 : t == 1 ? P16x8 : t == 2 ? P8x16 : P8x8;
+    m.qp_delta = (m.cbp) ? new_qp_delta() : 0;
+    random_levels(m, false);
+  }
+  // a B macroblock: B_Direct_16x16, the 16x16/16x8/8x16 types of every list
+  // pairing, or B_8x8 with any sub_mb_type (B_Direct_8x8 among them)
+  void choose_inter_b(Mb& m) {
+    Codec& c = codec;
+    int n[2] = {(int)c.list[0].size(), (int)c.list[1].size()};
+    int r = rng.range(0, 99);
+    int t = r < 10 ? 0 : r < 35 ? rng.range(1, 3) : r < 70 ? rng.range(4, 21) : 22;
+    m.mb_type = t;
+    bool infer = c.s->direct_8x8_inference != 0;
+    bool small = t == 0 && !infer;
+    for (int k = 0; k < 4; k++) {
+      m.sub[k] = t == 22 ? rng.range(0, 12) : 0;
+      if (t == 22) small |= m.sub[k] == 0 ? !infer : kBSubParts[m.sub[k]][0] > 1;
+      for (int l = 0; l < 2; l++) m.ref[l][k] = rng.range(0, n[l] - 1);
+    }
+    for (int l = 0; l < 2; l++)
+      for (int k = 0; k < 16; k++)
+        for (int j = 0; j < 2; j++) m.mv[l][k][j] = random_mv(j, l);
+    m.cbp = rng.range(0, 15) | rng.range(0, 2) << 4;
+    if (rng.chance(0.2)) m.cbp = 0;
+    m.t8 = c.p->transform_8x8 && (m.cbp & 15) && !small && rng.chance(0.5);
+    m.kind = t == 22 ? P8x8 : kBTypes[t][0];
     m.qp_delta = (m.cbp) ? new_qp_delta() : 0;
     random_levels(m, false);
   }
@@ -1012,10 +1145,9 @@ struct Writer {
       long sad = sad16(d0, W, s0, W);
       if (sad < best_intra) { best_intra = sad; best_mode = md; }
     }
-    if (!islice) {
-      int smv[2], best[2] = {0, 0};
-      c.skip_mv(smv);
-      const Picture& ref = *c.list0[0];
+    // the best vector within `radius` integer samples of (cx, cy), and zero,
+    // refined to half then quarter samples; its SAD plus a cost of the mvd
+    auto search = [&](const Picture& ref, int cx, int cy, int radius, int best[2]) {
       uint8_t tmp[256];
       long best_sad = 1L << 40;
       auto try_mv = [&](int mx, int my) {
@@ -1027,37 +1159,90 @@ struct Writer {
           Codec::mc_luma(ref, px, py, 16, 16, mx, my, tmp, 16);
           sad = sad16(tmp, 16, s0, W);
         }
-        sad += (std::abs(mx - smv[0]) + std::abs(my - smv[1])) / 2;
+        sad += (std::abs(mx - cx) + std::abs(my - cy)) / 2;
         if (sad < best_sad) { best_sad = sad; best[0] = mx; best[1] = my; }
       };
-      // integer samples within 3 of the skip vector, zero, then half and
-      // quarter samples around the best
-      for (int dy = -3; dy <= 3; dy++)
-        for (int dx = -3; dx <= 3; dx++) try_mv((smv[0] & ~3) + 4 * dx, (smv[1] & ~3) + 4 * dy);
+      for (int dy = -radius; dy <= radius; dy++)
+        for (int dx = -radius; dx <= radius; dx++) try_mv((cx & ~3) + 4 * dx, (cy & ~3) + 4 * dy);
       try_mv(0, 0);
-      try_mv(smv[0], smv[1]);
+      try_mv(cx, cy);
       for (int step = 2; step >= 1; step--) {
-        int cx = best[0], cy = best[1];
+        int bx = best[0], by = best[1];
         for (int dy = -1; dy <= 1; dy++)
           for (int dx = -1; dx <= 1; dx++)
-            if (dx || dy) try_mv(cx + step * dx, cy + step * dy);
+            if (dx || dy) try_mv(bx + step * dx, by + step * dy);
       }
+      return best_sad;
+    };
+    if (c.sh.type == 0) {
+      int smv[2], best[2] = {0, 0};
+      c.skip_mv(smv);
+      long best_sad = search(*c.list[0][0], smv[0], smv[1], 3, best);
       if (best_sad < best_intra + 256) {
         // the inter prediction into the picture, then its residual
-        c.ci().ref[0] = c.ci().ref[1] = c.ci().ref[2] = c.ci().ref[3] = 0;
-        for (int k = 0; k < 16; k++) { c.ci().mv[k][0] = (int16_t)best[0]; c.ci().mv[k][1] = (int16_t)best[1]; }
-        c.predict_partition(0, 0, 16, 16, 0, best);
+        int ref[2] = {0, -1}, mv[2][2] = {{best[0], best[1]}, {0, 0}};
+        c.predict_partition(0, 0, 16, 16, ref, mv);
         int cbp = quantise(m, false, c.qp);
         if (cbp == 0 && best[0] == smv[0] && best[1] == smv[1]) {
           m.skip = 1;
           return;
         }
         m.mb_type = 0;
-        m.ref[0] = 0;
-        m.mv[0][0] = best[0];
-        m.mv[0][1] = best[1];
+        m.ref[0][0] = 0;
+        m.mv[0][0][0] = best[0];
+        m.mv[0][0][1] = best[1];
         m.cbp = cbp;
         m.qp_delta = 0;
+        return;
+      }
+    } else if (c.sh.type == 1) {
+      // B: the direct prediction (B_Skip or B_Direct_16x16), or 16x16 from
+      // list 0, list 1 or both (the implicit or default average)
+      MbInfo saved = c.ci();
+      c.direct_motion(15);
+      MbInfo direct_info = c.ci();
+      c.predict_inter();
+      long cost[4];  // direct, L0, L1, both
+      cost[0] = sad16(d0, W, s0, W) - 64;
+      c.ci() = saved;
+      int best[2][2] = {{0, 0}, {0, 0}}, mode = 0;
+      int ref[2] = {0, 0};
+      if (cost[0] > 2 * 256) {  // the direct prediction within 2 a sample is taken as it is
+        for (int l = 0; l < 2; l++) {
+          int pred[2];
+          c.mvp(0, 0, 16, 0, 0, 0, l, pred);
+          cost[1 + l] = search(*c.list[l][0], pred[0], pred[1], 1, best[l]);
+        }
+        c.predict_partition(0, 0, 16, 16, ref, best);
+        cost[3] = sad16(d0, W, s0, W) + 32;
+        for (int k = 1; k < 4; k++)
+          if (cost[k] < cost[mode]) mode = k;
+      }
+      if (cost[mode] < best_intra + 256) {
+        if (mode == 0) {
+          c.ci() = direct_info;
+          c.predict_inter();
+        } else if (mode < 3) {
+          int r[2] = {mode == 1 ? 0 : -1, mode == 2 ? 0 : -1};
+          c.predict_partition(0, 0, 16, 16, r, best);
+        } else {
+          c.predict_partition(0, 0, 16, 16, ref, best);
+        }
+        c.ci() = saved;
+        int cbp = quantise(m, false, c.qp);
+        m.cbp = cbp;
+        m.qp_delta = 0;
+        if (mode == 0) {
+          m.skip = cbp == 0;
+          m.mb_type = 0;
+          return;
+        }
+        m.mb_type = mode;
+        for (int l = 0; l < 2; l++) {
+          m.ref[l][0] = 0;
+          m.mv[l][0][0] = best[l][0];
+          m.mv[l][0][1] = best[l][1];
+        }
         return;
       }
     }
@@ -1066,7 +1251,8 @@ struct Writer {
     int cbp = quantise(m, true, c.qp);
     m.i16 = best_mode;
     m.cmode = 0;
-    m.mb_type = (islice ? 0 : 5) + 1 + best_mode + 4 * (cbp >> 4) + 12 * ((cbp & 15) ? 1 : 0);
+    m.mb_type = (islice ? 0 : c.sh.type == 0 ? 5 : 23) + 1 + best_mode + 4 * (cbp >> 4) +
+                12 * ((cbp & 15) ? 1 : 0);
     m.cbp = cbp;
     m.qp_delta = 0;
   }
@@ -1074,6 +1260,7 @@ struct Writer {
   // --------------------------------------------------------------- mux --
   void release() {
     if (!f) return;
+    if (!ended) flush_group();
     std::vector<uint8_t> avcc;
     bool avc3 = o.get("avc3", 0);
     avcc.push_back(1);
@@ -1099,7 +1286,23 @@ struct Writer {
     spec.mdat_start = mdat_start;
     spec.big = mdat_start + written > 0xFFFFFFFFull;
     spec.rotation = o.get("rotation", 0);
-    spec.edit_media_time = o.get("edit", -2);
+    // composition offsets as FFmpeg's muxer writes them for reordered
+    // pictures: version 0 from a decode delay D (the most samples decoded
+    // ahead of their display), with one edit from the first composition
+    // time D; version 1 (negative_cts_offsets) the signed offsets, no edit
+    bool reordered = false;
+    for (size_t i = 0; i < sample_display.size(); i++) reordered |= sample_display[i] != (int)i;
+    int version = o.get("ctts_version", 0);
+    std::string edit = o.gets("edit", reordered && o.get("ctts", 1) && version == 0 ? "movenc" : "none");
+    if (reordered && o.get("ctts", 1)) {
+      int delay = 0;
+      for (size_t i = 0; i < sample_display.size(); i++) delay = std::max(delay, (int)i - sample_display[i]);
+      spec.ctts_version = version;
+      for (size_t i = 0; i < sample_display.size(); i++)
+        spec.ctts.push_back((sample_display[i] - (int)i + (version ? 0 : delay)) * fps_den);
+      if (edit == "movenc") spec.edit_media_time = (int64_t)delay * fps_den;
+    }
+    if (edit != "none" && edit != "movenc") spec.edit_media_time = std::atoi(edit.c_str());
     std::vector<uint8_t> out = build_moov(spec);
     if (fwrite(out.data(), 1, out.size(), f) != out.size()) fail("write failed");
     std::vector<uint8_t> size;

@@ -7,9 +7,14 @@
 // before or after mdat). The first track whose handler is "vide", whatever
 // tracks come before it; its first sample entry (mp4v with its esds, avc1 or
 // avc3 with its avcC, or any other, which the codec refuses by name); samples
-// through stts/stsc/stsz/stco|co64. An edit list is applied when it is the
-// identity that FFmpeg's muxer writes (one edit of the whole media from time
-// 0 at rate 1); any other is refused by name. The display matrix, the track's
+// through stts/stsc/stsz/stco|co64, and ctts (versions 0 and 1) for the
+// composition times of reordered pictures. An edit list is applied when it is
+// one that FFmpeg's muxer writes: the identity (one edit of the whole media
+// from time 0 at rate 1), or, for a track with composition offsets, one edit
+// at rate 1 from the smallest composition time, so that no sample falls
+// before it or after its end; any other is refused by name. From ctts comes
+// the reorder delay that FFmpeg's demuxer guesses (video_delay), which sets
+// where its H.264 decoder starts to hold pictures back. The display matrix, the track's
 // (tkhd) times the movie's (mvhd) as FFmpeg composes them, gives the rotation
 // that cv2.VideoCapture applies (CAP_PROP_ORIENTATION_AUTO): 0, 90, 180 or
 // 270 degrees clockwise. A matrix that is no such rotation (another angle, a
@@ -20,7 +25,9 @@
 
 #pragma once
 
+#include <algorithm>
 #include <array>
+#include <climits>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -68,6 +75,8 @@ struct Track {
   int32_t matrix[9] = {0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000};
   std::vector<std::array<int64_t, 3>> elst;  // segment duration, media time, rate (16.16)
   std::vector<std::pair<uint32_t, uint32_t>> stts;  // count, delta
+  std::vector<std::pair<uint32_t, int32_t>> ctts;   // count, composition offset
+  int ctts_version = 0;
   std::vector<std::array<uint32_t, 3>> stsc;        // first, per chunk, desc
   std::vector<uint32_t> stsz;
   uint32_t stsz_fixed = 0, stsz_count = 0;
@@ -119,10 +128,13 @@ struct Movie {
   uint64_t fsize = 0;
   std::string brand;
   int32_t mvhd_matrix[9] = {0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000};
+  uint32_t movie_timescale = 1000;
   std::vector<Track> tracks;
   Track track;  // the first video track
   std::vector<Sample> samples;
   uint64_t total_delta = 0;
+  std::vector<int64_t> cts;  // composition time of each sample (decode order)
+  int video_delay = 0;       // FFmpeg's mov_estimate_video_delay
   int rotation = 0;  // clockwise degrees, as cv2 rotates the frames
 
   ~Movie() {
@@ -200,18 +212,72 @@ struct Movie {
       }
     }
     if (k != count) fail("sample table lists more samples than its chunks hold");
-    for (const auto& e : t.stts) total_delta += (uint64_t)e.first * e.second;
+    int64_t dts = 0;
+    size_t e = 0, used = 0, ce = 0, cused = 0;
+    for (size_t i = 0; i < samples.size(); i++) {
+      int64_t off = 0;
+      if (ce < t.ctts.size()) {
+        off = t.ctts[ce].second;
+        if (++cused >= t.ctts[ce].first) { ce++; cused = 0; }
+      }
+      cts.push_back(dts + off);
+      while (e < t.stts.size() && used >= t.stts[e].first) { e++; used = 0; }
+      if (e < t.stts.size()) { dts += t.stts[e].second; used++; }
+    }
+    for (const auto& s : t.stts) total_delta += (uint64_t)s.first * s.second;
+    estimate_video_delay();
   }
 
-  // The identity edit list (one edit of the media from time 0 at rate 1) is
-  // what FFmpeg's muxer writes; it changes nothing. FFmpeg's rules for the
-  // others (empty edits, a later start, several edits) are not written out.
+  // mov_estimate_video_delay: the most pictures decoded before one that
+  // follow it in composition order, over a window of 17
+  void estimate_video_delay() {
+    const int kMax = 16;
+    if (track.ctts.empty()) return;
+    size_t n = 0;
+    for (const auto& c : track.ctts) n += c.first;
+    n = std::min(n, cts.size());
+    int64_t buf[kMax + 1];
+    for (int64_t& v : buf) v = INT64_MIN;
+    int start = 0;
+    for (size_t i = 0; i < n; i++) {
+      int j = start;
+      start = start + 1 == kMax + 1 ? 0 : start + 1;
+      buf[j] = cts[i];
+      int swaps = 0;
+      while (j != start) {
+        int r = j - 1 < 0 ? kMax : j - 1;
+        if (buf[j] >= buf[r]) break;
+        std::swap(buf[j], buf[r]);
+        swaps++;
+        j = r;
+      }
+      video_delay = std::max(video_delay, swaps);
+    }
+  }
+
+  // The edit lists FFmpeg's muxer writes: the identity (one edit of the media
+  // from time 0 at rate 1), which changes nothing, and for a track with
+  // composition offsets one edit at rate 1 from the smallest composition
+  // time that reaches past the last one, which shifts the presentation times
+  // and drops no frame. FFmpeg's rules for the others (empty edits, an edit
+  // that starts inside or ends before the frames, several edits) are not
+  // written out.
   void check_edits() const {
     const auto& e = track.elst;
     if (e.empty()) return;
-    if (e.size() != 1 || e[0][1] != 0 || e[0][2] != 0x10000)
+    int64_t first = cts.empty() ? 0 : *std::min_element(cts.begin(), cts.end());
+    int64_t last = cts.empty() ? 0 : *std::max_element(cts.begin(), cts.end());
+    auto refuse = [&](const std::string& why) {
       unsupported("edit list (" + std::to_string(e.size()) + " edits, the first from media time " +
-                  std::to_string(e[0][1]) + "): only the identity edit list is applied");
+                  std::to_string(e[0][1]) + "): " + why);
+    };
+    if (e.size() != 1 || e[0][2] != 0x10000) refuse("only one edit at rate 1 is applied");
+    if (e[0][1] == 0) return;
+    if (track.ctts.empty() || e[0][1] != first)
+      refuse("only the identity edit list, or one from the smallest composition time, is applied");
+    if (track.ctts_version == 1) refuse("composition offsets of ctts version 1 with an edit");
+    int64_t end = e[0][1] + (int64_t)std::llround((double)e[0][0] * track.timescale / movie_timescale);
+    if (last >= end) refuse("it ends before the last frame");
   }
 
   // The track matrix times the movie matrix (row vectors, as FFmpeg composes
@@ -258,6 +324,8 @@ void parse_box(const std::string& type, const uint8_t* b, const uint8_t* e, Trac
     mv.tracks.push_back(std::move(nt));
   } else if (type == "mvhd" && n >= 100) {
     read_matrix(b + (b[0] == 1 ? 48 : 36), mv.mvhd_matrix);
+    mv.movie_timescale = be32(b + (b[0] == 1 ? 20 : 12));
+    if (!mv.movie_timescale) fail("mvhd timescale 0");
   } else if (type == "tkhd" && n >= 76) {
     size_t off = b[0] == 1 ? 52 : 40;
     if (n >= off + 36) read_matrix(b + off, t.matrix);
@@ -297,6 +365,15 @@ void parse_box(const std::string& type, const uint8_t* b, const uint8_t* e, Trac
     uint32_t cnt = be32(b + 4);
     if (8 + (uint64_t)cnt * 8 > n) fail("truncated stts");
     for (uint32_t i = 0; i < cnt; i++) t.stts.push_back({be32(b + 8 + 8 * i), be32(b + 12 + 8 * i)});
+  } else if (type == "ctts" && n >= 8) {
+    uint32_t cnt = be32(b + 4);
+    if (8 + (uint64_t)cnt * 8 > n) fail("truncated ctts");
+    t.ctts_version = b[0];
+    for (uint32_t i = 0; i < cnt; i++) {
+      uint32_t off = be32(b + 12 + 8 * i);
+      // version 0 offsets are unsigned; FFmpeg reads both as signed
+      t.ctts.push_back({be32(b + 8 + 8 * i), (int32_t)off});
+    }
   } else if (type == "stsc" && n >= 8) {
     uint32_t cnt = be32(b + 4);
     if (8 + (uint64_t)cnt * 12 > n) fail("truncated stsc");
@@ -366,6 +443,8 @@ struct MoovSpec {
   bool big = false;            // co64 chunk offsets
   int rotation = 0;            // clockwise degrees in tkhd's matrix
   int64_t edit_media_time = -2;  // >= -1: one edit of the whole track from this media time
+  std::vector<int32_t> ctts;     // composition offsets by sample, none when empty
+  int ctts_version = 0;
 };
 
 // moov with one video track whose samples lie in one chunk
@@ -415,6 +494,21 @@ std::vector<uint8_t> build_moov(const MoovSpec& s) {
   std::vector<uint8_t> stbl, minf, dinf, mdia, trak, moov, out;
   box(stbl, "stsd", stsd); box(stbl, "stts", stts);
   if (s.sync.size() != n) box(stbl, "stss", stss);
+  if (!s.ctts.empty()) {  // run-length coded
+    std::vector<uint8_t> ctts, runs;
+    uint32_t count = 0;
+    for (size_t i = 0; i < s.ctts.size(); i++) {
+      count++;
+      if (i + 1 == s.ctts.size() || s.ctts[i + 1] != s.ctts[i]) {
+        put_be(runs, count, 4);
+        put_be(runs, (uint32_t)s.ctts[i], 4);
+        count = 0;
+      }
+    }
+    put_be(ctts, (uint64_t)s.ctts_version << 24, 4); put_be(ctts, runs.size() / 8, 4);
+    ctts.insert(ctts.end(), runs.begin(), runs.end());
+    box(stbl, "ctts", ctts);
+  }
   box(stbl, "stsc", stsc); box(stbl, "stsz", stsz); box(stbl, s.big ? "co64" : "stco", stco);
   box(dinf, "dref", dref);
   box(minf, "vmhd", vmhd); box(minf, "dinf", dinf); box(minf, "stbl", stbl);

@@ -12,8 +12,9 @@ every stream it writes is held against ``cv2.VideoCapture``, never only
 against the port's decoder.
 
 ``write_random`` draws the syntax of ``n_frames`` pictures from a seed;
-``write_frames`` codes BGR frames (Intra 16x16, P_L0_16x16 and P_Skip at a
-fixed QP). The keyword features become the writer's options: ``cabac``,
+``write_frames`` codes BGR frames (Intra 16x16, P_L0_16x16 and P_Skip, and
+in B pictures B_Skip, B_Direct_16x16 and B_L0/L1/Bi_16x16, at a fixed QP).
+The keyword features become the writer's options: ``cabac``,
 ``t8`` (the 8x8 transform), ``scaling`` (scaling lists: 1 in the SPS,
 2 in the PPS, 3 both), ``slices`` (up to that
 many a picture), ``deblock`` (disable_deblocking_filter_idc and offsets per
@@ -27,10 +28,22 @@ units' length field: 1, 2 or 4 bytes), ``crop_left``/``crop_top``,
 ``full_range``/``matrix``/``primaries``/``transfer``/``reorder`` (VUI:
 max_num_reorder_frames), ``hrd`` (VUI NAL and VCL HRD parameters and
 pic_struct_present_flag), ``pcm`` (share of I_PCM macroblocks),
-``intra_only``, ``refuse`` (write a feature the
-decoder refuses: b_slice, sp_slice, si_slice, redundant, partitioning,
-chroma422, bit_depth10, transform_bypass, fields, slice_groups,
-frame_num_gap).
+``intra_only``, ``bframes`` (B pictures between anchors, coded after
+the anchor that follows them), ``pyramid`` (the middle B picture a
+reference, coded first), ``direct`` ("spatial", "temporal" or "mixed" per
+slice), ``direct8x8`` (direct_8x8_inference_flag), ``bipred_idc``
+(weighted_bipred_idc: 0 default, 1 explicit, 2 implicit), ``pslices`` and
+``bslices`` (shares of P slices in B pictures and of B slices in P
+pictures), ``idr_long`` (with ``mmco``, the share of IDR pictures marked long-term;
+0.3), ``ltcol`` (share of B slices whose list 1 starts with a held
+long-term reference, the co-located picture), ``ctts`` (0: no composition offsets for reordered pictures),
+``ctts_version`` (1: signed offsets, FFmpeg's negative_cts_offsets), ``edit``
+(an edit list from that media time, or "movenc", FFmpeg's muxer's edit from
+the first composition time, the default with ctts version 0, or "none"),
+``equal_chroma_offsets`` (the PPS's two chroma QP offsets equal, as
+FFmpeg's fast loop filter needs), ``refuse`` (write a feature the decoder refuses: sp_slice, si_slice,
+redundant, partitioning, chroma422, bit_depth10, transform_bypass, fields,
+slice_groups, frame_num_gap).
 """
 
 from __future__ import annotations
@@ -103,7 +116,8 @@ def write_random(path: str, size: Tuple[int, int], n_frames: int, seed: int = 0,
 def write_frames(path: str, frames, fps: float = 30.0, qp: int = 24, gop: int = 2,
                  cabac: bool = True, **features) -> None:
     """An MP4 of the (H, W, 3) BGR uint8 frames: an I picture every ``gop``
-    frames, P pictures between, at quantiser ``qp``."""
+    frames, P pictures between (with ``bframes``, B pictures between the
+    anchors), at quantiser ``qp``."""
     frames = list(frames)
     h, w = frames[0].shape[:2]
     _write(path, (w, h), fps, dict(mode="frames", qp=qp, gop=gop, cabac=cabac, **features),

@@ -12,19 +12,24 @@ P-VOPs, any size; tests/test_torch_mp4v.py), and ``VideoWriter`` writes files
 that ``cv2.VideoCapture`` reads back with the same frame count, size and
 frame rate. H.264 is bit-exact by its standard, so the H.264 decoder gives
 FFmpeg's YUV planes, and cv2's BGR frames bit for bit, on progressive 8-bit
-4:2:0 I and P slices of the Constrained Baseline, Main and High profiles,
-CAVLC and CABAC (tests/test_torch_h264.py), which is what a phone records
-when it does not use B-frames or HEVC. The display matrix of a phone's
+4:2:0 I, P and B slices of the Constrained Baseline, Main and High profiles,
+CAVLC and CABAC (tests/test_torch_h264.py): what a phone records when it
+does not use HEVC, and what x264 (FFmpeg, HandBrake) writes by default, B
+pictures, B references and implicit weights included, with the frames cv2
+hands over in its order (and the pictures it drops, where the file does not
+tell FFmpeg the reorder delay). The display matrix of a phone's
 portrait video is applied as cv2 applies it: the frames come rotated by 90,
 180 or 270 degrees, and ``width``/``height`` are the rotated frame's.
 Streams the codecs do not take raise ``UnsupportedVideoError`` naming the
 feature instead of being skipped: other sample entries (hvc1, ...), an edit
-list other than the identity, a display matrix that is no rotation by a
+list other than the identity or FFmpeg's muxer's edit from the first
+composition time, a display matrix that is no rotation by a
 multiple of 90 degrees; in mp4v B-VOPs, sprites/GMC, interlace, quarter-pel,
-data partitioning, video packets and the short video header; in H.264 B, SP
+data partitioning, video packets and the short video header; in H.264 SP
 and SI slices, fields and MBAFF, other chroma formats and bit depths, slice
 groups, redundant pictures, data partitioning, the lossless transform bypass,
-gaps in frame_num, a left crop, and the colour descriptions whose frames cv2
+gaps in frame_num, reference lists longer than the references held, a left
+crop, and the colour descriptions whose frames cv2
 converts through colour management (BT.2020 primaries, PQ/HLG transfers, the
 GBR, YCgCo and BT.2020 matrices). Full range and the BT.601/BT.709 matrices
 convert as cv2 converts them.
@@ -55,12 +60,22 @@ STAT_NAMES = ("i_vops", "p_vops", "rounding_vops", "intra_mbs", "inter_mbs", "fo
 # long-term reference pictures held, summed over the pictures decoded;
 # deblocked_slices: disable_deblocking_filter_idc 0 or 2;
 # slice_edge_unfiltered_slices: idc 2, whose slices' edges stay unfiltered;
-# scaling_list_slices: slices whose scaling lists are not flat)
+# scaling_list_slices: slices whose scaling lists are not flat; skip_mbs:
+# P_Skip and B_Skip; direct_mbs: B_Direct_16x16 and B_8x8 with B_Direct_8x8;
+# bipred_partitions: partitions coded with both lists (direct ones aside);
+# b_reference_pictures: reference pictures with a B slice; dropped_pictures:
+# pictures FFmpeg drops as out of order, and so does the decoder;
+# long_term_colocated_slices: B slices whose RefPicList1[0] is a long-term
+# reference; mixed_type_pictures: pictures with slices of two or three types)
 H264_STAT_NAMES = ("idr_pictures", "i_slices", "p_slices", "cabac_slices", "intra4x4_mbs",
                    "intra8x8_mbs", "intra16x16_mbs", "pcm_mbs", "inter_mbs", "skip_mbs",
                    "sub8x8_mbs", "transform8x8_mbs", "weighted_slices", "long_term_refs",
                    "mmcos", "deblocked_slices", "slice_edge_unfiltered_slices",
-                   "scaling_list_slices", "ref_list_modified_slices")
+                   "scaling_list_slices", "ref_list_modified_slices", "b_slices",
+                   "direct_spatial_slices", "direct_temporal_slices", "b_skip_mbs",
+                   "direct_mbs", "bipred_partitions", "implicit_weighted_slices",
+                   "b_reference_pictures", "dropped_pictures", "long_term_colocated_slices",
+                   "mixed_type_pictures")
 _ERRLEN = 256
 
 
@@ -68,7 +83,7 @@ class UnsupportedVideoError(ValueError):
     """A valid file of a kind the port's codecs do not take: another sample
     entry (hvc1, ...), another edit list or display matrix; in mp4v B-VOPs,
     sprites, interlace, quarter-pel, data partitioning, video packets or the
-    short video header; in H.264 B/SP/SI slices, fields/MBAFF, other chroma
+    short video header; in H.264 SP/SI slices, fields/MBAFF, other chroma
     formats or bit depths, slice groups, redundant pictures, data
     partitioning, the transform bypass or a gap in frame_num."""
 

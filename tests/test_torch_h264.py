@@ -11,8 +11,14 @@ Held bitwise (max |diff| 0 on every frame, no tolerance needed: H.264 defines
 every decoded sample in integers, and the BGR conversion is swscale's): each
 named feature set of random syntax, two seeds each, with the frame count,
 fps and size that cv2 reports; the counters of what the stream used show
-that the feature was exercised. The writer's frames mode round-trips
-frames at >= 30 dB and decodes to cv2's frames. The VUI's full range and
+that the feature was exercised. The B-picture sets cover spatial and
+temporal direct prediction, bi-prediction with default, implicit and
+explicit weights, B reference pictures, I/P/B slices in one picture, and the
+MP4 composition offsets (ctts versions 0 and 1) with the edit list FFmpeg's
+muxer writes; where nothing tells FFmpeg the reorder delay, it drops the
+pictures that arrive too late, and so does the decoder. The writer's frames
+mode round-trips frames at >= 30 dB (I/P and I/P/B) and decodes to cv2's
+frames. The VUI's full range and
 BT.709 matrix convert as cv2 converts them. Every refused feature raises
 UnsupportedVideoError naming it. The build digest covers the headers the
 sources include, and a reader left open at interpreter exit closes quietly."""
@@ -52,12 +58,46 @@ FEATURE_SETS = {
                                  ("deblocked_slices", "slice_edge_unfiltered_slices",
                                   "p_slices")),
     "long_term_mmco": (dict(mmco=1, refs=4, gop=0), SIZE, ("mmcos", "long_term_refs")),
+    # MMCO 5 while a picture waits for output (VUI reorder 1): FFmpeg outputs
+    # it by the POC it had before the reset
+    "mmco5_reorder": (dict(mmco=1, refs=4, gop=0, reorder=1), SIZE, ("mmcos",)),
     "weighted": (dict(weighted=1, refs=3), SIZE, ("weighted_slices",)),
     "cropped_odd_size": (dict(refs=2, length_size=2, crop_top=1), (72, 40), ("p_slices",)),
     "in_band_avc3": (dict(avc3=1, idr_period=4, refs=2), SIZE, ("idr_pictures",)),
     # an iPhone's .MOV: avc1 whose parameter sets also repeat before each IDR
     "quicktime_brand": (dict(quicktime=1, refs=2, inband=1, idr_period=5, edit=0), SIZE,
                         ("p_slices", "idr_pictures")),
+    # B pictures (2 or 3 between anchors, coded after the anchor that follows
+    # them) in MP4 with the composition offsets and edit list of FFmpeg's muxer
+    "cavlc_b": (dict(cabac=0, bframes=2, refs=3), SIZE,
+                ("b_slices", "direct_spatial_slices", "b_skip_mbs", "direct_mbs",
+                 "bipred_partitions", "ref_list_modified_slices")),
+    "cabac_b_pyramid": (dict(cabac=1, bframes=3, pyramid=1, refs=4, mmco=1, t8=1), SIZE,
+                        ("b_slices", "b_reference_pictures", "mmcos", "transform8x8_mbs",
+                         "direct_mbs", "bipred_partitions")),
+    "b_temporal_direct": (dict(bframes=2, pyramid=1, refs=4, mmco=1, direct="temporal",
+                               direct8x8=0, idr_long=1, ltcol=0.5), SIZE,
+                          ("direct_temporal_slices", "direct_mbs", "b_skip_mbs",
+                           "long_term_colocated_slices")),
+    "b_implicit_weights": (dict(bframes=2, pyramid=1, refs=4, bipred_idc=2, direct="mixed"), SIZE,
+                           ("implicit_weighted_slices", "bipred_partitions",
+                            "direct_spatial_slices", "direct_temporal_slices")),
+    "b_explicit_weights": (dict(bframes=2, refs=3, bipred_idc=1, weighted=1), SIZE,
+                           ("weighted_slices", "b_slices", "bipred_partitions")),
+    "b_multi_slice_deblock": (dict(bframes=2, refs=3, slices=4, deblock=1, bipred_idc=2,
+                                   pslices=0.3, bslices=0.3), SIZE,
+                              ("mixed_type_pictures", "b_slices", "p_slices", "i_slices",
+                               "deblocked_slices", "slice_edge_unfiltered_slices")),
+    "b_ffmpeg_mp4": (dict(bframes=2, pyramid=1, refs=3), SIZE, ("b_slices", "b_skip_mbs")),
+    "b_ctts_v1": (dict(bframes=3, refs=3, ctts_version=1), SIZE, ("b_slices",)),
+    # no VUI bitstream_restriction: FFmpeg's reorder delay comes from ctts
+    # (seed 1) or grows with the POCs it sees (seed 0), dropping a picture
+    "b_no_vui_reorder": (dict(bframes=2, pyramid=1, refs=3), SIZE, ("b_slices",)),
+    # CAVLC 8x8 blocks coded without coefficients under FFmpeg's fast loop
+    # filter (equal chroma QP offsets), which takes them as having some:
+    # I/P/B on seed 0, I/P on seed 1
+    "cavlc_8x8_fast_deblock": (dict(cabac=0, t8=1, refs=3, bframes=1, equal_chroma_offsets=1),
+                               SIZE, ("transform8x8_mbs", "deblocked_slices")),
 }
 
 
@@ -71,6 +111,10 @@ def test_decode_equals_cv2_bitwise(name, seed, tmp_path):
         features["poc_type"] = seed * 2
     if name == "8x8_scaling":  # lists in SPS and PPS (fall-back rule B), in the PPS alone (A)
         features["scaling"] = 3 - seed
+    if name == "b_no_vui_reorder":
+        features["ctts"] = seed
+    if name == "cavlc_8x8_fast_deblock" and seed:
+        features.update(refs=2, bframes=0)
     path = str(tmp_path / f"{name}.mp4")
     write_random(path, size, FRAMES, seed=seed, **features)
     want, props = cv2_read(path)
@@ -91,6 +135,30 @@ def test_decode_equals_cv2_bitwise(name, seed, tmp_path):
     if name == "multi_slice_deblock_idc2":
         assert stats["i_slices"] + stats["p_slices"] > FRAMES
         assert stats["deblocked_slices"] < stats["i_slices"] + stats["p_slices"]  # idc 1 too
+    boxes = {b: _find_box(path, b) for b in (b"ctts", b"elst")}
+    if name in ("cavlc_b", "cabac_b_pyramid", "b_ffmpeg_mp4"):
+        # ctts version 0 and one edit from the first composition time
+        ctts, elst = boxes[b"ctts"], boxes[b"elst"]
+        assert ctts is not None and ctts[0] == 0 and elst is not None
+        assert int.from_bytes(elst[8:12], "big") > 0 and int.from_bytes(elst[12:16], "big") > 0
+    if name == "b_ctts_v1":  # signed offsets, some negative, no edit list
+        ctts = boxes[b"ctts"]
+        offsets = [int.from_bytes(ctts[12 + 8 * i:16 + 8 * i], "big", signed=True)
+                   for i in range(int.from_bytes(ctts[4:8], "big"))]
+        assert ctts[0] == 1 and min(offsets) < 0 and boxes[b"elst"] is None
+    if name == "b_no_vui_reorder":
+        assert (boxes[b"ctts"] is not None) == bool(seed)
+        assert stats["dropped_pictures"] == 0 if seed else len(got) < FRAMES
+
+
+def _find_box(path, kind):
+    """The payload of the first box of that kind in the file's moov, or None."""
+    data = open(path, "rb").read()
+    at = data.find(kind, data.find(b"moov"))
+    if at < 0:
+        return None
+    size = int.from_bytes(data[at - 4:at], "big")
+    return data[at + 4:at - 4 + size]
 
 
 def test_one_byte_nal_lengths(tmp_path):
@@ -144,6 +212,25 @@ def test_frames_mode_round_trip(tmp_path):
         assert min(psnr(a, b) for a, b in zip(got, frames)) >= 30.0
 
 
+@pytest.mark.parametrize("cabac", [False, True])
+def test_frames_mode_b_round_trip(cabac, tmp_path):
+    """I/P/B: two B pictures between anchors, the middle one a reference,
+    implicit weights; every frame decodes, in display order, to cv2's."""
+    frames = smooth_frames(72, 128, 14)
+    path = str(tmp_path / f"frames_b_{int(cabac)}.mp4")
+    write_frames(path, frames, fps=24, qp=24, gop=6, cabac=cabac, bframes=2, pyramid=1,
+                 bipred_idc=2, refs=3)
+    want, props = cv2_read(path)
+    assert props == (len(frames), 24.0, 128, 72)
+    with VideoReader(path) as reader:
+        got = list(reader)
+        stats = reader.stats
+    assert_same_frames(got, want)
+    for key in ("b_slices", "b_skip_mbs", "implicit_weighted_slices", "b_reference_pictures"):
+        assert stats[key] > 0, (key, stats)
+    assert min(psnr(a, b) for a, b in zip(got, frames)) >= 30.0
+
+
 @pytest.mark.parametrize("colour", [dict(full_range=1), dict(matrix=1),
                                     dict(matrix=1, full_range=1), dict(matrix=6, full_range=1)])
 def test_signalled_colour_converts_as_cv2(colour, tmp_path):
@@ -163,7 +250,6 @@ def _patch_matrix(path, matrix):
 
 REFUSED = {
     # name: (writer features, the words the error names)
-    "b_slice": (dict(refuse="b_slice"), "B slices"),
     "sp_slice": (dict(refuse="sp_slice"), "SP slices"),
     "si_slice": (dict(refuse="si_slice"), "SI slices"),
     "redundant": (dict(refuse="redundant"), "redundant pictures"),
@@ -175,6 +261,8 @@ REFUSED = {
     "slice_groups": (dict(refuse="slice_groups"), "slice groups"),
     "frame_num_gap": (dict(refuse="frame_num_gap"), "gap in frame_num"),
     "edit_list": (dict(edit=1), "edit list"),
+    # B pictures with an edit that starts after the first composition time
+    "edit_list_b": (dict(bframes=2, edit=2), "edit list"),
     "left_crop": (dict(crop_left=2), "frame_crop_left_offset"),
     "bt2020_primaries": (dict(matrix=1, primaries=9, transfer=1), "colour_primaries 9"),
     "pq_transfer": (dict(matrix=1, primaries=1, transfer=16), "transfer_characteristics 16"),

@@ -7,6 +7,7 @@ Held: on the same cv2-written video, the port keeps the JAX function's frame
 names, and its PNGs hold the same pixels (the decoder gives cv2's frames
 bitwise, so no tolerance) and its JPEGs the same bytes; tests/test_video.py's
 case. The same on an H.264 file of the port's test-stream writer, on one
+with B pictures (two between anchors, coded out of display order), on one
 whose display matrix turns it by 90 degrees (a portrait phone video: the
 kept frames are portrait in both packages) and on an mp4v file so turned. The fly-through's frames before encoding, on a small Fourier field
 carried across with nerf/convert.py along a 3-pose path: the same count and
@@ -92,13 +93,16 @@ def _rotate_90(path):
 
 
 @pytest.mark.parametrize("ext", [".png", ".jpg"])
-@pytest.mark.parametrize("kind", ["h264", "h264_rotated", "mp4v_rotated"])
+@pytest.mark.parametrize("kind", ["h264", "h264_b", "h264_rotated", "mp4v_rotated"])
 def test_extract_sharpest_frames_from_h264_and_rotated_videos(kind, ext, tmp_path):
     video = str(tmp_path / "v.mp4")
     frames = sharp_and_blurred(13)
     if kind == "mp4v_rotated":
         cv2_write(video, frames, 30)
         _rotate_90(video)
+    elif kind == "h264_b":  # I/P/B as x264 writes it: B references, implicit weights
+        write_frames(video, frames, fps=30, qp=20, gop=6, bframes=2, pyramid=1, bipred_idc=2,
+                     refs=3)
     else:
         write_frames(video, frames, fps=30, qp=20, gop=4,
                      rotation=90 if kind == "h264_rotated" else 0)
