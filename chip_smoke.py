@@ -132,9 +132,10 @@ Phases, each printing a line when it starts and when it ends:
               seconds and frames/s; 14c render_camera_path_video at 720x1280
               on a seeded full-width Fourier field over a 3-pose path at 4
               frames a segment: the mp4 decodes to 8 frames of that size at
-              >= 30 dB against the renders; seconds a frame; 14d H.264: 14b's
-              60 frames, and 60 orbit frames at 1280x720 likewise blurred,
-              written as H.264 by the port's test-stream writer (CABAC, an I
+              >= 30 dB against the renders; seconds a frame; 14d H.264: the
+              first 30 of 14b's frames, and 30 orbit frames at 1280x720
+              likewise blurred, written as H.264 by the port's test-stream
+              writer (CABAC, an I
               picture then a P picture, QP 24; 1080 rows coded as 1088 and
               cropped), decoded on the host: ms a frame to decode, the round
               trip's PSNR (>= 30 dB); extract_sharpest_frames on the card keeps
@@ -145,7 +146,13 @@ Phases, each printing a line when it starts and when it ends:
               one a reference, implicit weights, CABAC, QP 24, with the MP4
               composition offsets and edit list of FFmpeg's muxer): ms a
               frame to decode, PSNR (>= 30 dB), the extraction's frames/s
-              and kept frames
+              and kept frames; 14e HEVC: the first 30 of 14b's frames
+              written as HEVC I/P by the port's test-stream writer (CTB 64,
+              QP 24, an I picture then P pictures; 1080 rows end in a
+              partial CTB), decoded on the host: ms a frame to decode
+              (and at 1280x720 on 10 of 14d's frames), the round trip's
+              PSNR (>= 30 dB); extract_sharpest_frames on the card keeps the
+              sharp frames, frames/s
  15. hair parser training
               15a BiSeNet (the hair parser) and MODNet (the matte) at width
               1.0, flax's initialisers from a seed: one training step of 2
@@ -203,7 +210,7 @@ from monohair_tpu_torch.constants import BUST_TO_ORIGIN, VOXEL_MAX, VOXEL_MIN, V
 from monohair_tpu_torch.coords import nerf_to_ngp, voxel_to_world
 from monohair_tpu_torch.io.cameras_io import load_cam_params, save_cam_params, subsample_views
 from monohair_tpu_torch.io.hair_io import load_hair, strands_from_flat
-from monohair_tpu_torch.io import h264_streams
+from monohair_tpu_torch.io import h264_streams, hevc_streams
 from monohair_tpu_torch.io import jpeg as jpeg_io
 from monohair_tpu_torch.io import video as video_io
 from monohair_tpu_torch.io.image_io import (imread_gray, load_depth_maps, load_masks,
@@ -340,13 +347,14 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 
 NATIVE_SOURCES = (pk.SOURCE, jpeg_io.SOURCE, video_io.SOURCE, video_io.H264_SOURCE,
-                  h264_streams.SOURCE, strand_connect.SOURCE, nerf_marching.SOURCE)
+                  video_io.HEVC_SOURCE, h264_streams.SOURCE, hevc_streams.SOURCE,
+                  strand_connect.SOURCE, nerf_marching.SOURCE)
 
 
 def phase_build() -> None:
-    """nvcc of the CUDA kernels and g++ of the host C++ (the JPEG, mp4v and
-    H.264 codecs, the H.264 test-stream writer, the scalp connection,
-    marching tetrahedra), all started together."""
+    """nvcc of the CUDA kernels and g++ of the host C++ (the JPEG, mp4v,
+    H.264 and HEVC codecs, the H.264 and HEVC test-stream writers, the scalp
+    connection, marching tetrahedra), all started together."""
     from concurrent.futures import ThreadPoolExecutor
     t = time.perf_counter()
     with ThreadPoolExecutor(len(NATIVE_SOURCES)) as pool:
@@ -355,7 +363,9 @@ def phase_build() -> None:
     jpeg_io._lib()
     video_io._lib()
     video_io._lib(video_io.H264_SOURCE)
+    video_io._lib(video_io.HEVC_SOURCE)
     h264_streams._lib()
+    hevc_streams._lib()
     log(f"built {len(NATIVE_SOURCES)} native sources in {time.perf_counter() - t:.2f}s (wall)")
     for source in NATIVE_SOURCES:
         info = _build.BUILD_INFO[source]
@@ -2687,7 +2697,12 @@ VIDEO_INTERVAL = 5               # extract_sharpest_frames's default
 VIDEO_BLUR = 9                   # the box blur of the frames that are not sharp
 VIDEO_MIN_PSNR = 30.0            # the codec's round trip on the scene at qscale 3
 H264_QP = 24                     # 14d: the H.264 test-stream writer's fixed quantiser
+H264_FRAMES = 30                 # 14d: the first 30 of 14b's frames (one sharp in 5)
 H264_B = dict(bframes=2, pyramid=1, bipred_idc=2, refs=3, gop=12)  # 14d's I/P/B stream
+HEVC_QP = 24                     # 14e: the HEVC test-stream writer's fixed quantiser
+HEVC_CTB = 64                    # 14e: CTBs of 64 (1080 rows end in a partial one)
+HEVC_FRAMES = 30                 # 14e: the first 30 of 14b's frames at 1920x1080
+HEVC_FRAMES_720 = 10             # 14e: 14d's first 10 at 1280x720, for the decode time
 FLY_SIZE = (720, 1280)           # render_camera_path_video's default (H, W)
 FLY_POSES = 3
 FLY_FRAMES_PER_SEG = 4
@@ -2801,18 +2816,23 @@ def phase_video_extract(dev: torch.device, tmp: str) -> dict:
     return res
 
 
-def sharp_orbit_frames(dev: torch.device, H: int, W: int) -> tuple:
-    """VIDEO_FRAMES orbit frames at H x W, all but one in every
-    VIDEO_INTERVAL box-blurred on the card, and the sharp ones' indices."""
-    frames = orbit_frames(H, W, VIDEO_FRAMES)
-    sharp = [k * VIDEO_INTERVAL + k % VIDEO_INTERVAL for k in range(VIDEO_FRAMES // VIDEO_INTERVAL)]
+def sharp_orbit_frames(dev: torch.device, H: int, W: int, n: int = VIDEO_FRAMES) -> tuple:
+    """n orbit frames at H x W, all but one in every VIDEO_INTERVAL
+    box-blurred on the card, and the sharp ones' indices."""
+    frames = orbit_frames(H, W, n)
+    sharp = sharp_indices(n)
     pool = torch.nn.AvgPool2d(VIDEO_BLUR, stride=1, padding=VIDEO_BLUR // 2,
                               count_include_pad=False)
-    for i in range(VIDEO_FRAMES):
+    for i in range(n):
         if i not in sharp:
             x = torch.as_tensor(frames[i], device=dev).permute(2, 0, 1).float()
             frames[i] = pool(x[None])[0].round().byte().permute(1, 2, 0).cpu().numpy()
     return frames, sharp
+
+
+def sharp_indices(n: int) -> list:
+    """The sharp frame of each whole VIDEO_INTERVAL window of n frames."""
+    return [k * VIDEO_INTERVAL + k % VIDEO_INTERVAL for k in range(n // VIDEO_INTERVAL)]
 
 
 def rotate_display_matrix(src: str, dst: str) -> None:
@@ -2851,14 +2871,18 @@ def check_kept(decoded: list, out_dir: str, kept: list, sharp: list, turn: bool,
 
 
 def phase_video_h264(dev: torch.device, tmp: str, frames_first: list) -> dict:
-    """14d: H.264 at CODEC_SIZES (14b's frames at the first) through the
-    port's decoder, the extraction on the card, and a portrait copy of the
-    first."""
-    sharp = [k * VIDEO_INTERVAL + k % VIDEO_INTERVAL for k in range(VIDEO_FRAMES // VIDEO_INTERVAL)]
+    """14d: H.264 at CODEC_SIZES (the first H264_FRAMES of 14b's frames at the
+    first) through the port's decoder, the extraction on the card, and a
+    portrait copy of the first. Leaves the other size's frames in
+    out["frames"] for 14e."""
+    sharp = sharp_indices(H264_FRAMES)
     out = {}
     for H, W in CODEC_SIZES:
         first = (H, W) == CODEC_SIZES[0]
-        frames = frames_first if first else sharp_orbit_frames(dev, H, W)[0]
+        frames = frames_first[:H264_FRAMES] if first else sharp_orbit_frames(dev, H, W,
+                                                                             H264_FRAMES)[0]
+        if not first:
+            out["frames"] = frames
         path = os.path.join(tmp, f"h264_{W}x{H}.mp4")
         t = time.perf_counter()
         h264_streams.write_frames(path, frames, fps=VIDEO_FPS, qp=H264_QP, gop=2, cabac=True)
@@ -2879,7 +2903,7 @@ def phase_video_h264(dev: torch.device, tmp: str, frames_first: list) -> dict:
         res = dict(encode_s=enc_s, decode_ms=dec_s / len(frames) * 1e3, min_psnr=min(psnrs),
                    bytes=os.path.getsize(path), p_slices=stats["p_slices"],
                    skip_mbs=stats["skip_mbs"], extract_s=ext_s,
-                   frames_per_s=VIDEO_FRAMES / ext_s, kept=len(kept))
+                   frames_per_s=len(frames) / ext_s, kept=len(kept))
         coded = f"{-(-W // 16) * 16}x{-(-H // 16) * 16}"
         log(f"14d H.264 at {W}x{H} (coded {coded}{', cropped' if H % 16 or W % 16 else ''}): "
             f"{len(frames)} frames written in {enc_s:.3f} s ({res['bytes']} bytes, "
@@ -2906,14 +2930,14 @@ def phase_video_h264(dev: torch.device, tmp: str, frames_first: list) -> dict:
             pinfo = video_io.video_info(portrait)
             shape = read_png(os.path.join(pdir, pkept[0])).shape
             log(f"14d portrait copy (90-degree display matrix): video_info {pinfo}; "
-                f"extract_sharpest_frames {p_s:.3f} s, {VIDEO_FRAMES / p_s:.2f} frames/s, "
+                f"extract_sharpest_frames {p_s:.3f} s, {len(frames) / p_s:.2f} frames/s, "
                 f"kept {len(pkept)} frames of {shape[1]}x{shape[0]}")
-            if pinfo != (VIDEO_FRAMES, float(VIDEO_FPS), H, W) or shape != (W, H, 3):
+            if pinfo != (len(frames), float(VIDEO_FPS), H, W) or shape != (W, H, 3):
                 raise AssertionError(f"14d portrait: {pinfo}, kept frames {shape}")
             check_kept(decoded, pdir, pkept, sharp, True, "14d portrait")
-            out["portrait"] = dict(seconds=p_s, frames_per_s=VIDEO_FRAMES / p_s, kept=len(pkept),
+            out["portrait"] = dict(seconds=p_s, frames_per_s=len(frames) / p_s, kept=len(pkept),
                                    shape=list(shape))
-    out["b_frames"] = phase_video_h264_b(dev, tmp, frames_first, sharp)
+    out["b_frames"] = phase_video_h264_b(dev, tmp, frames_first[:H264_FRAMES], sharp)
     return out
 
 
@@ -2940,7 +2964,7 @@ def phase_video_h264_b(dev: torch.device, tmp: str, frames: list, sharp: list) -
     sync(dev)
     ext_s = time.perf_counter() - t
     res = dict(encode_s=enc_s, decode_ms=dec_s / len(frames) * 1e3, min_psnr=min(psnrs),
-               bytes=os.path.getsize(path), extract_s=ext_s, frames_per_s=VIDEO_FRAMES / ext_s,
+               bytes=os.path.getsize(path), extract_s=ext_s, frames_per_s=len(frames) / ext_s,
                kept=len(kept), **{k: stats[k] for k in (
                    "i_slices", "p_slices", "b_slices", "b_skip_mbs", "direct_mbs",
                    "bipred_partitions", "implicit_weighted_slices", "b_reference_pictures",
@@ -2960,6 +2984,58 @@ def phase_video_h264_b(dev: torch.device, tmp: str, frames: list, sharp: list) -
         raise AssertionError(f"14d: the H.264 I/P/B round trip: {info}, {res}")
     check_kept(decoded, out_dir, kept, sharp, False, "14d I/P/B")
     return res
+
+
+def phase_video_hevc(dev: torch.device, tmp: str, frames_1080: list, frames_720: list) -> dict:
+    """14e: HEVC I/P (CTB 64, QP 24, the test-stream writer's frames mode)
+    of the first HEVC_FRAMES of 14b's 1920x1080 frames: ms a frame to decode
+    on the host, the round trip's PSNR (>= 30 dB), extract_sharpest_frames
+    on the card keeping the sharp frames, frames/s; and the decode's ms a
+    frame at 1280x720 on HEVC_FRAMES_720 of 14d's frames."""
+    out = {}
+    for frames in (frames_1080[:HEVC_FRAMES], frames_720[:HEVC_FRAMES_720]):
+        H, W = frames[0].shape[:2]
+        path = os.path.join(tmp, f"hevc_{W}x{H}.mp4")
+        t = time.perf_counter()
+        hevc_streams.write_frames(path, frames, fps=VIDEO_FPS, qp=HEVC_QP, ctb=HEVC_CTB)
+        enc_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with video_io.VideoReader(path) as reader:
+            decoded = list(reader)
+            stats = reader.stats
+        dec_s = time.perf_counter() - t
+        info = video_io.video_info(path)
+        psnrs = [video_psnr(a, b) for a, b in zip(decoded, frames)]
+        res = dict(encode_s=enc_s, decode_ms=dec_s / len(frames) * 1e3, min_psnr=min(psnrs),
+                   bytes=os.path.getsize(path), **{k: stats[k] for k in (
+                       "i_slices", "p_slices", "skip_cus", "merge_pus", "amvp_pus", "intra_cus",
+                       "partial_ctbs", "ctb64_pictures")})
+        msg = (f"14e HEVC I/P at {W}x{H} (CTB {HEVC_CTB}, QP {HEVC_QP}): {len(frames)} frames "
+               f"written in {enc_s:.3f} s ({res['bytes']} bytes, {stats['i_slices']} I and "
+               f"{stats['p_slices']} P slices, {stats['skip_cus']} skipped and "
+               f"{stats['intra_cus']} intra coding units, {stats['partial_ctbs']} partial CTBs); "
+               f"decode {res['decode_ms']:.3f} ms a frame on the host; round trip PSNR min "
+               f"{res['min_psnr']:.2f} dB")
+        if (info != (len(frames), float(VIDEO_FPS), W, H) or len(decoded) != len(frames)
+                or res["min_psnr"] < VIDEO_MIN_PSNR or not stats["p_slices"]
+                or stats["ctb64_pictures"] != len(frames)):
+            log(msg)
+            raise AssertionError(f"14e: the HEVC round trip at {W}x{H}: {info}, {res}")
+        if (H, W) == CODEC_SIZES[0]:
+            sharp = sharp_indices(len(frames))
+            out_dir = os.path.join(tmp, "hevc_frames")
+            sync(dev)
+            t = time.perf_counter()
+            kept = extract_sharpest_frames(path, out_dir, interval=VIDEO_INTERVAL, device=dev)
+            sync(dev)
+            ext_s = time.perf_counter() - t
+            res.update(extract_s=ext_s, frames_per_s=len(frames) / ext_s, kept=len(kept))
+            msg += (f"; extract_sharpest_frames {ext_s:.3f} s, {res['frames_per_s']:.2f} frames/s, "
+                    f"kept {len(kept)}")
+            check_kept(decoded, out_dir, kept, sharp, False, f"14e {W}x{H}")
+        log(msg)
+        out[f"{W}x{H}"] = res
+    return out
 
 
 def phase_video_fly(dev: torch.device, tmp: str) -> dict:
@@ -3005,13 +3081,16 @@ def phase_video_fly(dev: torch.device, tmp: str) -> dict:
 
 def phase_video(dev: torch.device) -> dict:
     """Phase 14: the codec (14a), the extraction (14b), the fly-through (14c),
-    H.264 (14d)."""
+    H.264 (14d), HEVC (14e)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
         pk.reset_launch_counts()
         res = dict(codec=phase_video_codec(tmp), extract=phase_video_extract(dev, tmp),
                    fly=phase_video_fly(dev, tmp))
         frames = res["extract"].pop("frames")
         res["h264"] = phase_video_h264(dev, tmp, frames)
+        t = time.perf_counter()
+        res["hevc"] = phase_video_hevc(dev, tmp, frames, res["h264"].pop("frames"))
+        log(f"14e took {time.perf_counter() - t:.1f} s")
         res["launches"] = dict(pk.LAUNCHES)
     return res
 

@@ -29,22 +29,6 @@
 
 namespace {
 
-// NAL unit payload with emulation_prevention_three_byte removed
-std::vector<uint8_t> unescape(const uint8_t* d, size_t n) {
-  std::vector<uint8_t> out;
-  out.reserve(n);
-  int zeros = 0;
-  for (size_t i = 0; i < n; i++) {
-    if (zeros >= 2 && d[i] == 3) {
-      zeros = 0;
-      continue;
-    }
-    zeros = d[i] == 0 ? zeros + 1 : 0;
-    out.push_back(d[i]);
-  }
-  return out;
-}
-
 struct Reader {
   Movie movie;
   Codec codec;
@@ -59,7 +43,7 @@ struct Reader {
     const Track& t = movie.track;
     if (t.entry != "avc1" && t.entry != "avc3")
       unsupported("sample entry '" + t.entry +
-                  "' (the port reads mp4v, MPEG-4 Part 2, and avc1/avc3, H.264)");
+                  "' (the port reads mp4v, MPEG-4 Part 2; avc1/avc3, H.264; hvc1/hev1, HEVC)");
     const std::vector<uint8_t>& c = t.avcc;
     if (c.size() < 7) fail("missing or short avcC box");
     if (c[0] != 1) fail("avcC configurationVersion " + std::to_string(c[0]));

@@ -43,6 +43,7 @@
 #include <string>
 #include <vector>
 
+#include "bits.h"
 #include "h264_tables.h"
 #include "mp4.h"
 
@@ -55,236 +56,14 @@ inline int median3(int a, int b, int c) {
   return std::max(std::min(a, b), std::min(std::max(a, b), c));
 }
 
-// ------------------------------------------------------------- bit I/O --
-// An RBSP (emulation prevention removed) read or written MSB first.
-struct Bits {
-  bool writing = false;
-  const uint8_t* d = nullptr;
-  size_t nbytes = 0, pos = 0, end_bits = 0;  // end_bits: the position of the stop bit
-  std::vector<uint8_t> out;
-  uint32_t acc = 0;
-  int nacc = 0;
-
-  void start_read(const uint8_t* data, size_t n) {
-    writing = false;
-    d = data;
-    nbytes = n;
-    pos = 0;
-    // rbsp_stop_one_bit: the last 1 bit (trailing zero bytes, cabac_zero_words, skipped)
-    size_t i = n;
-    while (i > 0 && d[i - 1] == 0) i--;
-    end_bits = 0;
-    if (i > 0) {
-      int b = 0;
-      while (!((d[i - 1] >> b) & 1)) b++;
-      end_bits = (i - 1) * 8 + (7 - b);
-    }
-  }
-  void start_write() {
-    writing = true;
-    out.clear();
-    acc = 0;
-    nacc = 0;
-  }
-  inline int get1() {
-    if (pos >= nbytes * 8) fail("read past the end of a NAL unit");
-    int b = (d[pos >> 3] >> (7 - (pos & 7))) & 1;
-    pos++;
-    return b;
-  }
-  uint32_t getn(int n) {
-    uint32_t v = 0;
-    for (int i = 0; i < n; i++) v = (v << 1) | get1();
-    return v;
-  }
-  uint32_t peek(int n) const {  // n <= 24, zeros past the end
-    uint32_t v = 0;
-    for (int i = 0; i < n; i++) {
-      size_t p = pos + i;
-      int b = p < nbytes * 8 ? (d[p >> 3] >> (7 - (p & 7))) & 1 : 0;
-      v = (v << 1) | b;
-    }
-    return v;
-  }
-  void put(uint32_t v, int n) {
-    for (int i = n - 1; i >= 0; i--) {
-      acc = (acc << 1) | ((v >> i) & 1);
-      if (++nacc == 8) {
-        out.push_back((uint8_t)acc);
-        acc = 0;
-        nacc = 0;
-      }
-    }
-  }
-  uint32_t u(int n, uint32_t v = 0) {
-    if (writing) { put(v, n); return v; }
-    return getn(n);
-  }
-  int flag(int v = 0) { return (int)u(1, v ? 1 : 0); }
-  uint32_t ue(uint32_t v = 0) {
-    if (writing) {
-      uint32_t x = v + 1;
-      int len = 0;
-      while ((x >> len) > 1) len++;
-      put(0, len);
-      put(x, len + 1);
-      return v;
-    }
-    int zeros = 0;
-    while (!get1()) {
-      if (++zeros > 31) fail("invalid Exp-Golomb code");
-    }
-    return ((1u << zeros) - 1) + getn(zeros);
-  }
-  int32_t se(int32_t v = 0) {
-    if (writing) {
-      ue(v > 0 ? 2 * (uint32_t)v - 1 : 2 * (uint32_t)(-v));
-      return v;
-    }
-    uint32_t k = ue();
-    return (k & 1) ? (int32_t)((k + 1) / 2) : -(int32_t)(k / 2);
-  }
-  // unary: `zeros` zero bits then a one
-  int leading_zeros(int zeros = 0) {
-    if (writing) { put(0, zeros); put(1, 1); return zeros; }
-    int z = 0;
-    while (!get1()) {
-      if (++z > 32) fail("invalid level_prefix");
-    }
-    return z;
-  }
-  // a prefix code from parallel (code, length) tables of n entries: returns
-  // the index (writer: writes entry v)
-  int vlc(const uint8_t* bits, const uint8_t* len, int n, int v, int stride = 1) {
-    if (writing) { put(bits[v * stride], len[v * stride]); return v; }
-    for (int i = 0; i < n; i++) {
-      int l = len[i * stride];
-      if (l && peek(l) == bits[i * stride]) { pos += l; return i; }
-    }
-    fail("invalid variable-length code");
-  }
-  bool aligned() const { return writing ? nacc == 0 : (pos & 7) == 0; }
-  bool more_rbsp_data() const { return pos < end_bits; }
-  void trailing() {  // rbsp_trailing_bits
-    put(1, 1);
-    while (nacc) put(0, 1);
-  }
-};
-
 // --------------------------------------------------------------- CABAC --
-// The arithmetic decoding and encoding engines of 9.3.1.2, 9.3.3.2 and 9.3.4.
-struct Cabac {
-  Bits* b = nullptr;
-  uint8_t state[460];  // pStateIdx | valMPS << 6
-  uint32_t range = 510, offset = 0, low = 0;
-  int outstanding = 0;
-  bool first = true;
-
+struct Cabac : CabacEngine<460> {
   void init_contexts(int slice_is_i, int idc, int qp) {
     const int8_t(*t)[2] = kCabacInit[slice_is_i ? 0 : 1 + idc];
     for (int i = 0; i < 460; i++) {
       int pre = clip3(1, 126, ((t[i][0] * clip3(0, 51, qp)) >> 4) + t[i][1]);
       state[i] = pre <= 63 ? (uint8_t)(63 - pre) : (uint8_t)((pre - 64) | 64);
     }
-  }
-  void start() {
-    range = 510;
-    if (b->writing) {
-      low = 0;
-      outstanding = 0;
-      first = true;
-    } else {
-      offset = b->getn(9);
-    }
-  }
-  void put_bit(int v) {
-    if (first) first = false;
-    else b->put(v, 1);
-    while (outstanding > 0) {
-      b->put(1 - v, 1);
-      outstanding--;
-    }
-  }
-  void renorm_e() {
-    while (range < 256) {
-      if (low < 256) put_bit(0);
-      else if (low >= 512) { low -= 512; put_bit(1); }
-      else { low -= 256; outstanding++; }
-      range <<= 1;
-      low <<= 1;
-    }
-  }
-  int bin(int ctx, int v = 0) {
-    uint8_t& s = state[ctx];
-    int p = s & 63, mps = s >> 6;
-    uint32_t lps = kRangeLps[p][(range >> 6) & 3];
-    range -= lps;
-    int bit;
-    if (b->writing) {
-      bit = v ? 1 : 0;
-      if (bit != mps) {
-        low += range;
-        range = lps;
-      }
-    } else {
-      if (offset >= range) {
-        bit = !mps;
-        offset -= range;
-        range = lps;
-      } else {
-        bit = mps;
-      }
-    }
-    if (bit != mps) {
-      if (p == 0) mps = 1 - mps;
-      p = kTransLps[p];
-    } else {
-      p = std::min(p + 1, 62);
-    }
-    s = (uint8_t)(p | (mps << 6));
-    if (b->writing) renorm_e();
-    else
-      while (range < 256) {
-        range <<= 1;
-        offset = (offset << 1) | b->get1();
-      }
-    return bit;
-  }
-  int bypass(int v = 0) {
-    if (b->writing) {
-      low <<= 1;
-      if (v) low += range;
-      if (low >= 1024) { put_bit(1); low -= 1024; }
-      else if (low < 512) put_bit(0);
-      else { low -= 512; outstanding++; }
-      return v ? 1 : 0;
-    }
-    offset = (offset << 1) | b->get1();
-    if (offset >= range) { offset -= range; return 1; }
-    return 0;
-  }
-  int terminate(int v = 0) {
-    range -= 2;
-    if (b->writing) {
-      if (v) {
-        low += range;
-        // EncodeFlush: the last bit written is the 1 that ends the slice or
-        // comes before the I_PCM samples' alignment
-        range = 2;
-        renorm_e();
-        put_bit((low >> 9) & 1);
-        b->put(((low >> 7) & 3) | 1, 2);
-        return 1;
-      }
-      renorm_e();
-      return 0;
-    }
-    if (offset >= range) return 1;
-    while (range < 256) {
-      range <<= 1;
-      offset = (offset << 1) | b->get1();
-    }
-    return 0;
   }
 };
 

@@ -40,66 +40,11 @@
 
 namespace {
 
-struct Rng {  // splitmix64
-  uint64_t s;
-  explicit Rng(uint64_t seed) : s(seed * 0x9E3779B97F4A7C15ull + 1) {}
-  uint64_t next() {
-    uint64_t z = (s += 0x9E3779B97F4A7C15ull);
-    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
-    z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
-    return z ^ (z >> 31);
-  }
-  int range(int lo, int hi) { return lo + (int)(next() % (uint64_t)(hi - lo + 1)); }  // inclusive
-  bool chance(double p) { return (next() >> 11) * (1.0 / 9007199254740992.0) < p; }
-};
-
-struct Options {
-  std::map<std::string, std::string> kv;
-  void parse(const char* s) {
-    std::string all = s ? s : "", item;
-    size_t i = 0;
-    while (i <= all.size()) {
-      size_t j = all.find(';', i);
-      if (j == std::string::npos) j = all.size();
-      item = all.substr(i, j - i);
-      size_t e = item.find('=');
-      if (!item.empty()) {
-        if (e == std::string::npos) fail("writer option without a value: " + item);
-        kv[item.substr(0, e)] = item.substr(e + 1);
-      }
-      i = j + 1;
-    }
-  }
-  int get(const std::string& k, int def) const {
-    auto it = kv.find(k);
-    return it == kv.end() ? def : std::atoi(it->second.c_str());
-  }
-  double getf(const std::string& k, double def) const {
-    auto it = kv.find(k);
-    return it == kv.end() ? def : std::atof(it->second.c_str());
-  }
-  std::string gets(const std::string& k, const std::string& def) const {
-    auto it = kv.find(k);
-    return it == kv.end() ? def : it->second;
-  }
-};
-
 const int kMF[6][3] = {{13107, 5243, 8066}, {11916, 4660, 7490}, {10082, 4194, 6554},
                        {9362, 3647, 5825},  {8192, 3355, 5243},  {7282, 2893, 4559}};
 
 std::vector<uint8_t> nal_unit(int ref_idc, int type, const std::vector<uint8_t>& rbsp) {
-  std::vector<uint8_t> out;
-  out.push_back((uint8_t)((ref_idc << 5) | type));
-  int zeros = 0;
-  for (uint8_t b : rbsp) {
-    if (zeros >= 2 && b <= 3) {
-      out.push_back(3);
-      zeros = 0;
-    }
-    out.push_back(b);
-    zeros = b == 0 ? zeros + 1 : 0;
-  }
-  return out;
+  return escape_rbsp({(uint8_t)((ref_idc << 5) | type)}, rbsp);
 }
 
 struct Writer {

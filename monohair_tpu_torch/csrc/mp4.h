@@ -1,12 +1,13 @@
 // The MP4/QuickTime container on the host, shared by the video codecs
-// (mp4v.cpp: MPEG-4 Part 2, h264.cpp: H.264, h264_writer.cpp: the H.264
-// test-stream writer). Each codec is its own library, so everything here has
+// (mp4v.cpp: MPEG-4 Part 2, h264.cpp: H.264, hevc.cpp: H.265, and the H.264
+// and H.265 test-stream writers). Each codec is its own library, so everything here has
 // internal linkage.
 //
 // Demuxer: ISO-BMFF and QuickTime (brands such as isom/mp42 or "qt  "; moov
 // before or after mdat). The first track whose handler is "vide", whatever
 // tracks come before it; its first sample entry (mp4v with its esds, avc1 or
-// avc3 with its avcC, or any other, which the codec refuses by name); samples
+// avc3 with its avcC, hvc1 or hev1 with its hvcC, or any other, which the
+// reader refuses by name); samples
 // through stts/stsc/stsz/stco|co64, and ctts (versions 0 and 1) for the
 // composition times of reordered pictures. An edit list is applied when it is
 // one that FFmpeg's muxer writes: the identity (one edit of the whole media
@@ -71,6 +72,7 @@ struct Track {
   std::vector<uint8_t> dsi;   // mp4v: the esds DecoderSpecificInfo
   int esds_object_type = -1;
   std::vector<uint8_t> avcc;  // avc1/avc3: the avcC box's payload
+  std::vector<uint8_t> hvcc;  // hvc1/hev1: the hvcC box's payload
   int entry_w = 0, entry_h = 0;
   int32_t matrix[9] = {0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000};
   std::vector<std::array<int64_t, 3>> elst;  // segment duration, media time, rate (16.16)
@@ -359,6 +361,7 @@ void parse_box(const std::string& type, const uint8_t* b, const uint8_t* e, Trac
       if (cs < 8 || c + cs > q + size) break;
       if (memcmp(c + 4, "esds", 4) == 0) parse_esds(c + 8, c + cs, t);
       if (memcmp(c + 4, "avcC", 4) == 0) t.avcc.assign(c + 8, c + cs);
+      if (memcmp(c + 4, "hvcC", 4) == 0) t.hvcc.assign(c + 8, c + cs);
       c += cs;
     }
   } else if (type == "stts" && n >= 8) {

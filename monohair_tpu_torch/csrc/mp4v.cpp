@@ -982,7 +982,7 @@ struct Reader {
     const Track& track = movie.track;
     if (track.entry != "mp4v")
       unsupported("sample entry '" + track.entry +
-                  "' (the port reads mp4v, MPEG-4 Part 2, and avc1/avc3, H.264)");
+                  "' (the port reads mp4v, MPEG-4 Part 2; avc1/avc3, H.264; hvc1/hev1, HEVC)");
     if (track.esds_object_type != 0x20)
       unsupported("esds objectTypeIndication " + std::to_string(track.esds_object_type) +
                   " (only 0x20, MPEG-4 Visual)");

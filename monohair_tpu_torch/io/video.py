@@ -1,7 +1,7 @@
 """Video in MP4 or QuickTime through the port's own codecs, built with g++
-at first use and loaded with ctypes: MPEG-4 Part 2 ("mp4v", ``csrc/mp4v.cpp``)
-and H.264 ("avc1"/"avc3", ``csrc/h264.cpp``), behind one demuxer
-(``csrc/mp4.h``).
+at first use and loaded with ctypes: MPEG-4 Part 2 ("mp4v", ``csrc/mp4v.cpp``),
+H.264 ("avc1"/"avc3", ``csrc/h264.cpp``) and H.265 / HEVC ("hvc1"/"hev1",
+``csrc/hevc.cpp``), behind one demuxer (``csrc/mp4.h``).
 
 The JAX package reads videos with ``cv2.VideoCapture`` and writes the NeRF
 fly-through with ``cv2.VideoWriter(..., fourcc "mp4v")``, both through
@@ -17,18 +17,32 @@ CAVLC and CABAC (tests/test_torch_h264.py): what a phone records when it
 does not use HEVC, and what x264 (FFmpeg, HandBrake) writes by default, B
 pictures, B references and implicit weights included, with the frames cv2
 hands over in its order (and the pictures it drops, where the file does not
-tell FFmpeg the reorder delay). The display matrix of a phone's
+tell FFmpeg the reorder delay). HEVC is bit-exact by its standard too:
+the HEVC decoder gives cv2's frames bit for bit on the Main profile's I and P
+slices (tests/test_torch_hevc.py): CTBs of 16, 32 and 64, CABAC, intra,
+merge/AMVP/TMVP inter prediction, weighted prediction, scaling lists,
+transform skip, sign hiding, PCM, transquant bypass, the deblocking filter
+and SAO, several slices a picture, IDR, CRA and trailing pictures, POCs out
+of decode order, with FFmpeg's output order and its departures from the
+standard in the loop filters; what a phone records when it records HEVC
+without B slices. The display matrix of a phone's
 portrait video is applied as cv2 applies it: the frames come rotated by 90,
 180 or 270 degrees, and ``width``/``height`` are the rotated frame's.
 Streams the codecs do not take raise ``UnsupportedVideoError`` naming the
-feature instead of being skipped: other sample entries (hvc1, ...), an edit
+feature instead of being skipped: a sample entry none of the codecs reads
+(named with the entries the port reads), an edit
 list other than the identity or FFmpeg's muxer's edit from the first
 composition time, a display matrix that is no rotation by a
 multiple of 90 degrees; in mp4v B-VOPs, sprites/GMC, interlace, quarter-pel,
 data partitioning, video packets and the short video header; in H.264 SP
 and SI slices, fields and MBAFF, other chroma formats and bit depths, slice
 groups, redundant pictures, data partitioning, the lossless transform bypass,
-gaps in frame_num, reference lists longer than the references held, a left
+gaps in frame_num, reference lists longer than the references held; in HEVC
+B slices, RASL/RADL leading pictures, BLA and TSA/STSA pictures, WPP,
+tiles, dependent slice segments, long-term references, profiles other than
+Main and the SPS/PPS extensions, bit depths above 8, chroma formats other
+than 4:2:0, coded fields, constrained intra prediction with coding blocks of
+16x16 or more, a missing reference picture; in H.264 and HEVC a left
 crop, and the colour descriptions whose frames cv2
 converts through colour management (BT.2020 primaries, PQ/HLG transfers, the
 GBR, YCgCo and BT.2020 matrices). Full range and the BT.601/BT.709 matrices
@@ -49,7 +63,10 @@ from ..ops import _build
 
 SOURCE = "mp4v.cpp"
 H264_SOURCE = "h264.cpp"
+HEVC_SOURCE = "hevc.cpp"
+MP4V_ENTRIES = ("mp4v",)
 H264_ENTRIES = ("avc1", "avc3")
+HEVC_ENTRIES = ("hvc1", "hev1")
 DEFAULT_QSCALE = 3   # the fixed quantiser: ~36 dB on smooth content
 DEFAULT_GOP = 12     # an I-VOP every 12 frames, P-VOPs between (cv2's GOP)
 # the counters of mp4v_stats, in the codec's order
@@ -76,16 +93,43 @@ H264_STAT_NAMES = ("idr_pictures", "i_slices", "p_slices", "cabac_slices", "intr
                    "direct_mbs", "bipred_partitions", "implicit_weighted_slices",
                    "b_reference_pictures", "dropped_pictures", "long_term_colocated_slices",
                    "mixed_type_pictures")
+# the counters of hevc_stats, in the codec's order (pictures by NAL unit
+# type and CTB size; partial_ctbs: CTBs that cross the picture's right or
+# bottom edge; small_pus: 8x4 and 4x8 prediction units; tmvp_candidates:
+# prediction units whose merge or AMVP list took the collocated vector;
+# sign_hidden_groups: 4x4 coefficient groups with a hidden sign;
+# lf_not_across_slices: slices after the first that do not filter across
+# their left and upper edges; sao_*: CTB components; hidden_pictures:
+# pic_output_flag 0; discarded_pictures: dropped by
+# no_output_of_prior_pics_flag; repeated_ref_slices: reference lists longer
+# than the pictures they cycle through)
+HEVC_STAT_NAMES = ("idr_pictures", "cra_pictures", "trail_n_pictures", "i_slices", "p_slices",
+                   "multi_slice_pictures", "ctb16_pictures", "ctb32_pictures", "ctb64_pictures",
+                   "partial_ctbs", "intra_cus", "intra_nxn_cus", "pcm_cus", "bypass_cus",
+                   "skip_cus", "merge_pus", "amvp_pus", "amp_cus", "inter_nxn_cus", "small_pus",
+                   "tmvp_slices", "tmvp_candidates", "weighted_slices", "transform_skip_blocks",
+                   "sign_hidden_groups", "dst_blocks", "transform32_blocks",
+                   "scaling_list_slices", "qp_delta_cus", "chroma_offset_slices",
+                   "strong_smoothing_blocks", "constrained_intra_slices", "deblocked_slices",
+                   "deblock_disabled_slices", "lf_not_across_slices", "sao_band_ctbs",
+                   "sao_edge_ctbs", "sao_merged_ctbs", "ref_list_modified_slices",
+                   "inter_rps_slices", "sps_rps_slices", "hidden_pictures",
+                   "discarded_pictures", "cabac_init_slices", "repeated_ref_slices")
+_CODECS = {"mp4v": (SOURCE, MP4V_ENTRIES, STAT_NAMES),
+           "h264": (H264_SOURCE, H264_ENTRIES, H264_STAT_NAMES),
+           "hevc": (HEVC_SOURCE, HEVC_ENTRIES, HEVC_STAT_NAMES)}
 _ERRLEN = 256
 
 
 class UnsupportedVideoError(ValueError):
     """A valid file of a kind the port's codecs do not take: another sample
-    entry (hvc1, ...), another edit list or display matrix; in mp4v B-VOPs,
-    sprites, interlace, quarter-pel, data partitioning, video packets or the
-    short video header; in H.264 SP/SI slices, fields/MBAFF, other chroma
-    formats or bit depths, slice groups, redundant pictures, data
-    partitioning, the transform bypass or a gap in frame_num."""
+    entry (vp09, av01, ...), another edit list or display matrix; in mp4v
+    B-VOPs, sprites, interlace, quarter-pel, data partitioning, video packets
+    or the short video header; in H.264 SP/SI slices, fields/MBAFF, other
+    chroma formats or bit depths, slice groups, redundant pictures, data
+    partitioning, the transform bypass or a gap in frame_num; in HEVC B
+    slices, leading pictures, WPP, tiles, dependent slice segments, long-term
+    references, other profiles, bit depths or chroma formats."""
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -104,7 +148,7 @@ def _declare(lib: ctypes.CDLL, prefix: str) -> None:
 def _lib(source: str = SOURCE) -> ctypes.CDLL:
     if source not in _LIBS:
         lib = _build.load(source)
-        _declare(lib, "mp4v" if source == SOURCE else "h264")
+        _declare(lib, next(k for k, v in _CODECS.items() if v[0] == source))
         if source == SOURCE:
             p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
             lib.mp4v_writer_open.argtypes = [s, i, i, i, i, p, s, i]
@@ -133,21 +177,26 @@ def sample_entry(path: str) -> str:
 
 
 class VideoReader:
-    """An open mp4v or H.264 file: ``frames``, ``fps``, ``width``,
+    """An open mp4v, H.264 or HEVC file: ``frames``, ``fps``, ``width``,
     ``height`` (as displayed, after the display matrix's rotation); iterate
     for the decoded BGR frames, ``stats`` for what the stream used so far."""
 
     def __init__(self, path: str):
         self.path = path
         self._h = None
-        self.codec = "h264" if sample_entry(path) in H264_ENTRIES else "mp4v"
-        lib = _lib(H264_SOURCE if self.codec == "h264" else SOURCE)
+        entry = sample_entry(path)
+        self.codec = next((k for k, v in _CODECS.items() if entry in v[1]), None)
+        if self.codec is None:
+            raise UnsupportedVideoError(
+                f"{path}: sample entry {entry!r} (the port reads "
+                f"{', '.join(e for v in _CODECS.values() for e in v[1])})")
+        source, _, self._stat_names = _CODECS[self.codec]
+        lib = _lib(source)
         prefix = self.codec
         self._read, self._stats_fn = getattr(lib, f"{prefix}_read"), getattr(lib, f"{prefix}_stats")
         # held here: at interpreter exit __del__ may run after the module's
         # globals are gone
         self._close = getattr(lib, f"{prefix}_close")
-        self._stat_names = H264_STAT_NAMES if self.codec == "h264" else STAT_NAMES
         info = np.zeros(5, np.int64)
         err = ctypes.create_string_buffer(_ERRLEN)
         self._h = getattr(lib, f"{prefix}_open")(path.encode(), info.ctypes.data, err, _ERRLEN)
@@ -206,8 +255,8 @@ def video_info(path: str) -> Tuple[int, float, int, int]:
 
 
 def read_video(path: str) -> Iterator[np.ndarray]:
-    """The frames of an mp4v or H.264 file in order, each (H, W, 3) BGR
-    uint8, as ``cap.read()`` returns them."""
+    """The frames of an mp4v, H.264 or HEVC file in order, each (H, W, 3)
+    BGR uint8, as ``cap.read()`` returns them."""
     with VideoReader(path) as r:
         yield from r
 

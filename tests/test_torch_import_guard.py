@@ -298,6 +298,15 @@ GUARDED = textwrap.dedent('''
         kept = extract_sharpest_frames(h264, os.path.join(tmp, "frames264"), interval=3,
                                        device="cpu")
         assert kept == ["frame_00000.png", "frame_00001.png"], kept
+        from monohair_tpu_torch.io import hevc_streams
+        hevc = os.path.join(tmp, "v265.mp4")
+        hevc_streams.write_frames(hevc, [rng.integers(0, 256, (24, 32, 3), dtype=np.uint8)
+                                         if i in (1, 4) else np.full((24, 32, 3), 128, np.uint8)
+                                         for i in range(6)], fps=10, ctb=16, rotation=90)
+        assert video_info(hevc) == (6, 10.0, 24, 32)
+        kept = extract_sharpest_frames(hevc, os.path.join(tmp, "frames265"), interval=3,
+                                       device="cpu")
+        assert kept == ["frame_00000.png", "frame_00001.png"], kept
         c2w = [np.eye(4), np.eye(4)]
         c2w[1][:3, 3] = [0.1, 0.0, 0.0]
         save_base_cam(os.path.join(tmp, "base_cam.json"),
@@ -308,7 +317,7 @@ GUARDED = textwrap.dedent('''
         assert render_camera_path_video(field, os.path.join(tmp, "base_cam.json"), out,
                                         H=8, W=16, frames_per_seg=2) == 2
         assert video_info(out) == (2, 24.0, 16, 8)
-    for source in ("mp4v.cpp", "h264.cpp", "h264_writer.cpp"):
+    for source in ("mp4v.cpp", "h264.cpp", "h264_writer.cpp", "hevc.cpp", "hevc_writer.cpp"):
         assert _build.BUILD_INFO[source]["path"].startswith(
             os.path.join(os.getcwd(), "build", "monohair_tpu_torch") + os.sep)
 
