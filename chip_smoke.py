@@ -152,7 +152,13 @@ Phases, each printing a line when it starts and when it ends:
               partial CTB), decoded on the host: ms a frame to decode
               (and at 1280x720 on 10 of 14d's frames), the round trip's
               PSNR (>= 30 dB); extract_sharpest_frames on the card keeps the
-              sharp frames, frames/s
+              sharp frames, frames/s; then the same 30 frames as HEVC I/P/B
+              in x265's default GOP shape (4 B pictures between anchors, a
+              B pyramid, 3 references, open GOPs whose CRA pictures carry
+              RASL pictures; a CRA every 12 frames instead of x265's 250):
+              the frame count, ms a frame to decode (at most 4x the I/P
+              stream's), PSNR (>= 30 dB), the extraction's frames/s and
+              kept frames
  15. hair parser training
               15a BiSeNet (the hair parser) and MODNet (the matte) at width
               1.0, flax's initialisers from a seed: one training step of 2
@@ -2703,6 +2709,10 @@ HEVC_QP = 24                     # 14e: the HEVC test-stream writer's fixed quan
 HEVC_CTB = 64                    # 14e: CTBs of 64 (1080 rows end in a partial one)
 HEVC_FRAMES = 30                 # 14e: the first 30 of 14b's frames at 1920x1080
 HEVC_FRAMES_720 = 10             # 14e: 14d's first 10 at 1280x720, for the decode time
+# 14e's I/P/B stream: x265's default GOP shape (bframes 4, b-pyramid, ref 3,
+# open GOP), keyint cut from 250 to 12 so that 30 frames hold CRA pictures
+HEVC_B = dict(bframes=4, pyramid=1, refs=3, gop=12, cra=1)
+HEVC_B_SLOWDOWN = 4.0            # 14e: the I/P/B decode's ms a frame over the I/P one's, at most
 FLY_SIZE = (720, 1280)           # render_camera_path_video's default (H, W)
 FLY_POSES = 3
 FLY_FRAMES_PER_SEG = 4
@@ -3035,7 +3045,57 @@ def phase_video_hevc(dev: torch.device, tmp: str, frames_1080: list, frames_720:
             check_kept(decoded, out_dir, kept, sharp, False, f"14e {W}x{H}")
         log(msg)
         out[f"{W}x{H}"] = res
+    H, W = CODEC_SIZES[0]
+    out["b_frames"] = phase_video_hevc_b(dev, tmp, frames_1080[:HEVC_FRAMES],
+                                         out[f"{W}x{H}"]["decode_ms"])
     return out
+
+
+def phase_video_hevc_b(dev: torch.device, tmp: str, frames: list, ip_decode_ms: float) -> dict:
+    """14e, I/P/B: 14b's 1920x1080 frames in x265's default GOP shape (HEVC_B:
+    B pyramids, open GOPs with RASL pictures), decoded on the host and through
+    the extraction on the card."""
+    H, W = frames[0].shape[:2]
+    path = os.path.join(tmp, "hevc_b.mp4")
+    t = time.perf_counter()
+    hevc_streams.write_frames(path, frames, fps=VIDEO_FPS, qp=HEVC_QP, ctb=HEVC_CTB, **HEVC_B)
+    enc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with video_io.VideoReader(path) as reader:
+        decoded = list(reader)
+        stats = reader.stats
+    dec_s = time.perf_counter() - t
+    info = video_io.video_info(path)
+    psnrs = [video_psnr(a, b) for a, b in zip(decoded, frames)]
+    out_dir = os.path.join(tmp, "hevc_b_frames")
+    sync(dev)
+    t = time.perf_counter()
+    kept = extract_sharpest_frames(path, out_dir, interval=VIDEO_INTERVAL, device=dev)
+    sync(dev)
+    ext_s = time.perf_counter() - t
+    res = dict(encode_s=enc_s, decode_ms=dec_s / len(frames) * 1e3, min_psnr=min(psnrs),
+               bytes=os.path.getsize(path), extract_s=ext_s, frames_per_s=len(frames) / ext_s,
+               kept=len(kept), **{k: stats[k] for k in (
+                   "i_slices", "p_slices", "b_slices", "bipred_pus", "l1_pus", "skip_cus",
+                   "merge_pus", "amvp_pus", "cra_pictures", "rasl_pictures",
+                   "skipped_rasl_pictures", "ctb64_pictures")})
+    res["decode_vs_ip"] = res["decode_ms"] / ip_decode_ms
+    log(f"14e HEVC I/P/B at {W}x{H} ({HEVC_B}, CTB {HEVC_CTB}, QP {HEVC_QP}): {len(frames)} "
+        f"frames written in {enc_s:.3f} s ({res['bytes']} bytes, {stats['i_slices']} I, "
+        f"{stats['p_slices']} P and {stats['b_slices']} B slices, {stats['cra_pictures']} CRA "
+        f"and {stats['rasl_pictures']} RASL pictures, {stats['bipred_pus']} bi-predicted and "
+        f"{stats['l1_pus']} list-1 prediction units, {stats['skip_cus']} skipped coding units); "
+        f"decode {res['decode_ms']:.3f} ms a frame on the host ({res['decode_vs_ip']:.3f}x the "
+        f"I/P stream's); round trip PSNR min {res['min_psnr']:.2f} dB; extract_sharpest_frames "
+        f"{ext_s:.3f} s, {res['frames_per_s']:.2f} frames/s, kept {len(kept)}")
+    if (info != (len(frames), float(VIDEO_FPS), W, H) or len(decoded) != len(frames)
+            or res["min_psnr"] < VIDEO_MIN_PSNR or not stats["b_slices"]
+            or not stats["bipred_pus"] or not stats["cra_pictures"] or not stats["rasl_pictures"]
+            or stats["skipped_rasl_pictures"] or stats["ctb64_pictures"] != len(frames)
+            or not res["decode_vs_ip"] <= HEVC_B_SLOWDOWN):
+        raise AssertionError(f"14e: the HEVC I/P/B round trip: {info}, {res}")
+    check_kept(decoded, out_dir, kept, sharp_indices(len(frames)), False, "14e I/P/B")
+    return res
 
 
 def phase_video_fly(dev: torch.device, tmp: str) -> dict:

@@ -16,8 +16,9 @@
 // refused by name, as for H.264: a left crop, BT.2020 or other primaries,
 // PQ/HLG transfers, the GBR, YCgCo and BT.2020 matrices. Frames leave in the
 // order FFmpeg hands them to cv2 (hevc.h: Hevc::output_frames), the rest
-// flushed at the end of the stream. NAL units of layers above 0 are skipped,
-// as FFmpeg skips them unless asked for another view.
+// flushed at the end of the stream; the RASL pictures FFmpeg skips (hevc.h:
+// RaslRule) are neither decoded nor output. NAL units of layers above 0 are
+// skipped, as FFmpeg skips them unless asked for another view.
 //
 // Bit parsing is serial, so this stays on the host, as FFmpeg does in the
 // JAX package.
@@ -34,6 +35,7 @@ struct Reader {
   int width = 0, height = 0;  // cropped, before rotation
   int coded_w = 0, coded_h = 0;
   bool eos = false;
+  bool skipping = false;  // the slices of a RASL picture FFmpeg skips
   std::vector<uint8_t> bgr;
 
   void open(const char* path) {
@@ -93,11 +95,13 @@ struct Reader {
     int type = (d[0] >> 1) & 63, layer = ((d[0] & 1) << 5) | (d[1] >> 3), tid = (d[1] & 7) - 1;
     if (tid < 0) fail("nuh_temporal_id_plus1 0");
     if (layer) return;
-    if (type == EOS_NUT) { eos = true; return; }
+    if (type == EOS_NUT) {
+      eos = true;
+      codec.rasl = RaslRule{};
+      return;
+    }
     bool vcl = type < 32;
     if (vcl && (type > CRA || (type > RASL_R && type < BLA_W_LP))) return;  // reserved
-    if (type >= RADL_N && type <= RASL_R)
-      unsupported("RASL/RADL leading pictures (NAL unit type " + std::to_string(type) + ")");
     if (type >= BLA_W_LP && type <= BLA_N_LP) unsupported("BLA pictures");
     if (type >= TSA_N && type <= STSA_R)
       unsupported("TSA/STSA pictures (temporal sub-layer switching)");
@@ -144,13 +148,22 @@ struct Reader {
       if (codec.cur) codec.finish_picture();
       if (eos && type == CRA) unsupported("a CRA picture after an end of sequence NAL unit");
       if (is_irap(type)) eos = false;
+      skipping = false;
+    } else if (skipping) {
+      return;
     } else if (!codec.cur) {
       fail("slice segment of a picture whose first slice is missing");
     }
     codec.set_slice(h, s, p);
     if (s->width != coded_w || s->height != coded_h)
       unsupported("a change of picture size within the stream");
-    if (h.first) codec.start_picture();
+    if (h.first) {
+      if (codec.skip_rasl()) {
+        skipping = true;
+        return;
+      }
+      codec.start_picture();
+    }
     codec.start_slice();
     codec.slice_data();
   }

@@ -10,31 +10,37 @@
 // same pictures. The writer's streams are held against FFmpeg's decoder
 // (cv2), never only against this decoder.
 //
-// Scope: the Main profile's I and P slices, 8-bit 4:2:0: VPS/SPS/PPS with
+// Scope: the Main profile's I, P and B slices, 8-bit 4:2:0: VPS/SPS/PPS with
 // short-term reference picture sets (in the SPS and the slice header, with
 // inter-RPS prediction), the conformance window and VUI colour; NAL unit types
-// IDR_W_RADL, IDR_N_LP, CRA, TRAIL_N and TRAIL_R; several independent slice
-// segments a picture; reference lists of any length with
-// ref_pic_lists_modification; CTB sizes 16, 32 and 64 with the implicit
-// splits of partial CTBs; CABAC with cabac_init_flag; cu_qp_delta, the chroma
-// QP offsets of the PPS and the slice, cu_transquant_bypass; the 35 intra
-// modes with reference substitution, filtering, strong intra smoothing,
-// constrained_intra_pred and PCM; every inter part_mode (AMP included),
-// merge (spatial, temporal, zero candidates, log2_parallel_merge_level),
-// AMVP, TMVP through collocated_ref_idx, 8-tap luma and 4-tap chroma
-// interpolation, explicit weighted prediction; transforms 4 to 32 with the
-// DST of intra 4x4 luma, the residual quadtree, scaling lists (default, SPS,
-// PPS, predicted), transform_skip and sign data hiding; the deblocking filter
-// (its slice flags and offsets, loop_filter_across_slices) and SAO (band and
-// edge offsets, merge left and up). Where FFmpeg (cv2) departs from the
-// standard, its way is taken, as each place says: the pictures it outputs and
-// when (ff_hevc_output_frames), the POC of a CRA that starts a stream, SAO at
-// the edges of slices that do not filter across them. Everything else is
-// refused by name (Error code 2): B slices, RASL/RADL leading pictures, BLA,
-// TSA/STSA, WPP (entropy_coding_sync_enabled_flag), tiles, dependent slice
-// segments, long-term reference pictures, profiles other than Main, bit
-// depths above 8, chroma formats other than 4:2:0, the range/multilayer/3D/
-// SCC extensions, a missing reference picture.
+// IDR_W_RADL, IDR_N_LP, CRA, TRAIL_N/R and the leading pictures RASL_N/R and
+// RADL_N/R; several independent slice segments a picture; both reference
+// lists, of any length, with ref_pic_lists_modification; CTB sizes 16, 32
+// and 64 with the implicit splits of partial CTBs; CABAC with
+// cabac_init_flag; cu_qp_delta, the chroma QP offsets of the PPS and the
+// slice, cu_transquant_bypass; the 35 intra modes with reference
+// substitution, filtering, strong intra smoothing, constrained_intra_pred and
+// PCM; every inter part_mode (AMP included), inter_pred_idc (list 0, list 1
+// or both, bi-prediction barred for 8x4 and 4x8), mvd_l1_zero_flag, merge
+// (spatial, temporal from either list, combined bi-predictive and zero
+// candidates, log2_parallel_merge_level), AMVP of either list, TMVP through
+// collocated_from_l0_flag and collocated_ref_idx, 8-tap luma and 4-tap
+// chroma interpolation, default and explicit weighted uni- and
+// bi-prediction; transforms 4 to 32 with the DST of intra 4x4 luma, the
+// residual quadtree, scaling lists (default, SPS, PPS, predicted),
+// transform_skip and sign data hiding; the deblocking filter (its slice
+// flags and offsets, loop_filter_across_slices) and SAO (band and edge
+// offsets, merge left and up). Where FFmpeg (cv2) departs from the standard,
+// its way is taken, as each place says: the pictures it outputs and when
+// (ff_hevc_output_frames), the POC of a CRA that starts a stream, the RASL
+// pictures it skips (RaslRule), SAO at the edges of slices that do not
+// filter across them. Everything else is refused by name (Error code 2):
+// BLA, TSA/STSA, WPP (entropy_coding_sync_enabled_flag), tiles, dependent
+// slice segments, long-term reference pictures, profiles other than Main,
+// bit depths above 8, chroma formats other than 4:2:0, the
+// range/multilayer/3D/SCC extensions, a missing reference picture (other
+// than those of a CRA that starts the stream, which only its skipped RASL
+// pictures use).
 
 #pragma once
 
@@ -623,7 +629,8 @@ void pps_syntax(Bits& b, PPS& p, const SPS* sps_table) {
 
 // ------------------------------------------------------- slice header --
 enum NalType {
-  TRAIL_N = 0, TRAIL_R = 1, TSA_N = 2, STSA_R = 5, RADL_N = 6, RASL_R = 9, BLA_W_LP = 16,
+  TRAIL_N = 0, TRAIL_R = 1, TSA_N = 2, STSA_R = 5, RADL_N = 6, RADL_R = 7, RASL_N = 8,
+  RASL_R = 9, BLA_W_LP = 16,
   BLA_N_LP = 18, IDR_W_RADL = 19, IDR_N_LP = 20, CRA = 21, VPS_NUT = 32, SPS_NUT = 33,
   PPS_NUT = 34, EOS_NUT = 36
 };
@@ -638,12 +645,12 @@ struct SliceHeader {
   int tmvp = 0, sao_luma = 0, sao_chroma = 0;
   int num_ref_override = 0, num_ref[2] = {0, 0};
   int mod_flag[2] = {0, 0}, list_entry[2][16] = {{0}};
-  int cabac_init = 0, col_from_l0 = 1, col_ref_idx = 0;
-  // pred_weight_table( ): the syntax (the writer's) and the weights
+  int mvd_l1_zero = 0, cabac_init = 0, col_from_l0 = 1, col_ref_idx = 0;
+  // pred_weight_table( ): the syntax (the writer's) and the weights, by list
   int luma_denom = 0, chroma_denom = 0;
-  int lw_flag[16] = {0}, cw_flag[16] = {0}, dlw[16] = {0}, lo[16] = {0}, dcw[16][2] = {{0}},
-      dco[16][2] = {{0}};
-  int luma_w[16], luma_o[16], chroma_w[16][2], chroma_o[16][2];
+  int lw_flag[2][16] = {{0}}, cw_flag[2][16] = {{0}}, dlw[2][16] = {{0}}, lo[2][16] = {{0}},
+      dcw[2][16][2] = {{{0}}}, dco[2][16][2] = {{{0}}};
+  int luma_w[2][16], luma_o[2][16], chroma_w[2][16][2], chroma_o[2][16][2];
   int max_merge = 5;
   int qp_delta = 0, cb_offset = 0, cr_offset = 0;
   int deblock_override = 0, deblock_disabled = 0, beta_div2 = 0, tc_div2 = 0;
@@ -657,38 +664,41 @@ struct SliceHeader {
 bool is_irap(int t) { return t >= 16 && t <= 23; }
 bool is_idr(int t) { return t == IDR_W_RADL || t == IDR_N_LP; }
 
-// pred_weight_table( ) of a P slice (7.3.6.3)
+// pred_weight_table( ) (7.3.6.3): list 0's weights, then list 1's in a B slice
 void weight_table_syntax(Bits& b, SliceHeader& h) {
   h.luma_denom = (int)b.ue(h.luma_denom);
   if (h.luma_denom > 7) fail("luma_log2_weight_denom out of range");
   int dc = b.se(h.chroma_denom - h.luma_denom);
   h.chroma_denom = h.luma_denom + dc;
   if (h.chroma_denom < 0 || h.chroma_denom > 7) fail("delta_chroma_log2_weight_denom out of range");
-  int n = h.num_ref[0];
-  for (int i = 0; i < n; i++) h.lw_flag[i] = b.flag(h.lw_flag[i]);
-  for (int i = 0; i < n; i++) h.cw_flag[i] = b.flag(h.cw_flag[i]);
-  for (int i = 0; i < n; i++) {
-    h.luma_w[i] = 1 << h.luma_denom;
-    h.luma_o[i] = 0;
-    if (h.lw_flag[i]) {
-      h.dlw[i] = b.se(h.dlw[i]);
-      h.lo[i] = b.se(h.lo[i]);
-      if (h.dlw[i] < -128 || h.dlw[i] > 127 || h.lo[i] < -128 || h.lo[i] > 127)
-        fail("luma weight or offset out of range");
-      h.luma_w[i] += h.dlw[i];
-      h.luma_o[i] = h.lo[i];
-    }
-    for (int j = 0; j < 2; j++) {
-      h.chroma_w[i][j] = 1 << h.chroma_denom;
-      h.chroma_o[i][j] = 0;
-      if (h.cw_flag[i]) {
-        h.dcw[i][j] = b.se(h.dcw[i][j]);
-        h.dco[i][j] = b.se(h.dco[i][j]);
-        if (h.dcw[i][j] < -128 || h.dcw[i][j] > 127 || h.dco[i][j] < -512 || h.dco[i][j] > 511)
-          fail("chroma weight or offset out of range");
-        h.chroma_w[i][j] += h.dcw[i][j];
-        h.chroma_o[i][j] =
-            clip3(-128, 127, (128 + h.dco[i][j]) - ((128 * h.chroma_w[i][j]) >> h.chroma_denom));
+  for (int l = 0; l < (h.type == SLICE_B ? 2 : 1); l++) {
+    int n = h.num_ref[l];
+    for (int i = 0; i < n; i++) h.lw_flag[l][i] = b.flag(h.lw_flag[l][i]);
+    for (int i = 0; i < n; i++) h.cw_flag[l][i] = b.flag(h.cw_flag[l][i]);
+    for (int i = 0; i < n; i++) {
+      h.luma_w[l][i] = 1 << h.luma_denom;
+      h.luma_o[l][i] = 0;
+      if (h.lw_flag[l][i]) {
+        h.dlw[l][i] = b.se(h.dlw[l][i]);
+        h.lo[l][i] = b.se(h.lo[l][i]);
+        if (h.dlw[l][i] < -128 || h.dlw[l][i] > 127 || h.lo[l][i] < -128 || h.lo[l][i] > 127)
+          fail("luma weight or offset out of range");
+        h.luma_w[l][i] += h.dlw[l][i];
+        h.luma_o[l][i] = h.lo[l][i];
+      }
+      for (int j = 0; j < 2; j++) {
+        h.chroma_w[l][i][j] = 1 << h.chroma_denom;
+        h.chroma_o[l][i][j] = 0;
+        if (h.cw_flag[l][i]) {
+          h.dcw[l][i][j] = b.se(h.dcw[l][i][j]);
+          h.dco[l][i][j] = b.se(h.dco[l][i][j]);
+          if (h.dcw[l][i][j] < -128 || h.dcw[l][i][j] > 127 || h.dco[l][i][j] < -512 ||
+              h.dco[l][i][j] > 511)
+            fail("chroma weight or offset out of range");
+          h.chroma_w[l][i][j] += h.dcw[l][i][j];
+          h.chroma_o[l][i][j] = clip3(-128, 127, (128 + h.dco[l][i][j]) -
+                                                     ((128 * h.chroma_w[l][i][j]) >> h.chroma_denom));
+        }
       }
     }
   }
@@ -719,7 +729,6 @@ void slice_header_syntax(Bits& b, SliceHeader& h, const SPS* sps_table, const PP
   for (int i = 0; i < p.extra_bits; i++) b.flag(0);
   h.type = (int)b.ue(h.type);
   if (h.type > 2) fail("slice_type out of range");
-  if (h.type == SLICE_B) refuse(b, "B slices");
   h.pic_output = p.output_flag_present ? b.flag(h.pic_output) : 1;
   h.rps = nullptr;
   h.num_pic_total_curr = 0;
@@ -747,33 +756,42 @@ void slice_header_syntax(Bits& b, SliceHeader& h, const SPS* sps_table, const PP
   } else {
     h.sao_luma = h.sao_chroma = 0;
   }
-  if (h.type == SLICE_P) {
-    if (!h.num_pic_total_curr) fail("P slice without reference pictures in its RPS");
+  if (h.type != SLICE_I) {
+    if (!h.num_pic_total_curr) fail("P or B slice without reference pictures in its RPS");
+    int lists = h.type == SLICE_B ? 2 : 1;
     h.num_ref_override = b.flag(h.num_ref_override);
-    h.num_ref[0] = h.num_ref_override ? (int)b.ue(h.num_ref[0] - 1) + 1 : p.num_ref_default[0];
-    if (h.num_ref[0] > 15) fail("num_ref_idx_l0_active_minus1 out of range");
-    h.mod_flag[0] = h.mod_flag[0] && p.lists_modification && h.num_pic_total_curr > 1;
-    if (p.lists_modification && h.num_pic_total_curr > 1) {
-      h.mod_flag[0] = b.flag(h.mod_flag[0]);
-      if (h.mod_flag[0])
-        for (int i = 0; i < h.num_ref[0]; i++) {
-          h.list_entry[0][i] = (int)b.u(ceil_log2(h.num_pic_total_curr), h.list_entry[0][i]);
-          if (h.list_entry[0][i] >= h.num_pic_total_curr) fail("list_entry_l0 out of range");
+    for (int l = 0; l < 2; l++) {
+      if (l >= lists) h.num_ref[l] = 0;
+      else if (h.num_ref_override) h.num_ref[l] = (int)b.ue(h.num_ref[l] - 1) + 1;
+      else h.num_ref[l] = p.num_ref_default[l];
+      if (h.num_ref[l] > 15) fail("num_ref_idx_active_minus1 out of range");
+    }
+    bool mod = p.lists_modification && h.num_pic_total_curr > 1;
+    for (int l = 0; l < 2; l++) {
+      h.mod_flag[l] = mod && l < lists ? b.flag(h.mod_flag[l]) : 0;
+      if (h.mod_flag[l])
+        for (int i = 0; i < h.num_ref[l]; i++) {
+          h.list_entry[l][i] = (int)b.u(ceil_log2(h.num_pic_total_curr), h.list_entry[l][i]);
+          if (h.list_entry[l][i] >= h.num_pic_total_curr) fail("list_entry out of range");
         }
     }
+    h.mvd_l1_zero = h.type == SLICE_B ? b.flag(h.mvd_l1_zero) : 0;
     h.cabac_init = p.cabac_init_present ? b.flag(h.cabac_init) : 0;
-    h.col_from_l0 = 1;
-    if (h.tmvp && h.num_ref[0] > 1) {
-      h.col_ref_idx = (int)b.ue(h.col_ref_idx);
-      if (h.col_ref_idx >= h.num_ref[0]) fail("collocated_ref_idx out of range");
+    if (h.tmvp) {
+      h.col_from_l0 = h.type == SLICE_B ? b.flag(h.col_from_l0) : 1;
+      int n = h.num_ref[h.col_from_l0 ? 0 : 1];
+      h.col_ref_idx = n > 1 ? (int)b.ue(h.col_ref_idx) : 0;
+      if (h.col_ref_idx >= n) fail("collocated_ref_idx out of range");
     } else {
+      h.col_from_l0 = 1;
       h.col_ref_idx = 0;
     }
-    if (p.weighted_pred) weight_table_syntax(b, h);
+    if ((p.weighted_pred && h.type == SLICE_P) || (p.weighted_bipred && h.type == SLICE_B))
+      weight_table_syntax(b, h);
     h.max_merge = 5 - (int)b.ue(5 - h.max_merge);
     if (h.max_merge < 1 || h.max_merge > 5) fail("five_minus_max_num_merge_cand out of range");
   } else {
-    h.cabac_init = 0;
+    h.cabac_init = h.mvd_l1_zero = 0;
     h.num_ref[0] = h.num_ref[1] = 0;
     h.mod_flag[0] = h.mod_flag[1] = 0;
   }
@@ -835,6 +853,7 @@ struct Picture {
   std::vector<PbMotion> mv;
   int poc = 0, id = 0;
   bool output = false, ref = false;
+  bool missing = false;  // generated for an RPS entry that was not there (8.3.3)
   void alloc(int width, int height) {
     w = width;
     h = height;
@@ -874,7 +893,26 @@ enum Stat {
   S_INTER_NXN, S_SMALL_PU, S_TMVP_SLICE, S_TMVP_CAND, S_WEIGHTED, S_TSKIP, S_SDH, S_DST,
   S_TB32, S_SCALING, S_QP_DELTA, S_CHROMA_OFFSET, S_STRONG, S_CONSTRAINED, S_DEBLOCKED,
   S_DEBLOCK_OFF, S_LF_NOT_ACROSS, S_SAO_BAND, S_SAO_EDGE, S_SAO_MERGE, S_REFMOD, S_INTER_RPS,
-  S_SPS_RPS, S_HIDDEN, S_DISCARDED, S_CABAC_INIT, S_REPEATED_REF, kStatCount
+  S_SPS_RPS, S_HIDDEN, S_DISCARDED, S_CABAC_INIT, S_REPEATED_REF, S_BSLICE, S_BIPRED, S_L1_PU,
+  S_COMBINED, S_MVD_L1_ZERO, S_COL_L1, S_BI_COL, S_WEIGHTED_BI, S_RASL, S_RADL, S_RASL_SKIPPED,
+  kStatCount
+};
+
+// The RASL pictures FFmpeg skips: those that follow a CRA with
+// NoRaslOutputFlag 1, that is a CRA that starts the stream (a CRA after an
+// end of sequence is refused), are neither decoded nor output, so they take
+// no place in the DPB (the standard decodes them from generated references
+// without outputting them). A later CRA's RASL pictures are decoded, whatever
+// their POCs: cv2's frames show that this FFmpeg does not keep the max_ra
+// bound of earlier hevcdec versions, which also skipped them when their POCs
+// fell at or below the first CRA's.
+struct RaslRule {
+  bool started = false, no_rasl_output = true;
+  bool skip(int nal_type) {
+    if (is_irap(nal_type)) no_rasl_output = is_idr(nal_type) || !started;
+    started = true;
+    return (nal_type == RASL_N || nal_type == RASL_R) && no_rasl_output;
+  }
 };
 
 // Per-slice values the loop filters read after the picture is decoded
@@ -892,9 +930,11 @@ struct Hevc;
 struct CuChoice {
   int bypass = 0, skip = 0, intra = 1, part = P2Nx2N, pcm = 0, rqt_root_cbf = 1;
 };
+enum InterPredIdc { PRED_L0 = 0, PRED_L1 = 1, PRED_BI = 2 };
 struct PuChoice {
-  int merge = 1, merge_idx = 0, ref_idx = 0, mvp = 0;
-  int mvd[2] = {0, 0};
+  int merge = 1, merge_idx = 0, idc = PRED_L0;
+  int ref_idx[2] = {0, 0}, mvp[2] = {0, 0};
+  int mvd[2][2] = {{0, 0}, {0, 0}};  // by list; list 1's is not coded under mvd_l1_zero_flag
 };
 struct Chooser {
   virtual ~Chooser() {}
@@ -905,7 +945,7 @@ struct Chooser {
   virtual void pcm_samples(int x0, int y0, int log2, uint8_t* samples) = 0;
   virtual int intra_mode(int x, int y, int log2) = 0;
   virtual int chroma_mode(int x0, int y0, int luma_mode) = 0;
-  // merge: the merge candidates (max_merge of them); amvp(ref, flag) gives a predictor
+  // merge: the merge candidates (max_merge of them); amvp_query(list, ref, flag) gives a predictor
   virtual void pu(int x, int y, int w, int h, int part_idx, const Motion* merge_cands,
                   PuChoice& c) = 0;
   virtual int split_tf(int x0, int y0, int log2, int depth) = 0;
@@ -935,8 +975,10 @@ struct Hevc {
   PicPtr cur;
   std::vector<PicPtr> dpb;    // pictures held: references and pictures waiting for output
   std::vector<PicPtr> ready;  // output order
-  std::vector<PicPtr> list0;  // RefPicList0 of the slice
+  std::vector<PicPtr> list[2];  // RefPicList0 and RefPicList1 of the slice
   int list_poc[2][16];
+  bool no_backward = true;      // NoBackwardPredFlag of the slice
+  RaslRule rasl;
   int poc = 0, poc_tid0 = 0, next_id = 1;
   bool started = false;
   int slices_in_pic = 0;
@@ -958,7 +1000,7 @@ struct Hevc {
   int qp_delta_val = 0, qg_x = 0, qg_y = 0;
   bool cu_intra = false, cu_bypass = false;
   int cu_part = P2Nx2N, cu_chroma_mode = 0;
-  int cu_x = 0, cu_y = 0, cu_log2 = 3;
+  int cu_x = 0, cu_y = 0, cu_log2 = 3, cu_depth = 0;
   bool merge0 = false;
 
   Hevc() { cabac.b = &bits; }
@@ -1058,11 +1100,22 @@ struct Hevc {
   }
   void flush_output() { output_frames(0, 0, false); }
 
+  // FFmpeg skips a RASL picture at its first slice (RaslRule), before it
+  // touches the DPB; the writer never asks
+  bool skip_rasl() {
+    bool skip = rasl.skip(sh.nal_type);
+    if (skip) stats[S_RASL_SKIPPED]++;
+    return skip;
+  }
+
   // the first slice of a picture: POC, RPS (8.3.2), a new picture in the DPB
   // and FFmpeg's output of the pictures before it
   void start_picture() {
     int t = sh.nal_type;
     if (!started && !is_irap(t)) fail("the stream does not start with an IRAP picture");
+    // NoRaslOutputFlag of a CRA: only one that starts the stream (a CRA
+    // after an end of sequence is refused)
+    bool first = !started;
     started = true;
     poc = compute_poc();
     // prevTid0Pic: TemporalId 0, neither a leading nor a sub-layer non-reference picture
@@ -1071,9 +1124,19 @@ struct Hevc {
     if (is_idr(t)) stats[S_IDR]++;
     if (t == CRA) stats[S_CRA]++;
     if (t == TRAIL_N) stats[S_TRAIL_N]++;
+    if (t == RASL_N || t == RASL_R) stats[S_RASL]++;
+    if (t == RADL_N || t == RADL_R) stats[S_RADL]++;
     // NoRaslOutputFlag: an IDR (BLA and a CRA after an end of sequence are
     // refused; a CRA that starts the stream finds the DPB empty)
     if (is_idr(t)) {
+      // FFmpeg marks no references for an IDR (it has no RPS), and the
+      // pictures it generated for a CRA that starts the stream outlive its
+      // clearing of the others: they stay in its DPB through the IDR (and
+      // one with POC 0 makes it drop the IDR as a duplicate)
+      for (const PicPtr& f : dpb)
+        if (f->missing && f->ref && !W())
+          unsupported("an IDR picture while the references generated for the CRA that starts "
+                      "the stream are held (FFmpeg keeps them past the IDR)");
       if (sh.no_output_prior) output_frames(0, 0, true);
       else flush_output();
       for (PicPtr& f : dpb) f->ref = false;
@@ -1088,7 +1151,10 @@ struct Hevc {
     cur->output = sh.pic_output != 0;
     cur->ref = true;
     if (!cur->output) stats[S_HIDDEN]++;
-    // 8.3.2: the pictures of the RPS stay references, the others do not
+    // 8.3.2: the pictures of the RPS stay references, the others do not. A
+    // CRA that starts the stream names pictures before it for its RASL
+    // pictures: they are generated (8.3.3; FFmpeg's generate_missing_ref, a
+    // grey reference that is never output) and count in the DPB's fullness
     const StRps* r = sh.rps;
     std::vector<PicPtr> keep;
     if (r)
@@ -1097,6 +1163,16 @@ struct Hevc {
         PicPtr f;
         for (const PicPtr& g : dpb)
           if (g->ref && g->poc == want) f = g;
+        if (!f && first && t == CRA) {
+          f = std::make_shared<Picture>();
+          f->alloc(s->width, s->height);
+          std::fill(f->y.begin(), f->y.end(), 128);
+          f->poc = want;
+          f->id = next_id++;
+          f->ref = true;
+          f->missing = true;
+          dpb.push_back(f);
+        }
         if (!f)
           unsupported("a missing reference picture (POC " + std::to_string(want) +
                       " of the RPS of POC " + std::to_string(poc) + ")");
@@ -1119,13 +1195,16 @@ struct Hevc {
     if (s->ctb_log2 == 6) stats[S_CTB64]++;
   }
 
-  // RefPicList0 (8.3.4): StCurrBefore then StCurrAfter, repeated to the
-  // list's length, then the modification
+  // RefPicList0 (8.3.4): StCurrBefore then StCurrAfter, RefPicList1:
+  // StCurrAfter then StCurrBefore, each repeated to the list's length, then
+  // the modification
   void build_lists() {
-    list0.clear();
-    if (sh.type != SLICE_P) return;
+    list[0].clear();
+    list[1].clear();
+    no_backward = true;
+    if (sh.type == SLICE_I) return;
     const StRps* r = sh.rps;
-    std::vector<PicPtr> temp, curr;
+    std::vector<PicPtr> curr;
     for (int pass = 0; pass < 2; pass++)
       for (int i = pass ? r->num_neg : 0; i < (pass ? r->num() : r->num_neg); i++)
         if (r->used[i]) {
@@ -1133,18 +1212,28 @@ struct Hevc {
           for (const PicPtr& g : dpb)
             if (g->poc == want && g != cur) curr.push_back(g);
         }
-    if ((int)curr.size() != sh.num_pic_total_curr)
+    int total = (int)curr.size(), before = 0;
+    if (total != sh.num_pic_total_curr)
       unsupported("a missing reference picture (the RPS of a slice of POC " + std::to_string(poc) + ")");
-    int n = std::max(sh.num_ref[0], (int)curr.size());
-    while ((int)temp.size() < n)
-      for (const PicPtr& g : curr)
-        if ((int)temp.size() < n) temp.push_back(g);
-    for (int i = 0; i < sh.num_ref[0]; i++) {
-      list0.push_back(sh.mod_flag[0] ? temp[sh.list_entry[0][i]] : temp[i]);
-      list_poc[0][i] = list0[i]->poc;
+    for (const PicPtr& g : curr) before += g->poc < poc;
+    for (int l = 0; l < (sh.type == SLICE_B ? 2 : 1); l++) {
+      std::vector<PicPtr> temp;
+      int n = std::max(sh.num_ref[l], total);
+      while ((int)temp.size() < n)
+        for (int k = 0; k < total; k++)
+          if ((int)temp.size() < n) temp.push_back(curr[l ? (k + before) % total : k]);
+      for (int i = 0; i < sh.num_ref[l]; i++) {
+        list[l].push_back(sh.mod_flag[l] ? temp[sh.list_entry[l][i]] : temp[i]);
+        list_poc[l][i] = list[l][i]->poc;
+        if (list[l][i]->missing && !W())
+          unsupported("a missing reference picture (POC " + std::to_string(list_poc[l][i]) +
+                      ", generated for the CRA that starts the stream, in a list of POC " +
+                      std::to_string(poc) + ")");
+        if (list_poc[l][i] > poc) no_backward = false;
+      }
+      if (sh.num_ref[l] > total) stats[S_REPEATED_REF]++;
+      if (sh.mod_flag[l]) stats[S_REFMOD]++;
     }
-    if (sh.num_ref[0] > (int)curr.size()) stats[S_REPEATED_REF]++;
-    if (sh.mod_flag[0]) stats[S_REFMOD]++;
   }
 
   // the slice header in effect (its RPS points into itself when coded there)
@@ -1158,11 +1247,13 @@ struct Hevc {
   void start_slice() {
     slices_in_pic++;
     if (slices_in_pic == 2) stats[S_MULTI_SLICE]++;
-    stats[sh.type == SLICE_I ? S_ISLICE : S_PSLICE]++;
+    stats[sh.type == SLICE_I ? S_ISLICE : sh.type == SLICE_P ? S_PSLICE : S_BSLICE]++;
     if (sh.rps && sh.rps->inter) stats[S_INTER_RPS]++;
     if (sh.rps_sps && sh.rps) stats[S_SPS_RPS]++;
-    if (sh.tmvp && sh.type == SLICE_P) stats[S_TMVP_SLICE]++;
+    if (sh.tmvp && sh.type != SLICE_I) stats[S_TMVP_SLICE]++;
+    if (sh.tmvp && sh.type == SLICE_B && !sh.col_from_l0) stats[S_COL_L1]++;
     if (sh.type == SLICE_P && p->weighted_pred) stats[S_WEIGHTED]++;
+    if (sh.type == SLICE_B && p->weighted_bipred) stats[S_WEIGHTED_BI]++;
     if (s->scaling_enabled) stats[S_SCALING]++;
     if (p->cb_qp_offset || p->cr_qp_offset || sh.cb_offset || sh.cr_offset)
       stats[S_CHROMA_OFFSET]++;
@@ -1345,6 +1436,7 @@ struct Hevc {
     cu_x = x0;
     cu_y = y0;
     cu_log2 = log2;
+    cu_depth = depth;
     cu_part = P2Nx2N;
     derive_qp(x0, y0);
     if (W()) ch->cu(x0, y0, log2, c);
@@ -1701,17 +1793,23 @@ struct Hevc {
     return clip3(-32768, 32767, v);
   }
 
-  // 8.5.3.2.8-9: the temporal motion vector of list X for refIdx
-  bool temporal_mv(int xPb, int yPb, int w, int h, int ref_idx, int mv[2]) {
+  // 8.5.3.2.8-9: the temporal motion vector of list X for ref_idx, from the
+  // collocated picture (RefPicList1's when collocated_from_l0_flag is 0). A
+  // collocated block predicted from both lists gives its list X when no
+  // reference of the slice follows the current picture (NoBackwardPredFlag),
+  // else its list collocated_from_l0_flag, as FFmpeg's
+  // derive_temporal_colocated_mvs does too
+  bool temporal_mv(int xPb, int yPb, int w, int h, int X, int ref_idx, int mv[2]) {
     if (!sh.tmvp) return false;
-    const Picture* col = list0[sh.col_ref_idx].get();
+    const Picture* col = list[sh.col_from_l0 ? 0 : 1][sh.col_ref_idx].get();
     auto col_mv = [&](int x, int y) {
       x = (x >> 4) << 4;
       y = (y >> 4) << 4;
       const PbMotion& c = col->mv[(y >> 2) * col->w4 + (x >> 2)];
       if (!c.pred) return false;
-      int l = (c.pred & 1) ? 0 : 1;  // both lists: only B slices, refused
-      int col_diff = col->poc - c.ref_poc[l], cur_diff = poc - list_poc[0][ref_idx];
+      int l = c.pred == 1 ? 0 : c.pred == 2 ? 1 : no_backward ? X : sh.col_from_l0;
+      if (c.pred == 3) stats[S_BI_COL]++;
+      int col_diff = col->poc - c.ref_poc[l], cur_diff = poc - list_poc[X][ref_idx];
       for (int k = 0; k < 2; k++)
         mv[k] = col_diff == cur_diff ? c.mv[l][k] : scale_mv(c.mv[l][k], col_diff, cur_diff);
       return true;
@@ -1723,7 +1821,10 @@ struct Hevc {
     return col_mv(xPb + (w >> 1), yPb + (h >> 1));
   }
 
-  // 8.5.3.2.2-5: the merge candidate list (up to max_merge entries)
+  // 8.5.3.2.2-5: the merge candidate list (up to max_merge entries), with
+  // each candidate's kind in cand_kind (0 spatial, 1 temporal, 2 combined
+  // bi-predictive, 3 zero)
+  int cand_kind[5] = {0};
   int merge_list(int xPb, int yPb, int w, int h, int part_idx, Motion* cand) {
     int xCb = cu_x, yCb = cu_y, nCb = 1 << cu_log2;
     if (p->log2_par_mrg > 2 && nCb == 8) {
@@ -1762,86 +1863,130 @@ struct Hevc {
       if (!(a1 && same_motion(mA1, m)) && !(b1 && same_motion(mB1, m))) cand[count++] = m;
     }
     if (count > sh.max_merge) count = sh.max_merge;
+    for (int i = 0; i < count; i++) cand_kind[i] = 0;
+    bool bslice = sh.type == SLICE_B;
     int mv[2];
-    if (count < sh.max_merge && temporal_mv(xPb, yPb, w, h, 0, mv)) {
+    if (count < sh.max_merge) {  // the temporal candidate, refIdx 0 in each list
       Motion m;
-      m.pred = 1;
-      m.mv[0][0] = (int16_t)mv[0];
-      m.mv[0][1] = (int16_t)mv[1];
-      m.ref[0] = 0;
-      cand[count++] = m;
-      tmvp_used = true;
+      if (temporal_mv(xPb, yPb, w, h, 0, 0, mv)) {
+        m.pred |= 1;
+        m.mv[0][0] = (int16_t)mv[0];
+        m.mv[0][1] = (int16_t)mv[1];
+        m.ref[0] = 0;
+      }
+      if (bslice && temporal_mv(xPb, yPb, w, h, 1, 0, mv)) {
+        m.pred |= 2;
+        m.mv[1][0] = (int16_t)mv[0];
+        m.mv[1][1] = (int16_t)mv[1];
+        m.ref[1] = 0;
+      }
+      if (m.pred) {
+        cand_kind[count] = 1;
+        cand[count++] = m;
+        tmvp_used = true;
+      }
     }
-    int zero = 0;
-    while (count < sh.max_merge) {
+    // combined bi-predictive candidates: list 0 of one, list 1 of another,
+    // in Table 8-6's order, kept when they name other pictures or vectors
+    int orig = count;
+    if (bslice && orig > 1 && orig < sh.max_merge) {
+      static const int l0i[12] = {0, 1, 0, 2, 1, 2, 0, 3, 1, 3, 2, 3};
+      static const int l1i[12] = {1, 0, 2, 0, 2, 1, 3, 0, 3, 1, 3, 2};
+      for (int k = 0; k < orig * (orig - 1) && count < sh.max_merge; k++) {
+        const Motion& c0 = cand[l0i[k]];
+        const Motion& c1 = cand[l1i[k]];
+        if (!(c0.pred & 1) || !(c1.pred & 2)) continue;
+        if (list_poc[0][c0.ref[0]] == list_poc[1][c1.ref[1]] && c0.mv[0][0] == c1.mv[1][0] &&
+            c0.mv[0][1] == c1.mv[1][1])
+          continue;
+        Motion m;
+        m.pred = 3;
+        m.ref[0] = c0.ref[0];
+        m.ref[1] = c1.ref[1];
+        for (int k2 = 0; k2 < 2; k2++) {
+          m.mv[0][k2] = c0.mv[0][k2];
+          m.mv[1][k2] = c1.mv[1][k2];
+        }
+        cand_kind[count] = 2;
+        cand[count++] = m;
+      }
+    }
+    int nref = bslice ? std::min(sh.num_ref[0], sh.num_ref[1]) : sh.num_ref[0];
+    for (int zero = 0; count < sh.max_merge; zero++) {
       Motion m;
-      m.pred = 1;
-      m.ref[0] = (int8_t)(zero < sh.num_ref[0] ? zero : 0);
+      m.pred = bslice ? 3 : 1;
+      m.ref[0] = (int8_t)(zero < nref ? zero : 0);
+      if (bslice) m.ref[1] = m.ref[0];
+      cand_kind[count] = 3;
       cand[count++] = m;
-      zero++;
     }
     return count;
   }
   bool tmvp_used = false;
 
-  // 8.5.3.2.6-7: the two AMVP candidates of list 0 for ref_idx
-  void amvp(int xPb, int yPb, int w, int h, int part_idx, int ref_idx, int out[2][2]) {
+  // 8.5.3.2.6-7: the two AMVP candidates of list X for ref_idx. A neighbour
+  // gives its list X's vector, or its other list's, when that names the same
+  // picture; failing that (A, and B when no A block was available) the first
+  // one with a vector in either list, scaled by the POC distances when its
+  // picture is another (FFmpeg's dist_scale; the standard's scaling gives the
+  // same vector for the same picture)
+  void amvp(int xPb, int yPb, int w, int h, int part_idx, int X, int ref_idx, int out[2][2]) {
     int xCb = cu_x, yCb = cu_y, nCb = 1 << cu_log2;
-    int want = list_poc[0][ref_idx];
+    int want = list_poc[X][ref_idx];
     auto av = [&](int x, int y) { return pb_avail(xCb, yCb, nCb, xPb, yPb, w, h, part_idx, x, y); };
-    auto ref_poc_at = [&](int x, int y) { return cur->mv[at4(x, y)].ref_poc[0]; };
+    auto same = [&](int x, int y, int* mv) {
+      const PbMotion& m = cur->mv[at4(x, y)];
+      for (int l : {X, 1 - X})
+        if (((m.pred >> l) & 1) && m.ref_poc[l] == want) {
+          mv[0] = m.mv[l][0];
+          mv[1] = m.mv[l][1];
+          return true;
+        }
+      return false;
+    };
+    auto scaled = [&](int x, int y, int* mv) {
+      const PbMotion& m = cur->mv[at4(x, y)];
+      for (int l : {X, 1 - X})
+        if ((m.pred >> l) & 1) {
+          int rp = m.ref_poc[l];
+          for (int i = 0; i < 2; i++)
+            mv[i] = rp == want ? m.mv[l][i] : scale_mv(m.mv[l][i], poc - rp, poc - want);
+          return true;
+        }
+      return false;
+    };
     int ax[2] = {xPb - 1, xPb - 1}, ay[2] = {yPb + h, yPb + h - 1};
     bool aa[2] = {av(ax[0], ay[0]), av(ax[1], ay[1])};
-    bool scaled = aa[0] || aa[1];
+    bool is_scaled = aa[0] || aa[1];
     bool fa = false, fb = false;
     int mva[2] = {0, 0}, mvb[2] = {0, 0};
-    for (int k = 0; k < 2 && !fa; k++)
-      if (aa[k] && (cur->mv[at4(ax[k], ay[k])].pred & 1) && ref_poc_at(ax[k], ay[k]) == want) {
-        fa = true;
-        mva[0] = cur->mv[at4(ax[k], ay[k])].mv[0][0];
-        mva[1] = cur->mv[at4(ax[k], ay[k])].mv[0][1];
-      }
-    for (int k = 0; k < 2 && !fa; k++)
-      if (aa[k] && (cur->mv[at4(ax[k], ay[k])].pred & 1)) {
-        fa = true;
-        int rp = ref_poc_at(ax[k], ay[k]);
-        for (int i = 0; i < 2; i++) mva[i] = scale_mv(cur->mv[at4(ax[k], ay[k])].mv[0][i], poc - rp, poc - want);
-      }
+    for (int k = 0; k < 2 && !fa; k++) fa = aa[k] && same(ax[k], ay[k], mva);
+    for (int k = 0; k < 2 && !fa; k++) fa = aa[k] && scaled(ax[k], ay[k], mva);
     int bx[3] = {xPb + w, xPb + w - 1, xPb - 1}, by[3] = {yPb - 1, yPb - 1, yPb - 1};
     bool ab[3] = {av(bx[0], by[0]), av(bx[1], by[1]), av(bx[2], by[2])};
-    for (int k = 0; k < 3 && !fb; k++)
-      if (ab[k] && (cur->mv[at4(bx[k], by[k])].pred & 1) && ref_poc_at(bx[k], by[k]) == want) {
-        fb = true;
-        mvb[0] = cur->mv[at4(bx[k], by[k])].mv[0][0];
-        mvb[1] = cur->mv[at4(bx[k], by[k])].mv[0][1];
-      }
-    if (!scaled && fb) {
+    for (int k = 0; k < 3 && !fb; k++) fb = ab[k] && same(bx[k], by[k], mvb);
+    if (!is_scaled && fb) {
       fa = true;
       mva[0] = mvb[0];
       mva[1] = mvb[1];
     }
-    if (!scaled) {
+    if (!is_scaled) {
       fb = false;
-      for (int k = 0; k < 3 && !fb; k++)
-        if (ab[k] && (cur->mv[at4(bx[k], by[k])].pred & 1)) {
-          fb = true;
-          int rp = ref_poc_at(bx[k], by[k]);
-          for (int i = 0; i < 2; i++) mvb[i] = scale_mv(cur->mv[at4(bx[k], by[k])].mv[0][i], poc - rp, poc - want);
-        }
+      for (int k = 0; k < 3 && !fb; k++) fb = ab[k] && scaled(bx[k], by[k], mvb);
     }
     int n = 0;
-    int list[3][2];
-    if (fa) { list[n][0] = mva[0]; list[n][1] = mva[1]; n++; }
-    if (fb && !(fa && mva[0] == mvb[0] && mva[1] == mvb[1])) { list[n][0] = mvb[0]; list[n][1] = mvb[1]; n++; }
+    int cands[3][2];
+    if (fa) { cands[n][0] = mva[0]; cands[n][1] = mva[1]; n++; }
+    if (fb && !(fa && mva[0] == mvb[0] && mva[1] == mvb[1])) { cands[n][0] = mvb[0]; cands[n][1] = mvb[1]; n++; }
     int mv[2];
-    if (n < 2 && temporal_mv(xPb, yPb, w, h, ref_idx, mv)) {
-      list[n][0] = mv[0];
-      list[n][1] = mv[1];
+    if (n < 2 && temporal_mv(xPb, yPb, w, h, X, ref_idx, mv)) {
+      cands[n][0] = mv[0];
+      cands[n][1] = mv[1];
       n++;
       tmvp_used = true;
     }
-    while (n < 2) { list[n][0] = list[n][1] = 0; n++; }
-    for (int i = 0; i < 2; i++) { out[i][0] = list[i][0]; out[i][1] = list[i][1]; }
+    while (n < 2) { cands[n][0] = cands[n][1] = 0; n++; }
+    for (int i = 0; i < 2; i++) { out[i][0] = cands[i][0]; out[i][1] = cands[i][1]; }
   }
 
   int eg_bypass(int k, int v) {  // k-th order Exp-Golomb in bypass bins
@@ -1855,16 +2000,40 @@ struct Hevc {
     return val;
   }
 
+  int ref_idx_syntax(int l, int v) {
+    int cmax = sh.num_ref[l] - 1, ref = 0;
+    if (cmax < 1) return 0;
+    ref = cabac.bin(C_REF_IDX, v > 0);
+    if (ref && cmax > 1) {
+      ref += cabac.bin(C_REF_IDX + 1, v > 1);
+      if (ref == 2 && cmax > 2) ref += tr_bypass(cmax - 2, v - 2);
+    }
+    return ref;
+  }
+  void mvd_syntax(const int* want, int* mvd) {
+    int g0[2], g1[2] = {0, 0};
+    for (int k = 0; k < 2; k++) g0[k] = cabac.bin(C_MVD_G0, want[k] != 0);
+    for (int k = 0; k < 2; k++)
+      if (g0[k]) g1[k] = cabac.bin(C_MVD_G1, std::abs(want[k]) > 1);
+    for (int k = 0; k < 2; k++) {
+      mvd[k] = 0;
+      if (!g0[k]) continue;
+      int a = 1 + g1[k];
+      if (g1[k]) a += eg_bypass(1, std::abs(want[k]) - 2);
+      mvd[k] = cabac.bypass(want[k] < 0) ? -a : a;
+    }
+  }
+
   void prediction_unit(int x, int y, int w, int h, int part_idx, bool skip) {
     PuChoice pc;
     Motion cands[5];
     if (W()) {
       merge_list(x, y, w, h, part_idx, cands);
-      amvp_query = [&](int ref, int flag, int out[2]) {
-        int l[2][2];
-        amvp(x, y, w, h, part_idx, ref, l);
-        out[0] = l[flag][0];
-        out[1] = l[flag][1];
+      amvp_query = [&](int l, int ref, int flag, int out[2]) {
+        int c[2][2];
+        amvp(x, y, w, h, part_idx, l, ref, c);
+        out[0] = c[flag][0];
+        out[1] = c[flag][1];
       };
       ch->pu(x, y, w, h, part_idx, cands, pc);
       amvp_query = nullptr;
@@ -1881,41 +2050,46 @@ struct Hevc {
       }
       merge_list(x, y, w, h, part_idx, cands);
       m = cands[idx];
+      if (cand_kind[idx] == 2) stats[S_COMBINED]++;
+      // 8x4 and 4x8 blocks predict from one list
+      if (m.pred == 3 && w + h == 12) {
+        m.pred = 1;
+        m.ref[1] = -1;
+      }
       if (!skip) stats[S_MERGE]++;
     } else {
       stats[S_AMVP]++;
-      int ref = 0;
-      if (sh.num_ref[0] > 1) {
-        int cmax = sh.num_ref[0] - 1;
-        ref = cabac.bin(C_REF_IDX, pc.ref_idx > 0);
-        if (ref && cmax > 1) {
-          ref += cabac.bin(C_REF_IDX + 1, pc.ref_idx > 1);
-          if (ref == 2 && cmax > 2) ref += tr_bypass(cmax - 2, pc.ref_idx - 2);
+      // inter_pred_idc: the first bin's ctxInc is the coding quadtree depth;
+      // 8x4 and 4x8 blocks code only the second (no bi-prediction)
+      int idc = PRED_L0;
+      if (sh.type == SLICE_B) {
+        if (w + h != 12 && cabac.bin(C_INTER_PRED + cu_depth, pc.idc == PRED_BI)) idc = PRED_BI;
+        else idc = cabac.bin(C_INTER_PRED + 4, pc.idc == PRED_L1) ? PRED_L1 : PRED_L0;
+      }
+      int ref[2] = {-1, -1}, mvd[2][2] = {{0, 0}, {0, 0}}, flag[2] = {0, 0};
+      for (int l = 0; l < 2; l++) {
+        if (idc == (l ? PRED_L0 : PRED_L1)) continue;
+        ref[l] = ref_idx_syntax(l, pc.ref_idx[l]);
+        if (l == 1 && sh.mvd_l1_zero && idc == PRED_BI) stats[S_MVD_L1_ZERO]++;
+        else mvd_syntax(pc.mvd[l], mvd[l]);
+        flag[l] = cabac.bin(C_MVP_FLAG, pc.mvp[l]);
+      }
+      m.pred = idc == PRED_BI ? 3 : idc == PRED_L1 ? 2 : 1;
+      for (int l = 0; l < 2; l++) {
+        if (!((m.pred >> l) & 1)) continue;
+        int c[2][2];
+        amvp(x, y, w, h, part_idx, l, ref[l], c);
+        m.ref[l] = (int8_t)ref[l];
+        for (int k = 0; k < 2; k++) {
+          int u = (c[flag[l]][k] + mvd[l][k] + 65536) & 0xFFFF;
+          m.mv[l][k] = (int16_t)(u >= 32768 ? u - 65536 : u);
         }
-      }
-      int g0[2], g1[2] = {0, 0}, mvd[2];
-      for (int k = 0; k < 2; k++) g0[k] = cabac.bin(C_MVD_G0, pc.mvd[k] != 0);
-      for (int k = 0; k < 2; k++)
-        if (g0[k]) g1[k] = cabac.bin(C_MVD_G1, std::abs(pc.mvd[k]) > 1);
-      for (int k = 0; k < 2; k++) {
-        mvd[k] = 0;
-        if (!g0[k]) continue;
-        int a = 1 + g1[k];
-        if (g1[k]) a += eg_bypass(1, std::abs(pc.mvd[k]) - 2);
-        mvd[k] = cabac.bypass(pc.mvd[k] < 0) ? -a : a;
-      }
-      int flag = cabac.bin(C_MVP_FLAG, pc.mvp);
-      int l[2][2];
-      amvp(x, y, w, h, part_idx, ref, l);
-      m.pred = 1;
-      m.ref[0] = (int8_t)ref;
-      for (int k = 0; k < 2; k++) {
-        int u = (l[flag][k] + mvd[k] + 65536) & 0xFFFF;
-        m.mv[0][k] = (int16_t)(u >= 32768 ? u - 65536 : u);
       }
     }
     if (tmvp_used) stats[S_TMVP_CAND]++;
     if (w + h == 12) stats[S_SMALL_PU]++;
+    if (m.pred == 3) stats[S_BIPRED]++;
+    if (m.pred == 2) stats[S_L1_PU]++;
     PbMotion pm{};
     pm.pred = m.pred;
     for (int l = 0; l < 2; l++) {
@@ -1927,33 +2101,64 @@ struct Hevc {
     fill4(x, y, w, h, [&](int i) { cur->mv[i] = pm; });
     predict_inter(x, y, w, h, m);
   }
-  std::function<void(int, int, int[2])> amvp_query;
+  std::function<void(int, int, int, int[2])> amvp_query;
 
   // 8.5.3.3: fractional sample interpolation and weighted sample prediction
   void predict_inter(int x0, int y0, int w, int h, const Motion& m) {
-    const Picture& ref = *list0[m.ref[0]];
-    int ri = m.ref[0];
-    bool weighted = p->weighted_pred && sh.type == SLICE_P;
-    static thread_local std::vector<int16_t> tmp;
-    tmp.resize((size_t)w * h);
+    uint8_t* dst[3];
+    int stride[3];
+    for (int c = 0; c < 3; c++) {
+      stride[c] = cur->stride(c);
+      dst[c] = cur->plane(c) + (size_t)(c ? y0 / 2 : y0) * stride[c] + (c ? x0 / 2 : x0);
+    }
+    predict_block(x0, y0, w, h, m, dst, stride);
+  }
+  // the prediction of the block at (x0, y0) into dst (luma, cb, cr); the
+  // 14-bit intermediates stay 16-bit, as FFmpeg's do. Default
+  // bi-prediction averages them; explicit weights (weighted_pred_flag in P,
+  // weighted_bipred_flag in B slices) weight each list's, uni or bi (8-252,
+  // 8-264)
+  void predict_block(int x0, int y0, int w, int h, const Motion& m, uint8_t* const dst[3],
+                     const int stride[3]) {
+    bool weighted = sh.type == SLICE_P ? p->weighted_pred : sh.type == SLICE_B && p->weighted_bipred;
+    static thread_local std::vector<int16_t> tmp[2];
+    for (int l = 0; l < 2; l++) tmp[l].resize((size_t)w * h);
     for (int c = 0; c < 3; c++) {
       int bw = c ? w / 2 : w, bh = c ? h / 2 : h, bx = c ? x0 / 2 : x0, by = c ? y0 / 2 : y0;
-      if (c == 0) mc_luma(ref, bx, by, bw, bh, m.mv[0][0], m.mv[0][1], tmp.data());
-      else mc_chroma(ref, c, bx, by, bw, bh, m.mv[0][0], m.mv[0][1], tmp.data());
-      uint8_t* dst = cur->plane(c);
-      int stride = cur->stride(c);
-      if (!weighted) {
+      for (int l = 0; l < 2; l++) {
+        if (!((m.pred >> l) & 1)) continue;
+        const Picture& ref = *list[l][m.ref[l]];
+        if (c == 0) mc_luma(ref, bx, by, bw, bh, m.mv[l][0], m.mv[l][1], tmp[l].data());
+        else mc_chroma(ref, c, bx, by, bw, bh, m.mv[l][0], m.mv[l][1], tmp[l].data());
+      }
+      int denom = c ? sh.chroma_denom : sh.luma_denom, log2wd = denom + 6;
+      auto wt = [&](int l) { return c ? sh.chroma_w[l][m.ref[l]][c - 1] : sh.luma_w[l][m.ref[l]]; };
+      auto of = [&](int l) { return c ? sh.chroma_o[l][m.ref[l]][c - 1] : sh.luma_o[l][m.ref[l]]; };
+      const int16_t* a = tmp[0].data();
+      const int16_t* b = tmp[1].data();
+      uint8_t* out = dst[c];
+      int os = stride[c];
+      if (m.pred == 3 && !weighted) {
         for (int y = 0; y < bh; y++)
           for (int x = 0; x < bw; x++)
-            dst[(size_t)(by + y) * stride + bx + x] = clip8((tmp[y * bw + x] + 32) >> 6);
+            out[y * os + x] = clip8((a[y * bw + x] + b[y * bw + x] + 64) >> 7);
+      } else if (m.pred == 3) {
+        int w0 = wt(0), w1 = wt(1), o = (of(0) + of(1) + 1) << log2wd;
+        for (int y = 0; y < bh; y++)
+          for (int x = 0; x < bw; x++)
+            out[y * os + x] = clip8((a[y * bw + x] * w0 + b[y * bw + x] * w1 + o) >> (log2wd + 1));
       } else {
-        int wt = c ? sh.chroma_w[ri][c - 1] : sh.luma_w[ri];
-        int of = c ? sh.chroma_o[ri][c - 1] : sh.luma_o[ri];
-        int log2wd = (c ? sh.chroma_denom : sh.luma_denom) + 6;
-        for (int y = 0; y < bh; y++)
-          for (int x = 0; x < bw; x++)
-            dst[(size_t)(by + y) * stride + bx + x] =
-                clip8(((tmp[y * bw + x] * wt + (1 << (log2wd - 1))) >> log2wd) + of);
+        int l = m.pred == 2 ? 1 : 0;
+        const int16_t* t = l ? b : a;
+        if (!weighted) {
+          for (int y = 0; y < bh; y++)
+            for (int x = 0; x < bw; x++) out[y * os + x] = clip8((t[y * bw + x] + 32) >> 6);
+        } else {
+          int w0 = wt(l), o = of(l);
+          for (int y = 0; y < bh; y++)
+            for (int x = 0; x < bw; x++)
+              out[y * os + x] = clip8(((t[y * bw + x] * w0 + (1 << (log2wd - 1))) >> log2wd) + o);
+        }
       }
     }
   }
@@ -2438,12 +2643,31 @@ struct Hevc {
   int bs_of(int q, int p, bool tu_edge) const {
     if ((cuflags[q] | cuflags[p]) & F_INTRA) return 2;
     if (tu_edge && (cbf4[q] || cbf4[p])) return 1;
-    const PbMotion& a = cur->mv[p];
-    const PbMotion& b = cur->mv[q];
-    // P slices: one motion vector each
-    if (a.ref_poc[0] != b.ref_poc[0]) return 1;
-    if (std::abs(a.mv[0][0] - b.mv[0][0]) >= 4 || std::abs(a.mv[0][1] - b.mv[0][1]) >= 4) return 1;
-    return 0;
+    return motion_bs(cur->mv[q], cur->mv[p]);
+  }
+  // 8.7.2.4 on the motion of q0's and p0's blocks, the reference pictures
+  // compared by POC, as FFmpeg's boundary_strength compares them: two
+  // bi-predicted blocks with the same two pictures (in either list order, or
+  // the same picture twice) filter when their vectors differ by 4 quarter
+  // samples or more in each pairing; one vector each, when the pictures
+  // differ or the vectors do; a bi- and a uni-predicted block always
+  static int motion_bs(const PbMotion& c, const PbMotion& n) {
+    auto far = [](const int16_t* a, const int16_t* b) {
+      return std::abs(a[0] - b[0]) >= 4 || std::abs(a[1] - b[1]) >= 4;
+    };
+    if (c.pred == 3 && n.pred == 3) {
+      int c0 = c.ref_poc[0], c1 = c.ref_poc[1], n0 = n.ref_poc[0], n1 = n.ref_poc[1];
+      if (c0 == n0 && c0 == c1 && n0 == n1)
+        return (far(n.mv[0], c.mv[0]) || far(n.mv[1], c.mv[1])) &&
+               (far(n.mv[1], c.mv[0]) || far(n.mv[0], c.mv[1]));
+      if (n0 == c0 && n1 == c1) return far(n.mv[0], c.mv[0]) || far(n.mv[1], c.mv[1]);
+      if (n1 == c0 && n0 == c1) return far(n.mv[1], c.mv[0]) || far(n.mv[0], c.mv[1]);
+      return 1;
+    }
+    if (c.pred == 3 || n.pred == 3) return 1;
+    int lc = c.pred & 1 ? 0 : 1, ln = n.pred & 1 ? 0 : 1;
+    if (c.ref_poc[lc] != n.ref_poc[ln]) return 1;
+    return far(c.mv[lc], n.mv[ln]);
   }
   void bs_block(int x0, int y0, int log2) {
     int n = 1 << log2, ctb = (y0 >> s->ctb_log2) * s->wctb + (x0 >> s->ctb_log2);

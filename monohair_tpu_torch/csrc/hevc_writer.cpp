@@ -11,19 +11,23 @@
 // Two modes:
 // - random: syntax drawn from a seed, every decoded picture of it legal: the
 //   coding quadtree down to 8x8, each part_mode (AMP too), skip, merge and
-//   AMVP with every candidate kind, each intra mode and chroma mode, PCM,
-//   the residual quadtree, coefficients (with escapes), transform skip,
-//   sign data hiding, cu_qp_delta, transquant bypass, SAO parameters and
-//   merges; per picture IDR, CRA or trailing NAL unit types, POCs out of
+//   AMVP with every candidate kind, list 0, list 1 or bi-prediction in B
+//   slices, each intra mode and chroma mode, PCM, the residual quadtree,
+//   coefficients (with escapes), transform skip, sign data hiding,
+//   cu_qp_delta, transquant bypass, SAO parameters and merges; per picture
+//   IDR, CRA, trailing and RASL/RADL leading NAL unit types, POCs out of
 //   decode order in groups, the RPS (from the SPS, explicit or inter
-//   predicted), pic_output_flag; per slice its type, reference list length
-//   and modification, TMVP, weights, merge candidates, QP and chroma offsets,
-//   deblocking override and offsets, SAO flags, filtering across slices.
-// - frames: BGR frames in, an I/P stream of them out at a fixed QP: 16x16
-//   coding units under CTBs of 16, 32 or 64 (the size given), intra 2Nx2N
-//   (the best of planar, DC, horizontal and vertical), or in P pictures
-//   skip/merge from the best merge candidate or AMVP from a small integer
-//   search, each with a quantised residual.
+//   predicted), pic_output_flag; per slice its type, the lengths and
+//   modification of both reference lists, mvd_l1_zero_flag, TMVP and its
+//   collocated list, weights of both lists, merge candidates, QP and chroma
+//   offsets, deblocking override and offsets, SAO flags, filtering across
+//   slices.
+// - frames: BGR frames in, an I/P or I/P/B stream of them out at a fixed
+//   QP: 16x16 coding units under CTBs of 16, 32 or 64 (the size given),
+//   intra 2Nx2N (the best of planar, DC, horizontal and vertical), or in P
+//   and B pictures skip/merge from the best merge candidate or AMVP from a
+//   small integer search in each list (in B pictures list 0, list 1 or the
+//   average of both), each with a quantised residual.
 // The MP4 (ftyp "isom" or "qt  ", mdat, moov with an hvc1 or hev1 sample
 // entry and its hvcC) can carry a rotation in tkhd's matrix and the
 // composition offsets of reordered pictures. The NAL units carry 4-byte
@@ -31,6 +35,8 @@
 // io/hevc_streams.py).
 
 #include <cmath>
+#include <deque>
+#include <iterator>
 
 #include "hevc.h"
 
@@ -74,7 +80,7 @@ struct RandomChooser : Chooser {
   void cu(int, int, int log2, CuChoice& ch) override {
     const SPS& s = *c.s;
     ch.bypass = rng.chance(p_bypass);
-    bool inter_ok = c.sh.type == SLICE_P;
+    bool inter_ok = c.sh.type != SLICE_I;
     ch.skip = inter_ok && rng.chance(p_skip);
     ch.intra = !inter_ok || rng.chance(p_intra);
     if (ch.intra) {
@@ -170,19 +176,36 @@ struct FramesChooser : Chooser {
   // forward transform and quantisation of src - pred into levels; true if any
   bool quantise(int comp, int x0, int y0, int log2, const uint8_t* pred, int pstride, bool intra,
                 int16_t* out);
-  void predict_motion(int x0, int y0, int n, int mvx, int mvy, int ref, uint8_t* pred[3]);
+  // the prediction of an n x n block with motion m (the decoding process's)
+  void predict_motion(int x0, int y0, int n, const Motion& m, uint8_t* pred[3]) {
+    int stride[3] = {n, n / 2, n / 2};
+    c.predict_block(x0, y0, n, n, m, pred, stride);
+  }
+  // an integer diamond search of list l's first picture from zero and from
+  // start; the vector and its luma SAD
+  int search(int x0, int y0, int n, int l, const int* start, int* mv) const;
 };
 
 // ------------------------------------------------------------ writer --
+// A picture the GOP structure asks for next: its POC, NAL unit type, display
+// index, the leading pictures that follow an IRAP picture and, in frames
+// mode, its frame and slice type
+struct Job {
+  int poc = 0, type = TRAIL_R, display = 0, lead = 0;
+  int slice = -1;  // SLICE_I, SLICE_P or SLICE_B (frames mode); -1: drawn
+  std::vector<uint8_t> bgr;
+};
+
+// what a picture that later pictures may name in their RPS is to them
+enum PicKind { K_TRAIL, K_RASL, K_RADL, K_BEFORE_IRAP, K_GENERATED };
 struct PicInfo {
-  int poc;
-  bool ref;
-  int decode;
+  int poc, kind;
 };
 
 struct Writer {
   Options o;
   Rng rng{0};
+  Rng rng_pps{0};  // the PPS's B-slice fields, drawn apart (streams without B slices stay as they were)
   Hevc codec;
   FILE* f = nullptr;
   std::string path;
@@ -199,13 +222,22 @@ struct Writer {
   std::string refuse;
   bool ended = false;
   int qp = 24;
-  // the GOP structure: groups of up to `group` pictures whose last (by POC)
-  // is coded first; an IRAP picture every `gop` pictures (0: only the first)
-  int group = 1, gop = 0, max_refs = 2;
-  std::vector<int> pending;  // POCs of the current group still to code
-  int decoded = 0, since_irap = 0, irap_poc = 0, last_poc = 0, display_base = 0;
-  std::vector<PicInfo> pics;  // reference pictures since the last IRAP (and it), decode order
-  std::vector<int> foll;      // POCs before a CRA that its RPS keeps unused
+  // random mode: groups of up to `group` pictures whose last (by POC) is
+  // coded first; an IRAP picture every `gop` pictures (0: only the first),
+  // followed by up to `leading` leading pictures (RASL after a CRA, RADL
+  // after an IDR_W_RADL)
+  int group = 1, gop = 0, max_refs = 2, leading = 0;
+  // frames mode: `bframes` B pictures between anchors, coded after the
+  // anchor that follows them (with `pyramid` the middle one first, as a
+  // reference); every `gop` frames the anchor is a CRA whose B pictures are
+  // RASL (cra=1, an open GOP) or an IDR_W_RADL whose B pictures are RADL
+  int bframes = 0, pyramid = 0;
+  std::deque<Job> pending;  // the pictures of the current group still to code
+  std::vector<Job> waiting;  // frames mode: frames in display order, not coded yet
+  int frames_in = 0, irap_display = 0, idr_display = 0;
+  int decoded = 0, since_irap = 0, last_poc = 0, display_base = 0, last_poc_max = 0;
+  std::vector<PicInfo> pics;  // the pictures later ones may reference, decode order
+  RaslRule ffmpeg_rasl;       // the RASL pictures FFmpeg skips: nothing may reference them
   Picture src;
 
   ~Writer() {
@@ -224,13 +256,19 @@ struct Writer {
     fps_den = den;
     random_mode = o.gets("mode", "random") == "random";
     rng = Rng((uint64_t)o.get("seed", 0));
+    rng_pps = Rng((uint64_t)o.get("seed", 0) ^ 0x5bd1e995u);
     refuse = o.gets("refuse", "");
     qp = o.get("qp", 24);
     group = random_mode ? o.get("group", 1) : 1;
     gop = o.get("gop", 0);
     max_refs = std::max(1, o.get("refs", 2));
+    leading = random_mode ? o.get("leading", 0) : 0;
+    bframes = random_mode ? 0 : o.get("bframes", 0);
+    pyramid = o.get("pyramid", 0);
     if (group < 1 || group > 8) fail("group must be within 1..8");
     if (max_refs > 6) fail("refs must be within 1..6");
+    if (leading < 0 || leading > 6) fail("leading must be within 0..6");
+    if (bframes < 0 || bframes > 4) fail("bframes must be within 0..4");
     build_params();
     f = fopen(p, "wb");
     if (!f) fail(std::string("cannot create ") + p);
@@ -320,11 +358,14 @@ struct Writer {
     s.chroma_format_idc = refuse == "chroma422" ? 2 : 1;
     s.bit_depth = s.bit_depth_c = refuse == "bit_depth10" ? 10 : 8;
     s.log2_max_poc_lsb = pick("poc_bits", 4, 8, 8);
-    int reorder = group - 1;
+    // pictures that may precede another in decode order and follow it in
+    // output order: a group's, or an IRAP's leading pictures; two with a B
+    // pyramid (the anchor and the middle B before the other B pictures)
+    int reorder = random_mode ? std::max(group - 1, leading) : !bframes ? 0 : pyramid && bframes > 1 ? 2 : 1;
     s.max_sub_layers_minus1 = 0;
     s.ordering_info = rng.chance(0.5);
     s.max_reorder[0] = reorder + (random_mode && rng.chance(0.3) ? 1 : 0);
-    s.max_dec_minus1[0] = std::min(15, max_refs + reorder + (random_mode ? rng.range(0, 2) : 0));
+    s.max_dec_minus1[0] = std::min(15, max_refs + reorder + (random_mode ? rng.range(0, 2) : bframes ? 1 : 0));
     s.max_dec_minus1[0] = std::max(s.max_dec_minus1[0], s.max_reorder[0]);
     s.max_latency_plus1[0] = random_mode ? rng.range(0, 3) : 0;
     s.scaling_enabled = chance("scaling", 0.3, 0);
@@ -398,7 +439,8 @@ struct Writer {
       p.sign_hiding = chance("sign_hiding", 0.5, 0);
       p.cabac_init_present = chance("cabac_init", 0.5, 0);
       p.num_ref_default[0] = random_mode ? rng.range(1, 3) : 1;
-      p.num_ref_default[1] = 1;
+      bool bslices = o.getf("bslices", 0) > 0;
+      p.num_ref_default[1] = random_mode && bslices ? rng_pps.range(1, 3) : 1;
       p.init_qp = random_mode ? rng.range(18, 40) : qp;
       p.constrained_intra = s.log2_min_cb == 3 && chance("constrained_intra", 0.25, 0);
       p.transform_skip = chance("transform_skip", 0.5, 0);
@@ -408,6 +450,8 @@ struct Writer {
       p.cr_qp_offset = chance("chroma_offsets", 0.4, 0) ? rng.range(-12, 12) : 0;
       p.slice_chroma_offsets = chance("chroma_offsets", 0.4, 0);
       p.weighted_pred = chance("weighted", 0.3, 0);
+      p.weighted_bipred = o.kv.count("weighted_bipred") ? o.get("weighted_bipred", 0) != 0
+                                                        : random_mode && bslices && rng_pps.chance(0.3);
       p.transquant_bypass = chance("bypass", 0.3, 0);
       p.tiles = refuse == "tiles";
       p.wpp = refuse == "wpp";
@@ -473,59 +517,149 @@ struct Writer {
 
   void write(const uint8_t* bgr) {
     if (ended) return;
-    if (!random_mode) {
-      if (!bgr) fail("frames mode needs frames");
-      load_source(bgr);
-    }
-    code_picture();
-  }
-
-  // the next picture's POC and NAL unit type, by the GOP structure
-  void next_poc(int& poc, int& type) {
-    bool irap = decoded == 0 || (gop && since_irap >= gop && pending.empty());
-    if (irap) {
-      bool cra = decoded > 0 && (o.get("cra", 0) == 1 || (o.get("cra", 0) == 2 && rng.chance(0.5)));
-      bool cra_first = decoded == 0 && o.get("cra", 0) == 3;
-      if (cra || cra_first) {
-        type = CRA;
-        poc = decoded ? last_poc + 1 : rng.range(0, 4);
-      } else {
-        type = o.get("idr_n_lp", 0) && rng.chance(0.5) ? IDR_N_LP : IDR_W_RADL;
-        poc = 0;
-      }
-      since_irap = 0;
+    if (random_mode) {
+      code_picture(next_job());
       return;
     }
-    if (pending.empty()) {
-      int g = rng.range(1, group);
-      int base = last_poc;
-      pending.push_back(base + g);  // the anchor first
-      std::vector<int> rest;
-      for (int k = 1; k < g; k++) rest.push_back(base + k);
-      for (size_t i = rest.size(); i > 1; i--) std::swap(rest[i - 1], rest[rng.range(0, (int)i - 1)]);
-      pending.insert(pending.end(), rest.begin(), rest.end());
-    }
-    poc = pending.front();
-    pending.erase(pending.begin());
-    type = TRAIL_R;
-    if (!random_mode) return;
-    if (rng.chance(o.getf("nonref", 0.2))) type = TRAIL_N;
+    if (!bgr) fail("frames mode needs frames");
+    Job j;
+    j.display = frames_in++;
+    j.bgr.assign(bgr, bgr + (size_t)width * height * 3);
+    waiting.push_back(std::move(j));
+    schedule(false);
   }
 
-  void code_picture() {
-    int poc, type;
-    next_poc(poc, type);
+  // random mode: the next picture's POC and NAL unit type, by the GOP structure
+  Job next_job() {
+    Job j;
+    // no IDR while the references generated for a CRA that starts the stream
+    // are held (the decoder refuses it: FFmpeg keeps them past the IDR)
+    bool generated = std::any_of(pics.begin(), pics.end(),
+                                 [](const PicInfo& pi) { return pi.kind == K_GENERATED; });
+    bool irap = decoded == 0 || (gop && since_irap >= gop && pending.empty() && !generated) ||
+                (refuse == "idr_over_generated" && generated && pending.empty());
+    if (!irap) {
+      if (pending.empty()) {
+        int g = rng.range(1, group);
+        int base = last_poc;
+        Job a;
+        a.poc = base + g;  // the anchor first
+        pending.push_back(a);
+        std::vector<int> rest;
+        for (int k = 1; k < g; k++) rest.push_back(base + k);
+        for (size_t i = rest.size(); i > 1; i--) std::swap(rest[i - 1], rest[rng.range(0, (int)i - 1)]);
+        for (int r : rest) {
+          Job b;
+          b.poc = r;
+          pending.push_back(b);
+        }
+      }
+      j = pending.front();
+      pending.pop_front();
+      if (rng.chance(o.getf("nonref", 0.2))) j.type--;  // TRAIL_N, RASL_N, RADL_N
+      return j;
+    }
+    int cra_opt = o.get("cra", 0);
+    bool cra = decoded > 0 ? cra_opt == 1 || ((cra_opt == 2 || cra_opt == 4) && rng.chance(0.5))
+                           : cra_opt >= 3;
+    j.type = cra ? CRA : o.get("idr_n_lp", 0) && rng.chance(0.5) ? IDR_N_LP : IDR_W_RADL;
+    j.lead = leading && j.type != IDR_N_LP ? rng.range(0, leading) : 0;
+    if (refuse == "idr_over_generated" && !decoded) j.lead = std::max(j.lead, 1);
+    // the leading pictures: a CRA's RASL pictures between the pictures before
+    // it and it; an IDR's RADL pictures before POC 0
+    int first_lead;
+    if (cra) {
+      first_lead = decoded ? last_poc + 1 : rng.range(0, 4);
+      j.poc = first_lead + j.lead;
+      // a CRA that starts the stream: its RASL pictures name pictures before
+      // it that the stream does not hold (the decoder generates them)
+      if (!decoded && j.lead)
+        for (int k = 1; k <= rng.range(1, 2); k++) pics.push_back({first_lead - k, K_GENERATED});
+    } else {
+      j.poc = 0;
+      first_lead = -j.lead;
+    }
+    std::vector<int> lead;
+    for (int k = 0; k < j.lead; k++) lead.push_back(first_lead + k);
+    for (size_t i = lead.size(); i > 1; i--) std::swap(lead[i - 1], lead[rng.range(0, (int)i - 1)]);
+    for (int q : lead) {
+      Job b;
+      b.poc = q;
+      b.type = cra ? RASL_R : RADL_R;
+      pending.push_back(b);
+    }
+    since_irap = 0;
+    return j;
+  }
+
+  // frames mode: code the groups the frames so far complete (all at the end)
+  void schedule(bool final) {
+    while (!waiting.empty() && !ended) {
+      if (decoded == 0) {
+        Job j = std::move(waiting.front());
+        waiting.erase(waiting.begin());
+        j.type = IDR_W_RADL;
+        j.slice = SLICE_I;
+        irap_display = idr_display = j.display;
+        code_picture(j);
+        continue;
+      }
+      int n = std::min((int)waiting.size(), bframes + 1);
+      if (n < bframes + 1 && !final) return;
+      std::vector<Job> group_jobs(std::make_move_iterator(waiting.begin()),
+                                  std::make_move_iterator(waiting.begin() + n));
+      waiting.erase(waiting.begin(), waiting.begin() + n);
+      Job& anchor = group_jobs.back();
+      bool irap = gop && anchor.display - irap_display >= gop;
+      bool open = irap && o.get("cra", 0);
+      if (irap) irap_display = anchor.display;
+      if (irap && !open) idr_display = anchor.display;
+      anchor.type = !irap ? TRAIL_R : open ? CRA : IDR_W_RADL;
+      anchor.slice = irap ? SLICE_I : SLICE_P;
+      anchor.poc = anchor.display - idr_display;
+      anchor.lead = irap ? n - 1 : 0;
+      code_picture(anchor);
+      int nb = n - 1, mid = pyramid && nb >= 2 ? (nb - 1) / 2 : -1;
+      std::vector<int> order;
+      if (mid >= 0) order.push_back(mid);
+      for (int k = 0; k < nb; k++)
+        if (k != mid) order.push_back(k);
+      for (int k : order) {
+        Job& b = group_jobs[k];
+        b.poc = b.display - idr_display;
+        b.slice = SLICE_B;
+        int r = k == mid ? 1 : 0;  // the _R (reference) type, or the _N one
+        b.type = (!irap ? TRAIL_N : open ? RASL_N : RADL_N) + r;
+        code_picture(b);
+      }
+    }
+  }
+
+  void code_picture(const Job& j) {
+    int poc = j.poc, type = j.type;
+    if (!random_mode) load_source(j.bgr.data());
     bool irap = is_irap(type);
-    // the RPS: the most recent references of this IRAP period
+    bool rasl = type == RASL_N || type == RASL_R, radl = type == RADL_N || type == RADL_R;
+    // what this picture may name in its RPS: a trailing picture nothing
+    // before its IRAP picture in decode or output order, a RADL picture
+    // its IRAP and RADL pictures, a RASL picture no RADL picture
+    auto allowed = [&](int kind) {
+      if (rasl) return kind != K_RADL;
+      if (radl) return kind == K_TRAIL || kind == K_RADL;
+      return kind == K_TRAIL;
+    };
+    // the RPS: the most recent references it may name
     StRps rps;
     std::vector<int> keep;
     if (!is_idr(type)) {
       if (type == CRA) {  // earlier pictures stay as unused references (for RASL pictures)
         for (const PicInfo& pi : pics)
-          if (rng.chance(0.5)) keep.push_back(pi.poc);
+          if (pi.kind == K_GENERATED ? !decoded : !random_mode || rng.chance(0.5))
+            keep.push_back(pi.poc);
       } else {
         for (int i = (int)pics.size() - 1; i >= 0 && (int)keep.size() < max_refs; i--)
-          if (!(random_mode && rng.chance(0.1) && keep.size())) keep.push_back(pics[i].poc);
+          if (allowed(pics[i].kind) && !(random_mode && rng.chance(0.1) && keep.size()))
+            keep.push_back(pics[i].poc);
       }
     }
     std::vector<int> neg, pos;
@@ -581,11 +715,20 @@ struct Writer {
       }
     }
     base.tmvp = s.temporal_mvp && inter_pic && (random_mode ? rng.chance(0.7) : 1);
-    int col_poc = 0;
-    std::vector<int> curr;  // StCurrBefore then StCurrAfter
+    // the used references in RefPicList0's order (StCurrBefore, StCurrAfter)
+    // and in RefPicList1's (StCurrAfter, StCurrBefore)
+    std::vector<int> curr[2];
     for (int i = 0; i < rps.num(); i++)
-      if (rps.used[i]) curr.push_back(poc + rps.delta[i]);
-    if (base.tmvp) col_poc = curr[rng.range(0, (int)curr.size() - 1)];
+      if (rps.used[i]) curr[0].push_back(poc + rps.delta[i]);
+    for (int pass = 0; pass < 2; pass++)
+      for (int q : curr[0])
+        if ((q > poc) == (pass == 0)) curr[1].push_back(q);
+    // the collocated picture, the same in every slice of the picture: in
+    // frames mode list 0's first in P pictures and list 1's in B pictures
+    int col_poc = 0;
+    if (base.tmvp)
+      col_poc = random_mode ? curr[0][rng.range(0, (int)curr[0].size() - 1)]
+                            : curr[j.slice == SLICE_B ? 1 : 0][0];
 
     // slices: CTB addresses where they start
     int nctb = s.wctb * s.hctb;
@@ -610,10 +753,10 @@ struct Writer {
       append(sps_nal);
       for (const auto& pn : pps_nals) append(pn);
     }
-    if (refuse == "leading" && decoded == 2) base.nal_type = type = 8;  // RASL_N
+    bool refused_type = (refuse == "bla" || refuse == "tsa_stsa") && decoded == 2;
+    if (refused_type) base.nal_type = type = refuse == "bla" ? BLA_W_LP : TSA_N;
     std::unique_ptr<Chooser> chooser;
     RandomChooser* rc = nullptr;
-    FramesChooser* fc = nullptr;
     if (random_mode) {
       rc = new RandomChooser(codec, rng);
       chooser.reset(rc);
@@ -621,58 +764,22 @@ struct Writer {
       rc->p_pcm = o.getf("pcm_share", 0.08);
       for (size_t i = 1; i < starts.size(); i++) rc->slice_ends.push_back(starts[i] - 1);
     } else {
-      fc = new FramesChooser(codec, src);
-      chooser.reset(fc);
+      chooser.reset(new FramesChooser(codec, src));
     }
     codec.ch = chooser.get();
+    double bshare = o.getf("bslices", 0);
     for (size_t si = 0; si < starts.size(); si++) {
       SliceHeader h = base;
       h.first = si == 0;
       h.address = starts[si];
-      h.type = inter_pic && (!random_mode || rng.chance(0.85)) ? SLICE_P : SLICE_I;
       if (!inter_pic) h.type = SLICE_I;
-      if (refuse == "b_slice" && decoded == 1) h.type = SLICE_B;
+      else if (!random_mode) h.type = j.slice;
+      else if (!rng.chance(0.85)) h.type = SLICE_I;
+      else h.type = bshare > 0 && rng.chance(bshare) ? SLICE_B : SLICE_P;
       if (refuse == "dependent_slice" && si == 1) h.dependent = 1;
       h.sao_luma = s.sao && (!random_mode || rng.chance(0.8));
       h.sao_chroma = s.sao && (!random_mode || rng.chance(0.7));
-      if (h.type == SLICE_P) {
-        int total = (int)curr.size();
-        h.num_ref_override = random_mode ? rng.chance(0.6) : 1;
-        h.num_ref[0] = h.num_ref_override ? (random_mode ? rng.range(1, std::min(15, total + 1)) : 1)
-                                          : pp.num_ref_default[0];
-        h.mod_flag[0] = pp.lists_modification && total > 1 && rng.chance(o.getf("mod_share", 0.6));
-        if (h.mod_flag[0])
-          for (int i = 0; i < h.num_ref[0]; i++) h.list_entry[0][i] = rng.range(0, total - 1);
-        // the list as the decoder builds it, so the collocated picture is in it
-        auto entry_poc = [&](int i) {
-          int k = h.mod_flag[0] ? h.list_entry[0][i] : i;
-          return curr[k % total];
-        };
-        if (h.tmvp) {
-          int at = -1;
-          for (int i = 0; i < h.num_ref[0] && at < 0; i++)
-            if (entry_poc(i) == col_poc) at = i;
-          if (at < 0) {
-            int k = (int)(std::find(curr.begin(), curr.end(), col_poc) - curr.begin());
-            if (pp.lists_modification && total > 1) {
-              if (!h.mod_flag[0]) {
-                h.mod_flag[0] = 1;
-                for (int i = 0; i < h.num_ref[0]; i++) h.list_entry[0][i] = i % total;
-              }
-              at = rng.range(0, h.num_ref[0] - 1);
-              h.list_entry[0][at] = k;
-            } else {
-              h.num_ref_override = 1;
-              h.num_ref[0] = std::max(h.num_ref[0], k + 1);
-              at = k;
-            }
-          }
-          h.col_ref_idx = at;
-        }
-        h.cabac_init = pp.cabac_init_present && rng.chance(0.5);
-        h.max_merge = random_mode ? rng.range(1, 5) : 5;
-        if (pp.weighted_pred) random_weights(h);
-      }
+      if (h.type != SLICE_I) inter_slice(h, pp, curr, col_poc);
       h.qp_delta = random_mode ? rng.range(-6, 6) : qp - pp.init_qp;
       if (pp.init_qp + h.qp_delta < 0 || pp.init_qp + h.qp_delta > 51) h.qp_delta = 0;
       if (pp.slice_chroma_offsets) {
@@ -693,10 +800,9 @@ struct Writer {
       const SPS* sp;
       const PPS* ppp;
       slice_header_syntax(b, h, codec.sps, codec.pps, sp, ppp);
-      bool stop = refuse == "b_slice" && h.type == SLICE_B;
+      bool stop = refused_type;
       stop |= refuse == "dependent_slice" && h.dependent;
       stop |= refuse == "missing_ref" && decoded == 1;
-      stop |= refuse == "leading" && type == 8;
       if (!stop) {
         codec.set_slice(h, sp, ppp);
         if (h.first) {
@@ -721,39 +827,94 @@ struct Writer {
     if (fwrite(sample.data(), 1, sample.size(), f) != sample.size()) fail("write failed");
     sizes.push_back((uint32_t)sample.size());
     if (irap) sync.push_back((uint32_t)sizes.size());
-    if (is_idr(type)) {
-      display_base = decoded ? display_base + last_poc_max + 1 : 0;
-      last_poc_max = 0;
+    if (random_mode) {
+      if (is_idr(type)) {  // an IDR's RADL pictures come before it
+        display_base = (decoded ? display_base + last_poc_max + 1 : 0) + j.lead;
+        last_poc_max = 0;
+      }
+      last_poc_max = std::max(last_poc_max, poc);
+      sample_display.push_back(display_base + poc);
+    } else {
+      sample_display.push_back(j.display);
     }
-    last_poc_max = std::max(last_poc_max, poc);
-    sample_display.push_back(display_base + poc);
-    if (irap) pics.clear();  // trailing pictures reference nothing before an IRAP
-    // the references that later pictures may keep: those in this RPS, and this picture
+    // the references that later pictures may keep: those in this RPS, and
+    // this picture unless it is a sub-layer non-reference picture or a RASL
+    // picture FFmpeg skips; what an IRAP picture keeps is before it
+    bool skipped = ffmpeg_rasl.skip(type);
     std::vector<PicInfo> next;
     for (const PicInfo& pi : pics)
-      if (std::find(keep.begin(), keep.end(), pi.poc) != keep.end()) next.push_back(pi);
+      if (std::find(keep.begin(), keep.end(), pi.poc) != keep.end())
+        next.push_back({pi.poc, irap && pi.kind != K_GENERATED ? K_BEFORE_IRAP : pi.kind});
     pics = next;
-    if (type != TRAIL_N) pics.push_back({poc, true, decoded});
+    if ((irap || (type & 1)) && !skipped)
+      pics.push_back({poc, rasl ? K_RASL : radl ? K_RADL : K_TRAIL});
     if (poc > last_poc) last_poc = poc;
     if (is_idr(type)) last_poc = 0;
     decoded++;
     since_irap++;
   }
-  int last_poc_max = 0;
+
+  // the reference lists, TMVP and weights of a P or B slice, the collocated
+  // picture col_poc placed in the list the slice takes it from
+  void inter_slice(SliceHeader& h, const PPS& pp, const std::vector<int>* curr, int col_poc) {
+    int total = (int)curr[0].size(), lists = h.type == SLICE_B ? 2 : 1;
+    h.num_ref_override = random_mode ? rng.chance(0.6) : 1;
+    for (int l = 0; l < lists; l++) {
+      h.num_ref[l] = h.num_ref_override ? (random_mode ? rng.range(1, std::min(15, total + 1)) : 1)
+                                        : pp.num_ref_default[l];
+      h.mod_flag[l] = pp.lists_modification && total > 1 && rng.chance(o.getf("mod_share", 0.6));
+      if (h.mod_flag[l])
+        for (int i = 0; i < h.num_ref[l]; i++) h.list_entry[l][i] = rng.range(0, total - 1);
+    }
+    h.mvd_l1_zero = h.type == SLICE_B && random_mode && rng.chance(o.getf("mvd_l1_zero", 0.3));
+    if (h.tmvp) {
+      h.col_from_l0 = h.type != SLICE_B || (random_mode && !rng.chance(o.getf("col_l1", 0.5)));
+      int X = h.col_from_l0 ? 0 : 1;
+      // the list as the decoder builds it, so the collocated picture is in it
+      auto entry_poc = [&](int i) {
+        int k = h.mod_flag[X] ? h.list_entry[X][i] : i;
+        return curr[X][k % total];
+      };
+      int at = -1;
+      for (int i = 0; i < h.num_ref[X] && at < 0; i++)
+        if (entry_poc(i) == col_poc) at = i;
+      if (at < 0) {
+        int k = (int)(std::find(curr[X].begin(), curr[X].end(), col_poc) - curr[X].begin());
+        if (pp.lists_modification && total > 1) {
+          if (!h.mod_flag[X]) {
+            h.mod_flag[X] = 1;
+            for (int i = 0; i < h.num_ref[X]; i++) h.list_entry[X][i] = i % total;
+          }
+          at = rng.range(0, h.num_ref[X] - 1);
+          h.list_entry[X][at] = k;
+        } else {
+          h.num_ref_override = 1;
+          h.num_ref[X] = std::max(h.num_ref[X], k + 1);
+          at = k;
+        }
+      }
+      h.col_ref_idx = at;
+    }
+    h.cabac_init = pp.cabac_init_present && rng.chance(0.5);
+    h.max_merge = random_mode ? rng.range(1, 5) : 5;
+    if ((h.type == SLICE_P && pp.weighted_pred) || (h.type == SLICE_B && pp.weighted_bipred))
+      random_weights(h);
+  }
 
   void random_weights(SliceHeader& h) {
     h.luma_denom = rng.range(0, 7);
     h.chroma_denom = rng.range(0, 7);
-    for (int i = 0; i < h.num_ref[0]; i++) {
-      h.lw_flag[i] = rng.chance(0.6);
-      h.cw_flag[i] = rng.chance(0.6);
-      h.dlw[i] = rng.range(-30, 30);
-      h.lo[i] = rng.range(-40, 40);
-      for (int j = 0; j < 2; j++) {
-        h.dcw[i][j] = rng.range(-30, 30);
-        h.dco[i][j] = rng.range(-200, 200);
+    for (int l = 0; l < (h.type == SLICE_B ? 2 : 1); l++)
+      for (int i = 0; i < h.num_ref[l]; i++) {
+        h.lw_flag[l][i] = rng.chance(0.6);
+        h.cw_flag[l][i] = rng.chance(0.6);
+        h.dlw[l][i] = rng.range(-30, 30);
+        h.lo[l][i] = rng.range(-40, 40);
+        for (int k = 0; k < 2; k++) {
+          h.dcw[l][i][k] = rng.range(-30, 30);
+          h.dco[l][i][k] = rng.range(-200, 200);
+        }
       }
-    }
   }
 
   // ------------------------------------------------ frames mode source --
@@ -785,6 +946,7 @@ struct Writer {
 
   void release() {
     if (!f) return;
+    if (!random_mode) schedule(true);
     std::vector<uint8_t> hvcc;
     bool hev1 = o.get("hev1", 0);
     hvcc.push_back(1);                                   // configurationVersion
@@ -856,8 +1018,10 @@ struct Writer {
   }
 };
 
-// a random prediction unit: a merge candidate whose vector stays near the
-// picture, or a vector drawn near the picture coded against a predictor
+// a random prediction unit: a merge candidate whose vectors stay near the
+// picture, or list 0, list 1 or both (not in 8x4 and 4x8 blocks) with vectors
+// drawn near the picture, each coded against a predictor (list 1's is the
+// predictor itself in a bi-predicted unit under mvd_l1_zero_flag)
 void RandomChooser::pu(int x, int y, int pw, int ph, int, const Motion* cands, PuChoice& ch) {
   const SPS& s = *c.s;
   auto near = [&](int mvx, int mvy) {
@@ -867,40 +1031,71 @@ void RandomChooser::pu(int x, int y, int pw, int ph, int, const Motion* cands, P
   int n = c.sh.max_merge;
   if (rng.chance(p_merge)) {
     int idx = rng.range(0, n - 1);
-    if (near(cands[idx].mv[0][0], cands[idx].mv[0][1])) {
+    const Motion& m = cands[idx];
+    bool ok = true;
+    for (int l = 0; l < 2; l++) ok &= !((m.pred >> l) & 1) || near(m.mv[l][0], m.mv[l][1]);
+    if (ok) {
       ch.merge = 1;
       ch.merge_idx = idx;
       return;
     }
   }
   ch.merge = 0;
-  ch.ref_idx = rng.range(0, c.sh.num_ref[0] - 1);
-  ch.mvp = rng.range(0, 1);
-  int mvp[2];
-  c.amvp_query(ch.ref_idx, ch.mvp, mvp);
-  int tx, ty;
-  if (rng.chance(0.3)) { tx = mvp[0] + rng.range(-3, 3); ty = mvp[1] + rng.range(-3, 3); }
-  else {
-    tx = rng.range((-40 - x) * 4, (s.width + 40 - x - pw) * 4);
-    ty = rng.range((-40 - y) * 4, (s.height + 40 - y - ph) * 4);
+  ch.idc = c.sh.type != SLICE_B ? PRED_L0 : rng.range(0, pw + ph == 12 ? 1 : 2);
+  for (int l = 0; l < 2; l++) {
+    if (ch.idc == (l ? PRED_L0 : PRED_L1)) continue;
+    ch.ref_idx[l] = rng.range(0, c.sh.num_ref[l] - 1);
+    ch.mvp[l] = rng.range(0, 1);
+    int mvp[2];
+    c.amvp_query(l, ch.ref_idx[l], ch.mvp[l], mvp);
+    if (l == 1 && ch.idc == PRED_BI && c.sh.mvd_l1_zero) {
+      if (!near(mvp[0], mvp[1])) ch.idc = PRED_L0;
+      continue;
+    }
+    int tx, ty;
+    if (rng.chance(0.3)) { tx = mvp[0] + rng.range(-3, 3); ty = mvp[1] + rng.range(-3, 3); }
+    else {
+      tx = rng.range((-40 - x) * 4, (s.width + 40 - x - pw) * 4);
+      ty = rng.range((-40 - y) * 4, (s.height + 40 - y - ph) * 4);
+    }
+    if (!near(tx, ty)) { tx = 0; ty = 0; }
+    ch.mvd[l][0] = tx - mvp[0];
+    ch.mvd[l][1] = ty - mvp[1];
+    if (std::abs(ch.mvd[l][0]) > 32767 || std::abs(ch.mvd[l][1]) > 32767) ch.mvd[l][0] = ch.mvd[l][1] = 0;
   }
-  if (!near(tx, ty)) { tx = 0; ty = 0; }
-  ch.mvd[0] = tx - mvp[0];
-  ch.mvd[1] = ty - mvp[1];
-  if (std::abs(ch.mvd[0]) > 32767 || std::abs(ch.mvd[1]) > 32767) ch.mvd[0] = ch.mvd[1] = 0;
 }
 
 // ------------------------------------------------------------ frames --
-void FramesChooser::predict_motion(int x0, int y0, int n, int mvx, int mvy, int ref, uint8_t* pred[3]) {
-  static thread_local std::vector<int16_t> t;
-  t.resize((size_t)n * n);
-  const Picture& r = *c.list0[ref];
-  c.mc_luma(r, x0, y0, n, n, mvx, mvy, t.data());
-  for (int i = 0; i < n * n; i++) pred[0][i] = clip8((t[i] + 32) >> 6);
-  for (int k = 1; k < 3; k++) {
-    c.mc_chroma(r, k, x0 / 2, y0 / 2, n / 2, n / 2, mvx, mvy, t.data());
-    for (int i = 0; i < n * n / 4; i++) pred[k][i] = clip8((t[i] + 32) >> 6);
+int FramesChooser::search(int x0, int y0, int n, int l, const int* start, int* mv) const {
+  // luma SAD straight from the reference where the block lies inside it
+  const Picture& ref = *c.list[l][0];
+  auto sad_at = [&](int vx, int vy) {
+    int rx = x0 + (vx >> 2), ry = y0 + (vy >> 2);
+    if (rx < 0 || ry < 0 || rx + n > ref.w || ry + n > ref.h) return 1 << 30;
+    int t = 16;  // a little against coding a vector
+    for (int y = 0; y < n; y++) {
+      const uint8_t* a = &src.y[(size_t)(y0 + y) * src.w + x0];
+      const uint8_t* b = &ref.y[(size_t)(ry + y) * ref.w + rx];
+      for (int x = 0; x < n; x++) t += std::abs(a[x] - b[x]);
+    }
+    return t;
+  };
+  int best = 1 << 30;
+  int starts[2][2] = {{0, 0}, {start[0] & ~3, start[1] & ~3}};
+  for (auto& st : starts) {
+    int bx = st[0], by = st[1], bs = sad_at(bx, by);
+    for (int step = 16; step >= 4; step >>= 1)
+      for (bool moved = true; moved;) {
+        moved = false;
+        const int d[4][2] = {{step, 0}, {-step, 0}, {0, step}, {0, -step}};
+        for (const auto& dd : d) {
+          int v = sad_at(bx + dd[0], by + dd[1]);
+          if (v < bs) { bs = v; bx += dd[0]; by += dd[1]; moved = true; }
+        }
+      }
+    if (bs < best) { best = bs; mv[0] = bx; mv[1] = by; }
   }
+  return best;
 }
 
 bool FramesChooser::quantise(int comp, int x0, int y0, int log2, const uint8_t* pred, int pstride,
@@ -960,46 +1155,44 @@ void FramesChooser::cu(int x0, int y0, int log2, CuChoice& ch) {
         sd += std::abs(src.y[(size_t)(y0 + y) * src.w + x0 + x] - cur.y[(size_t)(y0 + y) * cur.w + x0 + x]);
     if (sd < best_sad) { best_sad = sd; mode = m; }
   }
-  bool inter = c.sh.type == SLICE_P;
-  int inter_sad = 1 << 30, mvx = 0, mvy = 0, merge_idx = -1;
-  Motion cands[5];
+  // inter: the best merge candidate, or the best of an integer diamond
+  // search in each list's first picture (from zero and from the best
+  // candidate's vector) and, in B slices, of the average of the two
+  bool inter = c.sh.type != SLICE_I, bslice = c.sh.type == SLICE_B;
+  int inter_sad = 1 << 30, merge_idx = -1;
+  Motion cands[5], found;
   if (inter) {
     c.cu_part = P2Nx2N;
     c.merge_list(x0, y0, n, n, 0, cands);
     uint8_t* pr[3] = {buf[0].data(), buf[1].data(), buf[2].data()};
     for (int i = 0; i < c.sh.max_merge; i++) {
-      predict_motion(x0, y0, n, cands[i].mv[0][0], cands[i].mv[0][1], cands[i].ref[0], pr);
+      predict_motion(x0, y0, n, cands[i], pr);
       int sd = sad(0, x0, y0, n, buf[0].data(), n);
       if (sd < inter_sad) { inter_sad = sd; merge_idx = i; }
     }
-    // an integer diamond search from zero and from the best candidate
-    // (luma SAD straight from the reference where the block lies inside it)
-    const Picture& ref = *c.list0[0];
-    auto sad_at = [&](int vx, int vy) {
-      int rx = x0 + (vx >> 2), ry = y0 + (vy >> 2);
-      if (rx < 0 || ry < 0 || rx + n > ref.w || ry + n > ref.h) return 1 << 30;
-      int t = 16;  // a little against coding a vector
-      for (int y = 0; y < n; y++) {
-        const uint8_t* a = &src.y[(size_t)(y0 + y) * src.w + x0];
-        const uint8_t* b = &ref.y[(size_t)(ry + y) * ref.w + rx];
-        for (int x = 0; x < n; x++) t += std::abs(a[x] - b[x]);
+    Motion one[2];
+    for (int l = 0; l < (bslice ? 2 : 1); l++) {
+      int start[2] = {0, 0};
+      if (merge_idx >= 0 && ((cands[merge_idx].pred >> l) & 1)) {
+        start[0] = cands[merge_idx].mv[l][0];
+        start[1] = cands[merge_idx].mv[l][1];
       }
-      return t;
-    };
-    int starts[2][2] = {{0, 0}, {merge_idx >= 0 ? cands[merge_idx].mv[0][0] & ~3 : 0,
-                                 merge_idx >= 0 ? cands[merge_idx].mv[0][1] & ~3 : 0}};
-    for (auto& st : starts) {
-      int bx = st[0], by = st[1], bs = sad_at(bx, by);
-      for (int step = 16; step >= 4; step >>= 1)
-        for (bool moved = true; moved;) {
-          moved = false;
-          const int d[4][2] = {{step, 0}, {-step, 0}, {0, step}, {0, -step}};
-          for (const auto& dd : d) {
-            int v = sad_at(bx + dd[0], by + dd[1]);
-            if (v < bs) { bs = v; bx += dd[0]; by += dd[1]; moved = true; }
-          }
-        }
-      if (bs < inter_sad) { inter_sad = bs; mvx = bx; mvy = by; merge_idx = -1; }
+      int mv[2] = {0, 0}, sd = search(x0, y0, n, l, start, mv);
+      one[l].pred = (uint8_t)(1 << l);
+      one[l].ref[l] = 0;
+      one[l].mv[l][0] = (int16_t)mv[0];
+      one[l].mv[l][1] = (int16_t)mv[1];
+      if (sd < inter_sad) { inter_sad = sd; merge_idx = -1; found = one[l]; }
+    }
+    if (bslice) {
+      Motion bi = one[0];
+      bi.pred = 3;
+      bi.ref[1] = 0;
+      bi.mv[1][0] = one[1].mv[1][0];
+      bi.mv[1][1] = one[1].mv[1][1];
+      predict_motion(x0, y0, n, bi, pr);
+      int sd = sad(0, x0, y0, n, buf[0].data(), n) + 32;
+      if (sd < inter_sad) { inter_sad = sd; merge_idx = -1; found = bi; }
     }
   }
   if (!inter || best_sad < inter_sad) {
@@ -1018,22 +1211,24 @@ void FramesChooser::cu(int x0, int y0, int log2, CuChoice& ch) {
   ch.intra = 0;
   ch.part = P2Nx2N;
   uint8_t* pr[3] = {best[0].data(), best[1].data(), best[2].data()};
+  pu_plan = PuChoice{};
   if (merge_idx >= 0) {
-    pu_plan = PuChoice{};
     pu_plan.merge = 1;
     pu_plan.merge_idx = merge_idx;
-    predict_motion(x0, y0, n, cands[merge_idx].mv[0][0], cands[merge_idx].mv[0][1], cands[merge_idx].ref[0], pr);
+    predict_motion(x0, y0, n, cands[merge_idx], pr);
   } else {
-    pu_plan = PuChoice{};
     pu_plan.merge = 0;
-    pu_plan.ref_idx = 0;
-    int l[2][2];
-    c.amvp(x0, y0, n, n, 0, 0, l);
-    int f = std::abs(mvx - l[1][0]) + std::abs(mvy - l[1][1]) < std::abs(mvx - l[0][0]) + std::abs(mvy - l[0][1]);
-    pu_plan.mvp = f;
-    pu_plan.mvd[0] = mvx - l[f][0];
-    pu_plan.mvd[1] = mvy - l[f][1];
-    predict_motion(x0, y0, n, mvx, mvy, 0, pr);
+    pu_plan.idc = found.pred == 3 ? PRED_BI : found.pred == 2 ? PRED_L1 : PRED_L0;
+    for (int l = 0; l < 2; l++) {
+      if (!((found.pred >> l) & 1)) continue;
+      int p[2][2], mvx = found.mv[l][0], mvy = found.mv[l][1];
+      c.amvp(x0, y0, n, n, 0, l, 0, p);
+      int f = std::abs(mvx - p[1][0]) + std::abs(mvy - p[1][1]) < std::abs(mvx - p[0][0]) + std::abs(mvy - p[0][1]);
+      pu_plan.mvp[l] = f;
+      pu_plan.mvd[l][0] = mvx - p[f][0];
+      pu_plan.mvd[l][1] = mvy - p[f][1];
+    }
+    predict_motion(x0, y0, n, found, pr);
   }
   nz[0] = quantise(0, x0, y0, log2, best[0].data(), n, false, lv[0]);
   nz[1] = quantise(1, x0 / 2, y0 / 2, log2 - 1, best[1].data(), n / 2, false, lv[1]);

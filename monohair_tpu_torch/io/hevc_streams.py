@@ -12,33 +12,45 @@ against ``cv2.VideoCapture``, never only against the port's decoder.
 
 ``write_random`` draws the syntax of ``n_frames`` pictures from a seed;
 ``write_frames`` codes BGR frames (intra 2Nx2N, skip, merge and AMVP coding
-units of 16x16 at a fixed QP, an I picture every ``gop`` frames). The keyword
-features become the writer's options; where one is absent, random mode draws
-it per stream: ``ctb`` (16, 32 or 64), ``min_cb`` (8 or 16), ``max_tb``
-(the largest transform), ``amp``, ``sao``, ``pcm``, ``scaling`` (scaling
-lists, in the SPS and/or the PPSs), ``tmvp``, ``strong`` (strong intra
-smoothing), ``output_flag`` (pic_output_flag), ``sign_hiding``,
-``cabac_init``, ``constrained_intra``, ``transform_skip``, ``cu_qp_delta``,
-``chroma_offsets``, ``weighted``, ``bypass`` (transquant bypass),
-``lf_across``, ``deblock``, ``list_mod``, ``poc_bits``
-(log2_max_pic_order_cnt_lsb), ``sps_rps`` (short-term RPSs in the SPS),
-``vui``; and as given: ``group`` (POCs out of decode order in groups of up
-to that many pictures, the last coded first), ``gop`` (an IRAP picture every
-that many; 0: only the first), ``cra`` (1: the later IRAPs are CRA, 2: some,
-3: the first too), ``idr_n_lp``, ``refs`` (references kept), ``slices`` (up
-to that many a picture), ``intra_only``, the shares ``nonref`` (TRAIL_N
-pictures), ``no_output_prior`` (IRAPs with no_output_of_prior_pics_flag),
-``skip`` (skipped coding units), ``pcm_share``, ``mod_share`` (list
-modification), ``deblock_off_share`` (slices after the first that disable
-deblocking), ``hidden_share`` (pic_output_flag 0), ``inter_rps_share``
-(slice-header RPSs predicted from the SPS's); ``hev1`` (sample entry hev1,
-parameter sets in band), ``inband`` (hvc1 that repeats them before each
-IRAP), ``length_size``, ``quicktime``, ``rotation``, ``crop_top``/
-``crop_left``, ``full_range``/``matrix``/``primaries``/``transfer`` (VUI
-colour), ``hrd`` (VUI timing and HRD parameters), ``ctts`` (0: no
-composition offsets for reordered pictures), ``refuse`` (write a feature
-the decoder refuses: main10, rext, bit_depth10, chroma422, long_term,
-tiles, wpp, dependent_slice, b_slice, leading, missing_ref).
+units of 16x16 at a fixed QP; list 0, list 1 or bi-prediction in B
+pictures). The keyword features become the writer's options; where one is
+absent, random mode draws it per stream: ``ctb`` (16, 32 or 64), ``min_cb``
+(8 or 16), ``max_tb`` (the largest transform), ``amp``, ``sao``, ``pcm``,
+``scaling`` (scaling lists, in the SPS and/or the PPSs), ``tmvp``,
+``strong`` (strong intra smoothing), ``output_flag`` (pic_output_flag),
+``sign_hiding``, ``cabac_init``, ``constrained_intra``, ``transform_skip``,
+``cu_qp_delta``, ``chroma_offsets``, ``weighted``, ``weighted_bipred`` (when
+B slices are asked for), ``bypass`` (transquant bypass), ``lf_across``,
+``deblock``, ``list_mod``, ``poc_bits`` (log2_max_pic_order_cnt_lsb),
+``sps_rps`` (short-term RPSs in the SPS), ``vui``; and as given: ``group``
+(POCs out of decode order in groups of up to that many pictures, the last
+coded first), ``gop`` (an IRAP picture every that many; 0: only the first),
+``cra`` (1: the later IRAPs are CRA, 2: some, 3: the first too, 4: the
+first and some later), ``leading`` (up to that many leading pictures after
+each IRAP: RASL after a CRA, RADL after an IDR_W_RADL; a CRA that starts
+the stream then names pictures before it that the stream does not hold),
+``idr_n_lp``, ``refs`` (references kept), ``slices`` (up to that many a
+picture), ``intra_only``, the shares ``bslices`` (of the inter slices that
+are B; 0 by default), ``mvd_l1_zero`` (B slices with mvd_l1_zero_flag),
+``col_l1`` (B slices taking the collocated picture from list 1), ``nonref``
+(sub-layer non-reference pictures), ``no_output_prior`` (IRAPs with
+no_output_of_prior_pics_flag), ``skip`` (skipped coding units),
+``pcm_share``, ``mod_share`` (list modification), ``deblock_off_share``
+(slices after the first that disable deblocking), ``hidden_share``
+(pic_output_flag 0), ``inter_rps_share`` (slice-header RPSs predicted from
+the SPS's); ``hev1`` (sample entry hev1, parameter sets in band), ``inband``
+(hvc1 that repeats them before each IRAP), ``length_size``, ``quicktime``,
+``rotation``, ``crop_top``/``crop_left``, ``full_range``/``matrix``/
+``primaries``/``transfer`` (VUI colour), ``hrd`` (VUI timing and HRD
+parameters), ``ctts`` (0: no composition offsets for reordered pictures),
+``refuse`` (write a feature the decoder refuses: main10, rext, bit_depth10,
+chroma422, long_term, tiles, wpp, dependent_slice, bla, tsa_stsa,
+missing_ref, idr_over_generated: an IDR right after the leading pictures of a
+CRA that starts the stream, with cra=3). Frames mode takes ``bframes`` (0-4 B pictures between
+anchors, each group coded after the anchor that follows it), ``pyramid``
+(the middle B a reference, coded first), ``refs``, and ``gop`` with ``cra``
+(1: every ``gop`` frames a CRA whose B pictures are RASL, an open GOP; 0: an
+IDR_W_RADL whose B pictures are RADL).
 """
 
 from __future__ import annotations
@@ -111,8 +123,8 @@ def write_random(path: str, size: Tuple[int, int], n_frames: int, seed: int = 0,
 def write_frames(path: str, frames, fps: float = 30.0, qp: int = 24, gop: int = 0,
                  ctb: int = 64, **features) -> None:
     """An MP4 of the (H, W, 3) BGR uint8 frames: an I picture first (and every
-    ``gop`` frames when ``gop`` > 0), P pictures between, at quantiser ``qp``,
-    under CTBs of ``ctb``."""
+    ``gop`` frames when ``gop`` > 0), P pictures between (with ``bframes``,
+    B pictures between those), at quantiser ``qp``, under CTBs of ``ctb``."""
     frames = list(frames)
     h, w = frames[0].shape[:2]
     _write(path, (w, h), fps, dict(mode="frames", qp=qp, gop=gop, ctb=ctb, **features), frames)

@@ -18,14 +18,15 @@ does not use HEVC, and what x264 (FFmpeg, HandBrake) writes by default, B
 pictures, B references and implicit weights included, with the frames cv2
 hands over in its order (and the pictures it drops, where the file does not
 tell FFmpeg the reorder delay). HEVC is bit-exact by its standard too:
-the HEVC decoder gives cv2's frames bit for bit on the Main profile's I and P
-slices (tests/test_torch_hevc.py): CTBs of 16, 32 and 64, CABAC, intra,
-merge/AMVP/TMVP inter prediction, weighted prediction, scaling lists,
-transform skip, sign hiding, PCM, transquant bypass, the deblocking filter
-and SAO, several slices a picture, IDR, CRA and trailing pictures, POCs out
-of decode order, with FFmpeg's output order and its departures from the
-standard in the loop filters; what a phone records when it records HEVC
-without B slices. The display matrix of a phone's
+the HEVC decoder gives cv2's frames bit for bit on the Main profile's I, P
+and B slices (tests/test_torch_hevc.py): CTBs of 16, 32 and 64, CABAC,
+intra, merge/AMVP/TMVP inter prediction from either list, bi-prediction,
+weighted prediction and bi-prediction, scaling lists, transform skip, sign
+hiding, PCM, transquant bypass, the deblocking filter and SAO, several
+slices a picture, IDR, CRA, trailing and RASL/RADL leading pictures (open
+GOPs), POCs out of decode order, with FFmpeg's output order, the RASL
+pictures it skips and its departures from the standard in the loop
+filters; what a phone, or x265 by default, writes. The display matrix of a phone's
 portrait video is applied as cv2 applies it: the frames come rotated by 90,
 180 or 270 degrees, and ``width``/``height`` are the rotated frame's.
 Streams the codecs do not take raise ``UnsupportedVideoError`` naming the
@@ -38,7 +39,7 @@ data partitioning, video packets and the short video header; in H.264 SP
 and SI slices, fields and MBAFF, other chroma formats and bit depths, slice
 groups, redundant pictures, data partitioning, the lossless transform bypass,
 gaps in frame_num, reference lists longer than the references held; in HEVC
-B slices, RASL/RADL leading pictures, BLA and TSA/STSA pictures, WPP,
+BLA and TSA/STSA pictures, WPP,
 tiles, dependent slice segments, long-term references, profiles other than
 Main and the SPS/PPS extensions, bit depths above 8, chroma formats other
 than 4:2:0, coded fields, constrained intra prediction with coding blocks of
@@ -114,7 +115,11 @@ HEVC_STAT_NAMES = ("idr_pictures", "cra_pictures", "trail_n_pictures", "i_slices
                    "deblock_disabled_slices", "lf_not_across_slices", "sao_band_ctbs",
                    "sao_edge_ctbs", "sao_merged_ctbs", "ref_list_modified_slices",
                    "inter_rps_slices", "sps_rps_slices", "hidden_pictures",
-                   "discarded_pictures", "cabac_init_slices", "repeated_ref_slices")
+                   "discarded_pictures", "cabac_init_slices", "repeated_ref_slices",
+                   "b_slices", "bipred_pus", "l1_pus", "combined_merge_cands",
+                   "mvd_l1_zero_pus", "col_l1_slices", "bi_col_blocks",
+                   "weighted_bipred_slices", "rasl_pictures", "radl_pictures",
+                   "skipped_rasl_pictures")
 _CODECS = {"mp4v": (SOURCE, MP4V_ENTRIES, STAT_NAMES),
            "h264": (H264_SOURCE, H264_ENTRIES, H264_STAT_NAMES),
            "hevc": (HEVC_SOURCE, HEVC_ENTRIES, HEVC_STAT_NAMES)}
@@ -127,8 +132,8 @@ class UnsupportedVideoError(ValueError):
     B-VOPs, sprites, interlace, quarter-pel, data partitioning, video packets
     or the short video header; in H.264 SP/SI slices, fields/MBAFF, other
     chroma formats or bit depths, slice groups, redundant pictures, data
-    partitioning, the transform bypass or a gap in frame_num; in HEVC B
-    slices, leading pictures, WPP, tiles, dependent slice segments, long-term
+    partitioning, the transform bypass or a gap in frame_num; in HEVC BLA
+    and TSA/STSA pictures, WPP, tiles, dependent slice segments, long-term
     references, other profiles, bit depths or chroma formats."""
 
 

@@ -9,16 +9,17 @@ cv2.VideoCapture, never against the port alone.
 
 Held bitwise (max |diff| 0 on every frame, no tolerance needed: H.265 defines
 every decoded sample in integers, and the BGR conversion is swscale's): each
-named feature set of random Main-profile I/P syntax, two seeds each, at small
+named feature set of random Main-profile I/P/B syntax, two seeds each, at small
 sizes with partial CTBs on the right and bottom edges and CTBs of 16, 32 and
 64, with the frame count, fps and size that cv2 reports; the counters of
 what the stream used show that the feature was exercised, and every counter
 is exercised by some set. Where FFmpeg departs from the standard (SAO beside
 deferred deblocking, the chroma of transquant-bypass blocks under SAO, the
-deblocking offsets it carries from CTB to CTB, its output order), the
-decoder takes FFmpeg's way, and the sets that reach those paths hold it. The
-writer's frames mode round-trips frames at >= 30 dB. hvc1 and hev1 both
-decode; a portrait display matrix rotates the frames as cv2 rotates them.
+deblocking offsets it carries from CTB to CTB, its output order, the RASL
+pictures it skips), the decoder takes FFmpeg's way, and the sets that reach
+those paths hold it. The writer's frames mode round-trips frames at >= 30 dB,
+I/P and I/P/B (B pyramids, open and closed GOPs). hvc1 and hev1 both decode;
+a portrait display matrix rotates the frames as cv2 rotates them.
 Every refused feature raises UnsupportedVideoError naming it."""
 
 import pytest
@@ -73,6 +74,26 @@ FEATURE_SETS = {
     "inband_qt_len2_crop": (dict(inband=1, quicktime=1, length_size=2, crop_top=1, gop=4,
                                  hrd=1), SIZE,
                             ("idr_pictures",)),
+    # B slices: both lists, bi-prediction, the combined bi-predictive merge candidates
+    "b_merge_amvp": (dict(bslices=1, refs=3, group=3), SIZE,
+                     ("b_slices", "bipred_pus", "l1_pus", "combined_merge_cands", "merge_pus",
+                      "amvp_pus")),
+    # mvd_l1_zero_flag, and 8x4/4x8 units that keep list 0 of a bi-predicted candidate
+    "b_mvd_l1_zero_small_pus": (dict(bslices=1, mvd_l1_zero=1, refs=2, group=2, min_cb=8), SIZE,
+                                ("mvd_l1_zero_pus", "small_pus", "bipred_pus")),
+    # TMVP from a collocated picture in list 1, collocated blocks predicted from both lists
+    "b_tmvp_col_l1": (dict(bslices=1, tmvp=1, col_l1=1, group=3, refs=2), (136, 72),
+                      ("col_l1_slices", "bi_col_blocks", "tmvp_candidates")),
+    "b_weighted_bipred": (dict(bslices=1, weighted_bipred=1, refs=3, group=2), SIZE,
+                          ("weighted_bipred_slices", "bipred_pus")),
+    # mid-stream CRAs (open GOPs) with RASL pictures naming pictures before them
+    "open_gop_rasl": (dict(cra=1, gop=2, leading=3, bslices=0.5, refs=3), SIZE,
+                      ("cra_pictures", "rasl_pictures")),
+    "idr_w_radl": (dict(gop=3, leading=3, bslices=0.5, refs=2), SIZE,
+                   ("radl_pictures", "idr_pictures")),
+    # a stream that starts with a CRA: FFmpeg neither decodes nor outputs its RASL pictures
+    "cra_first_skipped_rasl": (dict(cra=3, leading=3, gop=4, bslices=0.5, refs=3), SIZE,
+                               ("skipped_rasl_pictures", "cra_pictures")),
 }
 
 
@@ -92,6 +113,8 @@ def test_decode_equals_cv2_bitwise(name, seed, tmp_path):
     assert_same_frames(got, want)
     for key in used:
         assert stats[key] > 0, (key, stats)
+    if name == "cra_first_skipped_rasl":  # cv2 counts the samples, not the frames it returns
+        assert len(got) <= FRAMES - stats["skipped_rasl_pictures"]
     data = open(path, "rb").read()
     if name == "cra_first_hev1":
         assert data.count(b"hev1") == 1 and data.count(b"hvc1") == 0
@@ -117,6 +140,27 @@ def test_frames_mode_round_trip(ctb, tmp_path):
         stats = reader.stats
     assert_same_frames(got, want)
     assert stats["skip_cus"] + stats["merge_pus"] > 0 and stats["p_slices"] > 0
+    assert min(psnr(a, b) for a, b in zip(got, frames)) >= 30.0
+
+
+@pytest.mark.parametrize("gop", ["open", "closed"])
+def test_frames_mode_ipb_round_trip(gop, tmp_path):
+    """B pictures as x265 writes them by default (4 between anchors, a B
+    pyramid, 3 references), every 6 frames a CRA whose B pictures are RASL
+    (open GOP) or an IDR_W_RADL whose B pictures are RADL (closed)."""
+    frames = smooth_frames(72, 136, 14)
+    path = str(tmp_path / f"ipb_{gop}.mp4")
+    write_frames(path, frames, fps=24, qp=24, ctb=64, bframes=4, pyramid=1, refs=3, gop=6,
+                 cra=int(gop == "open"))
+    want, props = cv2_read(path)
+    assert props == (len(frames), 24.0, 136, 72) and video_info(path) == props
+    with VideoReader(path) as reader:
+        got = list(reader)
+        stats = reader.stats
+    assert_same_frames(got, want)
+    leading = "rasl_pictures" if gop == "open" else "radl_pictures"
+    for key in ("b_slices", "bipred_pus", "p_slices", leading, "ctb64_pictures"):
+        assert stats[key] > 0, (key, stats)
     assert min(psnr(a, b) for a, b in zip(got, frames)) >= 30.0
 
 
@@ -152,8 +196,8 @@ def test_signalled_colour_converts_as_cv2(colour, tmp_path):
 
 REFUSED = {
     # name: (writer features, the words the error names)
-    "b_slices": (dict(refuse="b_slice"), "B slices"),
-    "leading_pictures": (dict(refuse="leading"), "RASL/RADL leading pictures"),
+    "bla_pictures": (dict(refuse="bla"), "BLA pictures"),
+    "tsa_stsa_pictures": (dict(refuse="tsa_stsa"), "TSA/STSA pictures"),
     "wpp": (dict(refuse="wpp"), "entropy_coding_sync_enabled_flag"),
     "tiles": (dict(refuse="tiles"), "tiles"),
     "dependent_slices": (dict(refuse="dependent_slice", slices=3), "dependent slice segments"),
@@ -163,6 +207,8 @@ REFUSED = {
     "bit_depth10": (dict(refuse="bit_depth10"), "bit depth 10"),
     "chroma422": (dict(refuse="chroma422"), "chroma_format_idc 2"),
     "missing_reference": (dict(refuse="missing_ref"), "missing reference picture"),
+    "idr_over_generated_refs": (dict(refuse="idr_over_generated", cra=3, leading=2),
+                                "references generated for the CRA that starts the stream"),
     "left_crop": (dict(crop_left=2), "conf_win_left_offset"),
     "bt2020_primaries": (dict(matrix=1, primaries=9, transfer=1), "colour_primaries 9"),
     "pq_transfer": (dict(matrix=1, primaries=1, transfer=16), "transfer_characteristics 16"),
@@ -195,11 +241,14 @@ def test_an_unknown_sample_entry_is_refused_by_name(tmp_path):
         VideoReader(str(bad))
 
 
-@pytest.mark.parametrize("rotation", [0, 90])
-def test_extract_sharpest_frames_keeps_the_jax_frames(rotation, tmp_path):
+@pytest.mark.parametrize("rotation, b", [(0, {}), (90, {}),
+                                         (0, dict(bframes=4, pyramid=1, refs=3, gop=8, cra=1))],
+                         ids=["0", "90", "b_frames"])
+def test_extract_sharpest_frames_keeps_the_jax_frames(rotation, b, tmp_path):
     """On an HEVC file, the port keeps the frames the JAX package's
     extract_sharpest_frames keeps (cv2.VideoCapture there), with the same
-    pixels; with a portrait display matrix both keep portrait frames."""
+    pixels; with a portrait display matrix both keep portrait frames; and
+    so on an I/P/B stream (B pyramid, an open GOP with RASL pictures)."""
     import cv2
     import numpy as np
 
@@ -208,7 +257,7 @@ def test_extract_sharpest_frames_keeps_the_jax_frames(rotation, tmp_path):
     from tests.test_torch_video import sharp_and_blurred
 
     video = str(tmp_path / "v.mp4")
-    write_frames(video, sharp_and_blurred(13), fps=30, qp=20, ctb=16, rotation=rotation)
+    write_frames(video, sharp_and_blurred(13), fps=30, qp=20, ctb=16, rotation=rotation, **b)
     want = jax_extract(video, str(tmp_path / "jax"), interval=5)
     got = extract_sharpest_frames(video, str(tmp_path / "port"), interval=5, device="cpu")
     assert got == want and len(got) == 2

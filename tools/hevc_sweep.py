@@ -5,8 +5,9 @@ cv2's frame count, fps and size.
 Where FFmpeg departs from the standard, only its frames tell, and the named
 feature sets of tests/test_torch_hevc.py hold two seeds each: this draws
 configurations (CTB and coding block sizes, POCs out of decode order, IRAP
-kinds, slices, deblocking and SAO, weights, list modification, TMVP, the
-residual tools, ...) from a seed, on top of the writer's own per-stream
+kinds, RASL/RADL leading pictures, B slices with their list 1, mvd_l1_zero
+and collocated list, slices, deblocking and SAO, weights and bi-prediction
+weights, list modification, TMVP, the residual tools, ...) from a seed, on top of the writer's own per-stream
 draws, and prints one line a stream, then the count of mismatches. Run on
 the CPU:
 
@@ -53,14 +54,18 @@ def draw(rnd: random.Random) -> tuple:
                          (0.3, dict(sao=1)), (0.2, dict(min_cb=16)), (0.3, dict(amp=1)),
                          (0.2, dict(weighted=1)), (0.3, dict(list_mod=1, mod_share=0.8)),
                          (0.3, dict(tmvp=1)), (0.2, dict(gop=rnd.choice([3, 4]))),
-                         (0.2, dict(cra=rnd.choice([1, 2, 3]))), (0.2, dict(nonref=0.3)),
+                         (0.2, dict(cra=rnd.choice([1, 2, 3, 4]))), (0.2, dict(nonref=0.3)),
                          (0.2, dict(output_flag=1)), (0.2, dict(no_output_prior=0.5)),
                          (0.2, dict(scaling=1)), (0.2, dict(pcm=1, pcm_share=0.1)),
                          (0.2, dict(bypass=1)), (0.2, dict(cu_qp_delta=1)),
                          (0.2, dict(transform_skip=1, sign_hiding=1)),
                          (0.2, dict(chroma_offsets=1)), (0.1, dict(intra_only=1)),
                          (0.2, dict(sps_rps=rnd.choice([0, 2, 4]))), (0.1, dict(hev1=1)),
-                         (0.1, dict(poc_bits=4))):
+                         (0.1, dict(poc_bits=4)),
+                         (0.5, dict(bslices=rnd.choice([0.3, 0.6, 1.0]))),
+                         (0.3, dict(mvd_l1_zero=0.5)), (0.3, dict(col_l1=0.8)),
+                         (0.2, dict(weighted_bipred=1)),
+                         (0.3, dict(leading=rnd.choice([1, 2, 3])))):
         if rnd.random() < share:
             f.update(extra)
     size = rnd.choice([(72, 40), (64, 48), (32, 32), (136, 72), (96, 64)])
