@@ -153,12 +153,17 @@ Phases, each printing a line when it starts and when it ends:
               (and at 1280x720 on 10 of 14d's frames), the round trip's
               PSNR (>= 30 dB); extract_sharpest_frames on the card keeps the
               sharp frames, frames/s; then the same 30 frames as HEVC I/P/B
-              in x265's default GOP shape (4 B pictures between anchors, a
-              B pyramid, 3 references, open GOPs whose CRA pictures carry
-              RASL pictures; a CRA every 12 frames instead of x265's 250):
-              the frame count, ms a frame to decode (at most 4x the I/P
-              stream's), PSNR (>= 30 dB), the extraction's frames/s and
-              kept frames
+              in x265's default GOP shape and WPP (4 B pictures between
+              anchors, a B pyramid, 3 references, open GOPs whose CRA
+              pictures carry RASL pictures; a CRA every 12 frames instead
+              of x265's 250; entropy_coding_sync on): the frame count, ms a
+              frame to decode (at most 4x the I/P stream's), PSNR (>= 30
+              dB), the extraction's frames/s and kept frames, rows synced
+              under WPP; then the first 10 as I/P in 4x3 uniform tiles
+              without loop filtering across their edges and slices of
+              dependent slice segments (HEVC_TILES): likewise, and the
+              tiles and dependent segments decoded; every entry point of
+              both gives its substream's length
  15. hair parser training
               15a BiSeNet (the hair parser) and MODNet (the matte) at width
               1.0, flax's initialisers from a seed: one training step of 2
@@ -2711,8 +2716,14 @@ HEVC_FRAMES = 30                 # 14e: the first 30 of 14b's frames at 1920x108
 HEVC_FRAMES_720 = 10             # 14e: 14d's first 10 at 1280x720, for the decode time
 # 14e's I/P/B stream: x265's default GOP shape (bframes 4, b-pyramid, ref 3,
 # open GOP), keyint cut from 250 to 12 so that 30 frames hold CRA pictures
-HEVC_B = dict(bframes=4, pyramid=1, refs=3, gop=12, cra=1)
+HEVC_B = dict(bframes=4, pyramid=1, refs=3, gop=12, cra=1, wpp=1)
 HEVC_B_SLOWDOWN = 4.0            # 14e: the I/P/B decode's ms a frame over the I/P one's, at most
+# 14e's tiles stream: I/P in 4x3 uniform tiles (8 or 7 CTBs of 64 wide, 5 or
+# 6 high) without loop filtering across their edges, in about 24 slice
+# segments a picture, half of them dependent, on the first 10 of 14b's frames
+HEVC_TILES = dict(tiles=1, tile_cols=4, tile_rows=3, uniform=1, lf_across_tiles=0, slices=24,
+                  dependent=0.5)
+HEVC_TILES_FRAMES = 10
 FLY_SIZE = (720, 1280)           # render_camera_path_video's default (H, W)
 FLY_POSES = 3
 FLY_FRAMES_PER_SEG = 4
@@ -3028,7 +3039,7 @@ def phase_video_hevc(dev: torch.device, tmp: str, frames_1080: list, frames_720:
                f"{res['min_psnr']:.2f} dB")
         if (info != (len(frames), float(VIDEO_FPS), W, H) or len(decoded) != len(frames)
                 or res["min_psnr"] < VIDEO_MIN_PSNR or not stats["p_slices"]
-                or stats["ctb64_pictures"] != len(frames)):
+                or stats["ctb64_pictures"] != len(frames) or stats["entry_point_mismatches"]):
             log(msg)
             raise AssertionError(f"14e: the HEVC round trip at {W}x{H}: {info}, {res}")
         if (H, W) == CODEC_SIZES[0]:
@@ -3048,13 +3059,14 @@ def phase_video_hevc(dev: torch.device, tmp: str, frames_1080: list, frames_720:
     H, W = CODEC_SIZES[0]
     out["b_frames"] = phase_video_hevc_b(dev, tmp, frames_1080[:HEVC_FRAMES],
                                          out[f"{W}x{H}"]["decode_ms"])
+    out["tiles"] = phase_video_hevc_tiles(dev, tmp, frames_1080[:HEVC_TILES_FRAMES])
     return out
 
 
 def phase_video_hevc_b(dev: torch.device, tmp: str, frames: list, ip_decode_ms: float) -> dict:
-    """14e, I/P/B: 14b's 1920x1080 frames in x265's default GOP shape (HEVC_B:
-    B pyramids, open GOPs with RASL pictures), decoded on the host and through
-    the extraction on the card."""
+    """14e, I/P/B: 14b's 1920x1080 frames in x265's default GOP shape and WPP
+    (HEVC_B: B pyramids, open GOPs with RASL pictures), decoded on the host
+    and through the extraction on the card."""
     H, W = frames[0].shape[:2]
     path = os.path.join(tmp, "hevc_b.mp4")
     t = time.perf_counter()
@@ -3078,13 +3090,16 @@ def phase_video_hevc_b(dev: torch.device, tmp: str, frames: list, ip_decode_ms: 
                kept=len(kept), **{k: stats[k] for k in (
                    "i_slices", "p_slices", "b_slices", "bipred_pus", "l1_pus", "skip_cus",
                    "merge_pus", "amvp_pus", "cra_pictures", "rasl_pictures",
-                   "skipped_rasl_pictures", "ctb64_pictures")})
+                   "skipped_rasl_pictures", "ctb64_pictures", "wpp_pictures", "wpp_synced_rows",
+                   "entry_points", "entry_point_mismatches")})
     res["decode_vs_ip"] = res["decode_ms"] / ip_decode_ms
     log(f"14e HEVC I/P/B at {W}x{H} ({HEVC_B}, CTB {HEVC_CTB}, QP {HEVC_QP}): {len(frames)} "
         f"frames written in {enc_s:.3f} s ({res['bytes']} bytes, {stats['i_slices']} I, "
         f"{stats['p_slices']} P and {stats['b_slices']} B slices, {stats['cra_pictures']} CRA "
         f"and {stats['rasl_pictures']} RASL pictures, {stats['bipred_pus']} bi-predicted and "
-        f"{stats['l1_pus']} list-1 prediction units, {stats['skip_cus']} skipped coding units); "
+        f"{stats['l1_pus']} list-1 prediction units, {stats['skip_cus']} skipped coding units, "
+        f"{stats['wpp_synced_rows']} CTB rows synced under WPP, {stats['entry_points']} entry "
+        f"points, {stats['entry_point_mismatches']} wrong); "
         f"decode {res['decode_ms']:.3f} ms a frame on the host ({res['decode_vs_ip']:.3f}x the "
         f"I/P stream's); round trip PSNR min {res['min_psnr']:.2f} dB; extract_sharpest_frames "
         f"{ext_s:.3f} s, {res['frames_per_s']:.2f} frames/s, kept {len(kept)}")
@@ -3092,9 +3107,60 @@ def phase_video_hevc_b(dev: torch.device, tmp: str, frames: list, ip_decode_ms: 
             or res["min_psnr"] < VIDEO_MIN_PSNR or not stats["b_slices"]
             or not stats["bipred_pus"] or not stats["cra_pictures"] or not stats["rasl_pictures"]
             or stats["skipped_rasl_pictures"] or stats["ctb64_pictures"] != len(frames)
+            or stats["wpp_pictures"] != len(frames) or not stats["wpp_synced_rows"]
+            or not stats["entry_points"] or stats["entry_point_mismatches"]
             or not res["decode_vs_ip"] <= HEVC_B_SLOWDOWN):
         raise AssertionError(f"14e: the HEVC I/P/B round trip: {info}, {res}")
     check_kept(decoded, out_dir, kept, sharp_indices(len(frames)), False, "14e I/P/B")
+    return res
+
+
+def phase_video_hevc_tiles(dev: torch.device, tmp: str, frames: list) -> dict:
+    """14e, tiles: 14b's first HEVC_TILES_FRAMES 1920x1080 frames as I/P in
+    4x3 uniform tiles with dependent slice segments (HEVC_TILES), decoded on
+    the host and through the extraction on the card."""
+    H, W = frames[0].shape[:2]
+    path = os.path.join(tmp, "hevc_tiles.mp4")
+    t = time.perf_counter()
+    hevc_streams.write_frames(path, frames, fps=VIDEO_FPS, qp=HEVC_QP, ctb=HEVC_CTB, **HEVC_TILES)
+    enc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with video_io.VideoReader(path) as reader:
+        decoded = list(reader)
+        stats = reader.stats
+    dec_s = time.perf_counter() - t
+    info = video_io.video_info(path)
+    psnrs = [video_psnr(a, b) for a, b in zip(decoded, frames)]
+    out_dir = os.path.join(tmp, "hevc_tiles_frames")
+    sync(dev)
+    t = time.perf_counter()
+    kept = extract_sharpest_frames(path, out_dir, interval=VIDEO_INTERVAL, device=dev)
+    sync(dev)
+    ext_s = time.perf_counter() - t
+    res = dict(encode_s=enc_s, decode_ms=dec_s / len(frames) * 1e3, min_psnr=min(psnrs),
+               bytes=os.path.getsize(path), extract_s=ext_s, frames_per_s=len(frames) / ext_s,
+               kept=len(kept), **{k: stats[k] for k in (
+                   "i_slices", "p_slices", "multi_slice_pictures", "tile_pictures", "tiles",
+                   "tile_edges_unfiltered", "dependent_slice_segments", "dependent_restores",
+                   "entry_points", "entry_point_mismatches", "ctb64_pictures")})
+    log(f"14e HEVC tiles at {W}x{H} ({HEVC_TILES}, CTB {HEVC_CTB}, QP {HEVC_QP}): {len(frames)} "
+        f"frames written in {enc_s:.3f} s ({res['bytes']} bytes, {stats['i_slices']} I and "
+        f"{stats['p_slices']} P slices, {stats['dependent_slice_segments']} dependent slice "
+        f"segments ({stats['dependent_restores']} restoring the contexts of the one before), "
+        f"{stats['tiles']} tiles, {stats['tile_edges_unfiltered']} CTB edges on tile edges "
+        f"unfiltered, {stats['entry_points']} entry points, {stats['entry_point_mismatches']} "
+        f"wrong); decode {res['decode_ms']:.3f} ms a frame on the host; round trip PSNR min "
+        f"{res['min_psnr']:.2f} dB; extract_sharpest_frames {ext_s:.3f} s, "
+        f"{res['frames_per_s']:.2f} frames/s, kept {len(kept)}")
+    n = len(frames)
+    if (info != (n, float(VIDEO_FPS), W, H) or len(decoded) != n
+            or res["min_psnr"] < VIDEO_MIN_PSNR or not stats["p_slices"]
+            or stats["tile_pictures"] != n or stats["ctb64_pictures"] != n
+            or stats["tiles"] != n * HEVC_TILES["tile_cols"] * HEVC_TILES["tile_rows"]
+            or not stats["tile_edges_unfiltered"] or not stats["dependent_slice_segments"]
+            or not stats["entry_points"] or stats["entry_point_mismatches"]):
+        raise AssertionError(f"14e: the HEVC tiles round trip: {info}, {res}")
+    check_kept(decoded, out_dir, kept, sharp_indices(n), False, "14e tiles")
     return res
 
 

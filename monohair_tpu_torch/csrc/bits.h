@@ -9,6 +9,7 @@
 
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
 #include <map>
 #include <string>
 #include <vector>
@@ -244,13 +245,17 @@ struct CabacEngine {
     if (offset >= range) { offset -= range; return 1; }
     return 0;
   }
+  // the storage and synchronization of the context variables (H.265 9.3.2.4)
+  void save(uint8_t* to) const { memcpy(to, state, N); }
+  void load(const uint8_t* from) { memcpy(state, from, N); }
   int terminate(int v = 0) {
     range -= 2;
     if (b->writing) {
       if (v) {
         low += range;
-        // EncodeFlush: the last bit written is the 1 that ends the slice or
-        // comes before the I_PCM samples' alignment
+        // EncodeFlush: the last bit written is the 1 that ends the slice,
+        // comes before the I_PCM samples' alignment or is the first bit of
+        // the byte_alignment( ) after H.265's end_of_subset_one_bit
         range = 2;
         renorm_e();
         put_bit((low >> 9) & 1);
@@ -267,16 +272,29 @@ struct CabacEngine {
     }
     return 0;
   }
+  // H.265's end of a substream (7.3.8.1): end_of_subset_one_bit, then
+  // byte_alignment( ) (its one bit is the flush's last) and the engine
+  // started again at the next byte (9.3.2.5), whose RBSP position it returns
+  size_t restart() {
+    if (!terminate(1)) fail("end_of_subset_one_bit is 0");
+    while (!b->aligned()) b->u(1, 0);
+    size_t at = b->writing ? b->out.size() : b->pos >> 3;
+    start();
+    return at;
+  }
 };
 
-// NAL unit payload with emulation_prevention_three_byte removed
-std::vector<uint8_t> unescape(const uint8_t* d, size_t n) {
+// NAL unit payload with emulation_prevention_three_byte removed; removed,
+// if given, gets the RBSP position of the byte each removed one came before
+std::vector<uint8_t> unescape(const uint8_t* d, size_t n, std::vector<uint32_t>* removed = nullptr) {
   std::vector<uint8_t> out;
   out.reserve(n);
+  if (removed) removed->clear();
   int zeros = 0;
   for (size_t i = 0; i < n; i++) {
     if (zeros >= 2 && d[i] == 3) {
       zeros = 0;
+      if (removed) removed->push_back((uint32_t)out.size());
       continue;
     }
     zeros = d[i] == 0 ? zeros + 1 : 0;

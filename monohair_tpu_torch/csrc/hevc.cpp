@@ -106,7 +106,7 @@ struct Reader {
     if (type >= TSA_N && type <= STSA_R)
       unsupported("TSA/STSA pictures (temporal sub-layer switching)");
     if (type > PPS_NUT) return;  // AUD, SEI, filler
-    std::vector<uint8_t> rbsp = unescape(d + 2, n - 2);
+    std::vector<uint8_t> rbsp = unescape(d + 2, n - 2, &codec.ep);
     Bits& b = codec.bits;
     b.start_read(rbsp.data(), rbsp.size());
     if (type == VPS_NUT) {
@@ -143,7 +143,7 @@ struct Reader {
     h.temporal_id = tid;
     const SPS* s;
     const PPS* p;
-    slice_header_syntax(b, h, codec.sps, codec.pps, s, p);
+    slice_header_syntax(b, h, codec.sps, codec.pps, s, p, codec.sh);
     if (h.first) {
       if (codec.cur) codec.finish_picture();
       if (eos && type == CRA) unsupported("a CRA picture after an end of sequence NAL unit");

@@ -14,11 +14,15 @@
 // short-term reference picture sets (in the SPS and the slice header, with
 // inter-RPS prediction), the conformance window and VUI colour; NAL unit types
 // IDR_W_RADL, IDR_N_LP, CRA, TRAIL_N/R and the leading pictures RASL_N/R and
-// RADL_N/R; several independent slice segments a picture; both reference
-// lists, of any length, with ref_pic_lists_modification; CTB sizes 16, 32
-// and 64 with the implicit splits of partial CTBs; CABAC with
-// cabac_init_flag; cu_qp_delta, the chroma QP offsets of the PPS and the
-// slice, cu_transquant_bypass; the 35 intra modes with reference
+// RADL_N/R; several slices a picture, each of one or more slice segments
+// (dependent_slice_segment_flag); WPP (entropy_coding_sync_enabled_flag) or
+// tiles (uniform or explicit columns and rows,
+// loop_filter_across_tiles_enabled_flag), with the entry points of their
+// substreams checked against where they start; both reference lists, of any
+// length, with ref_pic_lists_modification; CTB sizes 16, 32 and 64 with the
+// implicit splits of partial CTBs; CABAC with cabac_init_flag; cu_qp_delta,
+// the chroma QP offsets of the PPS and the slice, cu_transquant_bypass; the
+// 35 intra modes with reference
 // substitution, filtering, strong intra smoothing, constrained_intra_pred and
 // PCM; every inter part_mode (AMP included), inter_pred_idc (list 0, list 1
 // or both, bi-prediction barred for 8x4 and 4x8), mvd_l1_zero_flag, merge
@@ -34,9 +38,9 @@
 // its way is taken, as each place says: the pictures it outputs and when
 // (ff_hevc_output_frames), the POC of a CRA that starts a stream, the RASL
 // pictures it skips (RaslRule), SAO at the edges of slices that do not
-// filter across them. Everything else is refused by name (Error code 2):
-// BLA, TSA/STSA, WPP (entropy_coding_sync_enabled_flag), tiles, dependent
-// slice segments, long-term reference pictures, profiles other than Main,
+// filter across them, the loop filters' order in tile scan (loop_filters).
+// Everything else is refused by name (Error code 2): BLA, TSA/STSA, WPP
+// and tiles in one PPS, long-term reference pictures, profiles other than Main,
 // bit depths above 8, chroma formats other than 4:2:0, the
 // range/multilayer/3D/SCC extensions, a missing reference picture (other
 // than those of a CRA that starts the stream, which only its skipped RASL
@@ -563,7 +567,43 @@ struct PPS {
   int scaling_present = 0;
   ScalingList sl;
   int lists_modification = 0, log2_par_mrg = 2, header_extension = 0;
+  // tiles: the counts, the coded widths and heights (in CTBs, all but the
+  // last) when not uniform, and loop_filter_across_tiles_enabled_flag
+  int tile_cols = 1, tile_rows = 1, uniform = 1, lf_across_tiles = 1;
+  std::vector<int> col_w, row_h;
+  // 6.5.1 for the SPS's picture: CtbAddrRsToTs, CtbAddrTsToRs and TileId
+  // (by tile-scan address)
+  std::vector<int> rs_to_ts, ts_to_rs, tile_id;
+  int tile(int ctb_addr_rs) const { return tile_id[rs_to_ts[ctb_addr_rs]]; }
 };
+
+// 6.5.1: the column and row boundaries of the tiles, and the conversions
+// between the raster and tile scans of the CTBs of the picture
+void tile_scan(PPS& p, const SPS& s) {
+  int W = s.wctb, H = s.hctb;
+  auto bounds = [](int n, int parts, bool uniform, const std::vector<int>& coded) {
+    std::vector<int> bd(parts + 1, 0);
+    for (int i = 0; i < parts; i++)
+      bd[i + 1] = uniform ? ((i + 1) * n) / parts : i < parts - 1 ? bd[i] + coded[i] : n;
+    return bd;
+  };
+  std::vector<int> cbd = bounds(W, p.tile_cols, p.uniform, p.col_w);
+  std::vector<int> rbd = bounds(H, p.tile_rows, p.uniform, p.row_h);
+  p.rs_to_ts.assign((size_t)W * H, 0);
+  p.ts_to_rs.assign((size_t)W * H, 0);
+  p.tile_id.assign((size_t)W * H, 0);
+  for (int rs = 0; rs < W * H; rs++) {
+    int x = rs % W, y = rs / W, tx = 0, ty = 0;
+    while (x >= cbd[tx + 1]) tx++;
+    while (y >= rbd[ty + 1]) ty++;
+    // the tile rows above, the tiles left in this row, then raster in the tile
+    int ts = rbd[ty] * W + (rbd[ty + 1] - rbd[ty]) * cbd[tx];
+    ts += (y - rbd[ty]) * (cbd[tx + 1] - cbd[tx]) + x - cbd[tx];
+    p.rs_to_ts[rs] = ts;
+    p.ts_to_rs[ts] = rs;
+    p.tile_id[ts] = ty * p.tile_cols + tx;
+  }
+}
 
 // pic_parameter_set_rbsp( ) without the trailing bits
 void pps_syntax(Bits& b, PPS& p, const SPS* sps_table) {
@@ -601,8 +641,28 @@ void pps_syntax(Bits& b, PPS& p, const SPS* sps_table) {
   p.transquant_bypass = b.flag(p.transquant_bypass);
   p.tiles = b.flag(p.tiles);
   p.wpp = b.flag(p.wpp);
-  if (p.tiles) refuse(b, "tiles (tiles_enabled_flag)");
-  if (p.wpp) refuse(b, "entropy_coding_sync_enabled_flag (WPP)");
+  if (p.tiles && p.wpp)
+    refuse(b, "tiles and WPP in one PPS (tiles_enabled_flag with entropy_coding_sync_enabled_flag)");
+  if (p.tiles) {
+    p.tile_cols = (int)b.ue(p.tile_cols - 1) + 1;
+    p.tile_rows = (int)b.ue(p.tile_rows - 1) + 1;
+    if (p.tile_cols > s.wctb || p.tile_rows > s.hctb) fail("more tile columns or rows than CTBs");
+    p.uniform = b.flag(p.uniform);
+    if (!p.uniform) {
+      p.col_w.resize(p.tile_cols - 1);
+      p.row_h.resize(p.tile_rows - 1);
+      int sum = 0;
+      for (int& w : p.col_w) sum += w = (int)b.ue(w - 1) + 1;
+      if (sum >= s.wctb) fail("tile columns wider than the picture");
+      sum = 0;
+      for (int& h : p.row_h) sum += h = (int)b.ue(h - 1) + 1;
+      if (sum >= s.hctb) fail("tile rows taller than the picture");
+    }
+    p.lf_across_tiles = b.flag(p.lf_across_tiles);
+  } else {
+    p.tile_cols = p.tile_rows = p.uniform = p.lf_across_tiles = 1;
+  }
+  tile_scan(p, s);
   p.lf_across_slices = b.flag(p.lf_across_slices);
   p.deblock_control = b.flag(p.deblock_control);
   if (p.deblock_control) {
@@ -655,7 +715,10 @@ struct SliceHeader {
   int qp_delta = 0, cb_offset = 0, cr_offset = 0;
   int deblock_override = 0, deblock_disabled = 0, beta_div2 = 0, tc_div2 = 0;
   int lf_across = 0;
-  // derived
+  // entry_point_offset_minus1[ i ] + 1: the bytes of each substream but the last
+  std::vector<uint32_t> entry;
+  // derived: SliceAddrRs, the address of the independent slice segment
+  int slice_addr = 0;
   int qp = 26;
   const StRps* rps = nullptr;
   int num_pic_total_curr = 0;
@@ -704,10 +767,14 @@ void weight_table_syntax(Bits& b, SliceHeader& h) {
   }
 }
 
+void independent_header_syntax(Bits& b, SliceHeader& h, const SPS& s, const PPS& p);
+
 // slice_segment_header( ) (7.3.6.1) up to and including byte_alignment( );
-// refuses what is out of scope as soon as it shows
+// refuses what is out of scope as soon as it shows. A dependent slice
+// segment takes every field it does not code from prev, the header of the
+// segment before it.
 void slice_header_syntax(Bits& b, SliceHeader& h, const SPS* sps_table, const PPS* pps_table,
-                         const SPS*& sp, const PPS*& pp) {
+                         const SPS*& sp, const PPS*& pp, const SliceHeader& prev) {
   h.first = b.flag(h.first);
   if (is_irap(h.nal_type)) h.no_output_prior = b.flag(h.no_output_prior);
   h.pps_id = (int)b.ue(h.pps_id);
@@ -719,13 +786,53 @@ void slice_header_syntax(Bits& b, SliceHeader& h, const SPS* sps_table, const PP
   pp = &p;
   if (!h.first) {
     h.dependent = p.dependent_slices ? b.flag(h.dependent) : 0;
-    if (h.dependent) refuse(b, "dependent slice segments (dependent_slice_segment_flag)");
     h.address = (int)b.u(ceil_log2(s.wctb * s.hctb), h.address);
     if (h.address >= s.wctb * s.hctb) fail("slice_segment_address out of range");
   } else {
     h.address = 0;
     h.dependent = 0;
   }
+  if (h.dependent) {
+    if (prev.pps_id != h.pps_id || prev.nal_type != h.nal_type)
+      fail("a dependent slice segment of another picture");
+    SliceHeader own = h;
+    h = prev;
+    h.first = 0;
+    h.dependent = 1;
+    h.address = own.address;
+    h.entry = own.entry;
+  } else {
+    independent_header_syntax(b, h, s, p);
+    h.slice_addr = h.address;
+  }
+  if (p.tiles || p.wpp) {
+    int most = p.wpp ? s.hctb - 1 : p.tile_cols * p.tile_rows - 1;
+    int n = (int)b.ue((uint32_t)h.entry.size());
+    if (n > most) fail("num_entry_point_offsets out of range");
+    h.entry.resize(n);
+    if (n) {
+      uint32_t top = 1;
+      for (uint32_t v : h.entry) top = std::max(top, v);
+      int len = 1;
+      while (len < 32 && ((top - 1) >> len)) len++;
+      len = (int)b.ue(len - 1) + 1;  // offset_len_minus1
+      if (len > 32) fail("offset_len_minus1 out of range");
+      for (uint32_t& v : h.entry) v = b.u(len, v - 1) + 1;
+    }
+  } else {
+    h.entry.clear();
+  }
+  if (p.header_extension) {
+    int n = (int)b.ue(0);
+    for (int i = 0; i < n; i++) b.u(8, 0);
+  }
+  // byte_alignment( )
+  b.u(1, 1);
+  while (!b.aligned()) b.u(1, 0);
+}
+
+// the fields of an independent slice segment's header after its address
+void independent_header_syntax(Bits& b, SliceHeader& h, const SPS& s, const PPS& p) {
   for (int i = 0; i < p.extra_bits; i++) b.flag(0);
   h.type = (int)b.ue(h.type);
   if (h.type > 2) fail("slice_type out of range");
@@ -828,13 +935,6 @@ void slice_header_syntax(Bits& b, SliceHeader& h, const SPS* sps_table, const PP
     h.lf_across = b.flag(h.lf_across);
   else
     h.lf_across = p.lf_across_slices;
-  if (p.header_extension) {
-    int n = (int)b.ue(0);
-    for (int i = 0; i < n; i++) b.u(8, 0);
-  }
-  // byte_alignment( )
-  b.u(1, 1);
-  while (!b.aligned()) b.u(1, 0);
 }
 
 // ------------------------------------------------------------ pictures --
@@ -895,7 +995,8 @@ enum Stat {
   S_DEBLOCK_OFF, S_LF_NOT_ACROSS, S_SAO_BAND, S_SAO_EDGE, S_SAO_MERGE, S_REFMOD, S_INTER_RPS,
   S_SPS_RPS, S_HIDDEN, S_DISCARDED, S_CABAC_INIT, S_REPEATED_REF, S_BSLICE, S_BIPRED, S_L1_PU,
   S_COMBINED, S_MVD_L1_ZERO, S_COL_L1, S_BI_COL, S_WEIGHTED_BI, S_RASL, S_RADL, S_RASL_SKIPPED,
-  kStatCount
+  S_WPP_PIC, S_WPP_SYNC, S_WPP_INIT, S_TILE_PIC, S_TILES, S_TILE_EDGE, S_DEPENDENT, S_DS_RESTORE,
+  S_ENTRY_POINTS, S_ENTRY_MISMATCH, kStatCount
 };
 
 // The RASL pictures FFmpeg skips: those that follow a CRA with
@@ -954,7 +1055,11 @@ struct Chooser {
   virtual int transform_skip(int c, int x0, int y0, int log2) = 0;
   // the coefficient levels of a transform block (n x n, raster), at least one non-zero
   virtual void coeffs(int c, int x0, int y0, int log2, int16_t* levels) = 0;
-  virtual int end_of_slice(int ctb_addr) = 0;
+  // the tile-scan addresses of the CTBs that end a slice segment
+  std::vector<int> segment_ends;
+  int end_of_slice(int ctb_addr_ts) const {
+    return std::find(segment_ends.begin(), segment_ends.end(), ctb_addr_ts) != segment_ends.end();
+  }
 };
 
 // The decoding process of one stream: parameter sets, the picture being
@@ -981,20 +1086,28 @@ struct Hevc {
   RaslRule rasl;
   int poc = 0, poc_tid0 = 0, next_id = 1;
   bool started = false;
-  int slices_in_pic = 0;
+  int slices_in_pic = 0, pic_pps = 0;
   int last_beta = 0, last_tc = 0;  // the deblocking offsets of the last slice header
 
   // the picture's block state, by 4x4 block (w4 x h4) or CTB
   int w4 = 0, h4 = 0;
   std::vector<uint8_t> cuflags, qpy, ctdepth, ipm, cbf4;
-  std::vector<uint32_t> zs;        // z-scan order of each 4x4 block
+  std::vector<uint32_t> zs;        // z-scan order of each 4x4 block (6.5.2, in tile scan)
   std::vector<int> ctb_addr_slice;  // SliceAddrRs of each decoded CTB, -1 before
   std::vector<int> ctb_slice;       // index into slices
   std::vector<SliceInfo> slices;
   std::vector<SaoParams> sao;
 
+  // the substreams of a slice segment (7.3.8.1): the contexts stored for
+  // WPP (after the second CTB of a row) and for a dependent slice segment
+  // (at the end of the segment before it), 9.3.2.4; where each substream
+  // after the first starts in the RBSP; and (decoder) the RBSP positions of
+  // the bytes that an emulation_prevention_three_byte came before, which
+  // entry_point_offset_minus1 counts
+  uint8_t ctx_wpp[kHevcContexts], ctx_ds[kHevcContexts];
+  std::vector<uint32_t> subset_at, ep;
+
   // slice and coding unit state
-  int ctb_addr = 0;
   int qp_y = 26, qp_prev = 26, last_cu_qp = 26, qp_cb = 26, qp_cr = 26;
   bool qp_delta_coded = false;
   int qp_delta_val = 0, qg_x = 0, qg_y = 0;
@@ -1010,12 +1123,22 @@ struct Hevc {
   int at4(int x, int y) const { return (y >> 2) * w4 + (x >> 2); }
   bool intra_at(int x, int y) const { return cuflags[at4(x, y)] & F_INTRA; }
 
-  // 6.4.1: the block at (xN, yN) is decoded, in this slice, before (xC, yC)
+  int ctb_at(int x, int y) const { return (y >> s->ctb_log2) * s->wctb + (x >> s->ctb_log2); }
+
+  // 6.4.1: the block at (xN, yN) is decoded, in this slice and tile, before (xC, yC)
   bool avail(int xC, int yC, int xN, int yN) const {
     if (xN < 0 || yN < 0 || xN >= s->width || yN >= s->height) return false;
-    int ctb = (yN >> s->ctb_log2) * s->wctb + (xN >> s->ctb_log2);
-    if (ctb_addr_slice[ctb] != sh.address) return false;
+    int ctb = ctb_at(xN, yN);
+    if (ctb_addr_slice[ctb] != sh.slice_addr) return false;
+    if (p->tile(ctb) != p->tile(ctb_at(xC, yC))) return false;
     return zs[at4(xN, yN)] <= zs[at4(xC, yC)];
+  }
+
+  // the loop filters of this slice's CTB a cross its edge with CTB b: both
+  // in the slice, or filtering across slices; both in a tile, or across tiles
+  bool across(int a, int b) const {
+    return (sh.lf_across || ctb_addr_slice[b] == sh.slice_addr) &&
+           (p->lf_across_tiles || p->tile(a) == p->tile(b));
   }
 
   void setup_picture_maps() {
@@ -1039,7 +1162,7 @@ struct Hevc {
           int m = 1 << i;
           v += (x & m ? m * m : 0) + (y & m ? 2 * m * m : 0);
         }
-        zs[y * w4 + x] = ((uint32_t)ctb << (2 * l)) + v;
+        zs[y * w4 + x] = ((uint32_t)p->rs_to_ts[ctb] << (2 * l)) + v;
       }
     ctb_addr_slice.assign((size_t)s->wctb * s->hctb, -1);
     ctb_slice.assign((size_t)s->wctb * s->hctb, 0);
@@ -1185,6 +1308,7 @@ struct Hevc {
     output_frames(s->max_reorder[top], s->max_dec_minus1[top] + 1, false);
     setup_picture_maps();
     slices_in_pic = 0;
+    pic_pps = sh.pps_id;
     // FFmpeg decodes pictures in frame threads, each parsing slice headers
     // into its own context: the first slice of a picture finds the offsets
     // of the last header its thread parsed (none yet: 0), not of the slice
@@ -1193,6 +1317,8 @@ struct Hevc {
     if (s->ctb_log2 == 4) stats[S_CTB16]++;
     if (s->ctb_log2 == 5) stats[S_CTB32]++;
     if (s->ctb_log2 == 6) stats[S_CTB64]++;
+    if (p->wpp) stats[S_WPP_PIC]++;
+    if (p->tiles) stats[S_TILE_PIC]++;
   }
 
   // RefPicList0 (8.3.4): StCurrBefore then StCurrAfter, RefPicList1:
@@ -1245,6 +1371,15 @@ struct Hevc {
   }
 
   void start_slice() {
+    if (!sh.first && ctb_addr_slice[sh.address] != -1) fail("slices overlap");
+    if (sh.pps_id != pic_pps) fail("slices of one picture name different PPSs");
+    if (sh.dependent) {  // the slice goes on: its lists and its SliceInfo hold
+      stats[S_DEPENDENT]++;
+      int ts = p->rs_to_ts[sh.address];
+      if (!ts || ctb_addr_slice[p->ts_to_rs[ts - 1]] != sh.slice_addr)
+        fail("a dependent slice segment whose slice begins elsewhere");
+      return;
+    }
     slices_in_pic++;
     if (slices_in_pic == 2) stats[S_MULTI_SLICE]++;
     stats[sh.type == SLICE_I ? S_ISLICE : sh.type == SLICE_P ? S_PSLICE : S_BSLICE]++;
@@ -1259,11 +1394,11 @@ struct Hevc {
       stats[S_CHROMA_OFFSET]++;
     if (p->constrained_intra) stats[S_CONSTRAINED]++;
     stats[sh.deblock_disabled ? S_DEBLOCK_OFF : S_DEBLOCKED]++;
-    if (!sh.lf_across && sh.address) stats[S_LF_NOT_ACROSS]++;
+    if (!sh.lf_across && sh.slice_addr) stats[S_LF_NOT_ACROSS]++;
     if (sh.cabac_init) stats[S_CABAC_INIT]++;
     build_lists();
     SliceInfo si;
-    si.addr = sh.address;
+    si.addr = sh.slice_addr;
     si.deblock_disabled = sh.deblock_disabled;
     // FFmpeg leaves the offsets of the header before when this one disables the filter
     bool kept = sh.deblock_override && sh.deblock_disabled;
@@ -1275,35 +1410,87 @@ struct Hevc {
     si.sao_luma = sh.sao_luma;
     si.sao_chroma = sh.sao_chroma;
     slices.push_back(si);
-    if (!sh.first && ctb_addr_slice[sh.address] != -1) fail("slices overlap");
   }
 
   // --------------------------------------------------------- slice data --
+  // slice_segment_data( ) (7.3.8.1) in tile scan: a substream ends, and the
+  // arithmetic decoder starts again at the next byte, at the end of each
+  // tile and, under WPP, of each CTB row; the contexts of each CTB as 9.3.1
+  // gives them; qPY_PREV is SliceQpY at the first quantization group of a
+  // slice, a tile and, under WPP, a CTB row (8.6.1)
   void slice_data() {
-    cabac.init_contexts(sh.type, sh.cabac_init, sh.qp);
+    const int wc = s->wctb, n = wc * s->hctb;
+    const size_t data_at = W() ? bits.out.size() : bits.pos >> 3;
+    int ts = p->rs_to_ts[sh.address];
+    subset_at.clear();
     cabac.start();
-    ctb_addr = sh.address;
-    last_cu_qp = sh.qp;
     qp_y = sh.qp;
     qp_delta_val = 0;
     qp_delta_coded = false;
-    int n = s->wctb * s->hctb;
-    for (;;) {
-      int rx = ctb_addr % s->wctb, ry = ctb_addr / s->wctb;
-      ctb_addr_slice[ctb_addr] = sh.address;
-      ctb_slice[ctb_addr] = (int)slices.size() - 1;
+    for (bool first = true;; first = false) {
+      int rs = p->ts_to_rs[ts], rx = rs % wc, ry = rs / wc;
       int x0 = rx << s->ctb_log2, y0 = ry << s->ctb_log2;
+      ctb_addr_slice[rs] = sh.slice_addr;
+      ctb_slice[rs] = (int)slices.size() - 1;
+      bool tile = ts == 0 || p->tile_id[ts] != p->tile_id[ts - 1], row = p->wpp && rx == 0;
+      if (tile) {
+        cabac.init_contexts(sh.type, sh.cabac_init, sh.qp);
+        if (p->tiles) stats[S_TILES]++;
+      } else if (row) {
+        // the CTB above and right: its contexts, else initialised ones
+        if (avail(x0, y0, x0 + s->ctb, y0 - s->ctb)) {
+          cabac.load(ctx_wpp);
+          stats[S_WPP_SYNC]++;
+        } else {
+          cabac.init_contexts(sh.type, sh.cabac_init, sh.qp);
+          stats[S_WPP_INIT]++;
+        }
+      } else if (first && sh.dependent) {
+        cabac.load(ctx_ds);
+        stats[S_DS_RESTORE]++;
+      } else if (first) {
+        cabac.init_contexts(sh.type, sh.cabac_init, sh.qp);
+      }
+      if (tile || row || (first && !sh.dependent)) last_cu_qp = sh.qp;
       if (x0 + s->ctb > s->width || y0 + s->ctb > s->height) stats[S_PARTIAL_CTB]++;
+      if (!p->lf_across_tiles && (!sh.deblock_disabled || sh.sao_luma || sh.sao_chroma))
+        stats[S_TILE_EDGE] +=
+            (rx && p->tile(rs - 1) != p->tile(rs)) + (ry && p->tile(rs - wc) != p->tile(rs));
       if (sh.sao_luma || sh.sao_chroma) sao_syntax(rx, ry);
       coding_quadtree(x0, y0, s->ctb_log2, 0);
-      int end = cabac.terminate(W() ? (ctb_addr + 1 >= n || ch->end_of_slice(ctb_addr)) : 0);
-      ctb_addr++;
+      if (p->wpp && rx == 1) cabac.save(ctx_wpp);
+      int end = cabac.terminate(W() ? (ts + 1 >= n || ch->end_of_slice(ts)) : 0);
+      ts++;
       if (end) break;
-      if (ctb_addr >= n) fail("slice runs past the end of the picture");
-      if (ctb_addr_slice[ctb_addr] != -1) fail("slices overlap");
+      if (ts >= n) fail("slice runs past the end of the picture");
+      if (ctb_addr_slice[p->ts_to_rs[ts]] != -1) fail("slices overlap");
+      if (p->tile_id[ts] != p->tile_id[ts - 1] || (p->wpp && p->ts_to_rs[ts] % wc == 0)) {
+        subset_at.push_back((uint32_t)cabac.restart());
+      }
     }
+    if (p->dependent_slices) cabac.save(ctx_ds);
     if (W())
       while (!bits.aligned()) bits.u(1, 0);
+    else
+      check_entry_points(data_at);
+  }
+
+  // 7.4.7.1: each entry point gives the bytes of a substream in the NAL unit
+  // (emulation_prevention_three_bytes counted). The decoder finds the
+  // substreams without them (as FFmpeg does) and counts each entry point
+  // that disagrees, and each substream or entry point without the other.
+  void check_entry_points(size_t data_at) {
+    auto nal_pos = [&](size_t r) {
+      return r + (size_t)(std::upper_bound(ep.begin(), ep.end(), (uint32_t)r) - ep.begin());
+    };
+    stats[S_ENTRY_POINTS] += (int64_t)sh.entry.size();
+    size_t k = 0, at = nal_pos(data_at);
+    for (; k < std::min(subset_at.size(), sh.entry.size()); k++) {
+      size_t next = nal_pos(subset_at[k]);
+      stats[S_ENTRY_MISMATCH] += next - at != sh.entry[k];
+      at = next;
+    }
+    stats[S_ENTRY_MISMATCH] += std::max(subset_at.size(), sh.entry.size()) - k;
   }
 
   // -------------------------------------------------------------- SAO --
@@ -1321,8 +1508,10 @@ struct Hevc {
     int addr = ry * s->wctb + rx;
     SaoParams want;
     int ml = 0, mu = 0;
-    bool left_ok = rx > 0 && ctb_addr_slice[addr - 1] == sh.address;
-    bool up_ok = ry > 0 && ctb_addr_slice[addr - s->wctb] == sh.address;
+    auto ok = [&](int b) {
+      return ctb_addr_slice[b] == sh.slice_addr && p->tile(b) == p->tile(addr);
+    };
+    bool left_ok = rx > 0 && ok(addr - 1), up_ok = ry > 0 && ok(addr - s->wctb);
     if (W()) ch->sao(rx, ry, left_ok, up_ok, ml, mu, want);
     if (left_ok) ml = cabac.bin(C_SAO_MERGE, ml);
     else ml = 0;
@@ -2638,7 +2827,8 @@ struct Hevc {
   // that does not disable the filter, its upper and left edges, unless they
   // are a CTB edge that is also the slice's edge in a slice without
   // slice_loop_filter_across_slices_enabled_flag, and in an inter block the
-  // grid lines inside it (0 where the motion is the same)
+  // grid lines inside it (0 where the motion is the same); a tile's edge
+  // likewise without loop_filter_across_tiles_enabled_flag
   std::vector<uint8_t> bsv, bsh;
   int bs_of(int q, int p, bool tu_edge) const {
     if ((cuflags[q] | cuflags[p]) & F_INTRA) return 2;
@@ -2670,12 +2860,10 @@ struct Hevc {
     return far(c.mv[lc], n.mv[ln]);
   }
   void bs_block(int x0, int y0, int log2) {
-    int n = 1 << log2, ctb = (y0 >> s->ctb_log2) * s->wctb + (x0 >> s->ctb_log2);
+    int n = 1 << log2, ctb = ctb_at(x0, y0);
     bool up = y0 > 0 && !(y0 & 7), left = x0 > 0 && !(x0 & 7);
-    if (up && !sh.lf_across && !(y0 & (s->ctb - 1)) && ctb_addr_slice[ctb - s->wctb] != sh.address)
-      up = false;
-    if (left && !sh.lf_across && !(x0 & (s->ctb - 1)) && ctb_addr_slice[ctb - 1] != sh.address)
-      left = false;
+    if (up && !(y0 & (s->ctb - 1)) && !across(ctb, ctb - s->wctb)) up = false;
+    if (left && !(x0 & (s->ctb - 1)) && !across(ctb, ctb - 1)) left = false;
     if (up)
       for (int i = 0; i < n; i += 4) {
         int q = at4(x0 + i, y0);
@@ -2842,7 +3030,8 @@ struct Hevc {
   // not. FFmpeg's rule at slice edges: a sample is left as it is when a
   // neighbour it compares with lies in a CTB of another slice and the
   // sample's own slice has slice_loop_filter_across_slices_enabled_flag 0
-  // (the standard looks at the later of the two slices); PCM samples under
+  // (the standard looks at the later of the two slices), or in another tile
+  // without loop_filter_across_tiles_enabled_flag; PCM samples under
   // pcm_loop_filter_disabled_flag and transquant-bypass samples stay as
   // they are.
   std::vector<uint8_t> pre[3];   // samples as SAO found them, in the CTBs it has done
@@ -2886,10 +3075,12 @@ struct Hevc {
             int ax = x + dx[eo][0], ay = y + dy[eo][0], bx = x + dx[eo][1], by = y + dy[eo][1];
             if (ax < 0 || ay < 0 || bx < 0 || by < 0 || ax >= pw || bx >= pw || ay >= ph || by >= ph)
               continue;
-            if (!si.lf_across) {
-              int ca = ((ay << sh2) >> s->ctb_log2) * s->wctb + ((ax << sh2) >> s->ctb_log2);
-              int cb = ((by << sh2) >> s->ctb_log2) * s->wctb + ((bx << sh2) >> s->ctb_log2);
-              if (ctb_addr_slice[ca] != si.addr || ctb_addr_slice[cb] != si.addr) continue;
+            if (!si.lf_across || !p->lf_across_tiles) {
+              int ca = ctb_at(ax << sh2, ay << sh2), cb = ctb_at(bx << sh2, by << sh2);
+              if (!si.lf_across && (ctb_addr_slice[ca] != si.addr || ctb_addr_slice[cb] != si.addr))
+                continue;
+              int t = p->tile(addr);
+              if (!p->lf_across_tiles && (p->tile(ca) != t || p->tile(cb) != t)) continue;
             }
             int a = input(ax, ay), b = input(bx, by);
             int sgn = (v > a) - (v < a) + (v > b) - (v < b);
@@ -2901,12 +3092,14 @@ struct Hevc {
         }
     }
   }
-  // FFmpeg's schedule (hevc_filter.c): after each CTB is decoded, the CTB up
-  // and left of it is deblocked (ff_hevc_hls_filters, with the last column
-  // and row), and each deblocking is followed by SAO of the CTB up and left
-  // of that one (ff_hevc_hls_filter), with the last column and row; the
-  // last CTB of the picture closes. The deblocking's result is the
-  // standard's; what SAO reads of its neighbours is not always.
+  // FFmpeg's schedule (hevc_filter.c): after each CTB is decoded, in tile
+  // scan, the CTB up and left of it is deblocked (ff_hevc_hls_filters, with
+  // the last column and row), and each deblocking is followed by SAO of the
+  // CTB up and left of that one (ff_hevc_hls_filter), with the last column
+  // and row; the last CTB of the picture closes. The CTBs up and left of a
+  // CTB come before it in tile scan too, so the deblocking's result is the
+  // standard's; what SAO reads of its neighbours is not always, and with
+  // tiles it reads them in another order than in raster scan.
   void filter_ctb(int rx, int ry, bool sao_on) {
     deblock_ctb(rx, ry);
     if (!sao_on) return;
@@ -2924,13 +3117,13 @@ struct Hevc {
       applied.assign((size_t)s->wctb * s->hctb * 3, 0);
     }
     int W = s->wctb, H = s->hctb;
-    for (int y = 0; y < H; y++)
-      for (int x = 0; x < W; x++) {
-        bool x_end = x == W - 1, y_end = y == H - 1;
-        if (y && x) filter_ctb(x - 1, y - 1, sao_on);
-        if (y && x_end) filter_ctb(x, y - 1, sao_on);
-        if (x && y_end) filter_ctb(x - 1, y, sao_on);
-      }
+    for (int rs : p->ts_to_rs) {
+      int x = rs % W, y = rs / W;
+      bool x_end = x == W - 1, y_end = y == H - 1;
+      if (y && x) filter_ctb(x - 1, y - 1, sao_on);
+      if (y && x_end) filter_ctb(x, y - 1, sao_on);
+      if (x && y_end) filter_ctb(x - 1, y, sao_on);
+    }
     filter_ctb(W - 1, H - 1, sao_on);
   }
 

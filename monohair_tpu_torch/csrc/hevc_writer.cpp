@@ -21,13 +21,16 @@
 //   modification of both reference lists, mvd_l1_zero_flag, TMVP and its
 //   collocated list, weights of both lists, merge candidates, QP and chroma
 //   offsets, deblocking override and offsets, SAO flags, filtering across
-//   slices.
+//   slices; when asked for, WPP or tiles (their layout drawn) and
+//   dependent slice segments, each slice segment's data coded before its
+//   header so that the header carries its entry points.
 // - frames: BGR frames in, an I/P or I/P/B stream of them out at a fixed
 //   QP: 16x16 coding units under CTBs of 16, 32 or 64 (the size given),
 //   intra 2Nx2N (the best of planar, DC, horizontal and vertical), or in P
 //   and B pictures skip/merge from the best merge candidate or AMVP from a
 //   small integer search in each list (in B pictures list 0, list 1 or the
-//   average of both), each with a quantised residual.
+//   average of both), each with a quantised residual; WPP, tiles and
+//   slice segments as in random mode.
 // The MP4 (ftyp "isom" or "qt  ", mdat, moov with an hvc1 or hev1 sample
 // entry and its hvcC) can carry a rotation in tkhd's matrix and the
 // composition offsets of reordered pictures. The NAL units carry 4-byte
@@ -55,7 +58,6 @@ struct RandomChooser : Chooser {
   RandomChooser(Hevc& co, Rng& r) : c(co), rng(r) {}
   double p_split = 0.55, p_skip = 0.25, p_intra = 0.2, p_pcm = 0.08, p_bypass = 0.08;
   double p_merge = 0.4, p_tskip = 0.3, p_qp = 0.5;
-  std::vector<int> slice_ends;  // CTB addresses that end a slice
 
   void sao(int, int, bool left_ok, bool up_ok, int& ml, int& mu, SaoParams& p) override {
     ml = left_ok && rng.chance(0.25);
@@ -131,9 +133,6 @@ struct RandomChooser : Chooser {
     }
     if (!any) lv[0] = 1;
   }
-  int end_of_slice(int ctb) override {
-    return std::find(slice_ends.begin(), slice_ends.end(), ctb) != slice_ends.end();
-  }
 };
 
 // ------------------------------------------------------------ frames --
@@ -164,7 +163,6 @@ struct FramesChooser : Chooser {
   void coeffs(int comp, int, int, int log2, int16_t* out) override {
     memcpy(out, lv[comp], sizeof(int16_t) << (2 * log2));
   }
-  int end_of_slice(int) override { return 0; }
 
   int sad(int comp, int x0, int y0, int n, const uint8_t* pred, int pstride) const {
     const uint8_t* s8 = src.plane(comp);
@@ -206,6 +204,7 @@ struct Writer {
   Options o;
   Rng rng{0};
   Rng rng_pps{0};  // the PPS's B-slice fields, drawn apart (streams without B slices stay as they were)
+  Rng rng_par{0};  // tiles and slice segments, drawn apart likewise
   Hevc codec;
   FILE* f = nullptr;
   std::string path;
@@ -238,6 +237,7 @@ struct Writer {
   int decoded = 0, since_irap = 0, last_poc = 0, display_base = 0, last_poc_max = 0;
   std::vector<PicInfo> pics;  // the pictures later ones may reference, decode order
   RaslRule ffmpeg_rasl;       // the RASL pictures FFmpeg skips: nothing may reference them
+  bool held_generated = false;  // FFmpeg's DPB holds references generated for a starting CRA
   Picture src;
 
   ~Writer() {
@@ -257,6 +257,7 @@ struct Writer {
     random_mode = o.gets("mode", "random") == "random";
     rng = Rng((uint64_t)o.get("seed", 0));
     rng_pps = Rng((uint64_t)o.get("seed", 0) ^ 0x5bd1e995u);
+    rng_par = Rng((uint64_t)o.get("seed", 0) ^ 0x27d4eb2fu);
     refuse = o.gets("refuse", "");
     qp = o.get("qp", 24);
     group = random_mode ? o.get("group", 1) : 1;
@@ -433,7 +434,7 @@ struct Writer {
       PPS p;
       p.id = i;
       p.sps_id = 0;
-      p.dependent_slices = refuse == "dependent_slice";
+      p.dependent_slices = o.getf("dependent", 0) > 0;
       p.output_flag_present = chance("output_flag", 0.3, 0);
       p.extra_bits = random_mode ? rng.range(0, 2) : 0;
       p.sign_hiding = chance("sign_hiding", 0.5, 0);
@@ -453,8 +454,9 @@ struct Writer {
       p.weighted_bipred = o.kv.count("weighted_bipred") ? o.get("weighted_bipred", 0) != 0
                                                         : random_mode && bslices && rng_pps.chance(0.3);
       p.transquant_bypass = chance("bypass", 0.3, 0);
-      p.tiles = refuse == "tiles";
-      p.wpp = refuse == "wpp";
+      p.wpp = o.get("wpp", 0) || refuse == "wpp_tiles";
+      p.tiles = o.get("tiles", 0) || refuse == "wpp_tiles";
+      if (p.tiles) draw_tiles(p, s);
       p.lf_across_slices = chance("lf_across", 0.5, 1);
       p.deblock_control = chance("deblock", 0.6, 0);
       if (p.deblock_control) {
@@ -477,6 +479,118 @@ struct Writer {
     }
   }
 
+  // the tile columns and rows (as given, else drawn), uniform or at drawn
+  // widths and heights of one CTB or more, and loop_filter_across_tiles
+  void draw_tiles(PPS& p, const SPS& s) {
+    int W = s.wctb, H = s.hctb;
+    if (W * H < 2) fail("tiles need a picture of two CTBs or more");
+    p.tile_cols = o.kv.count("tile_cols") ? o.get("tile_cols", 1) : rng_par.range(1, std::min(W, 4));
+    p.tile_rows = o.kv.count("tile_rows") ? o.get("tile_rows", 1) : rng_par.range(1, std::min(H, 4));
+    if (p.tile_cols < 1 || p.tile_rows < 1 || p.tile_cols > W || p.tile_rows > H)
+      fail("tile_cols and tile_rows must be within 1 and the picture's CTBs");
+    if (p.tile_cols * p.tile_rows == 1) {
+      if (o.kv.count("tile_cols") && o.kv.count("tile_rows")) fail("tiles need two tiles or more");
+      (W > 1 ? p.tile_cols : p.tile_rows) = 2;
+    }
+    p.uniform = o.kv.count("uniform") ? o.get("uniform", 1) : rng_par.chance(0.5);
+    // the sizes of all but the last of `parts` tiles along n CTBs: parts - 1 cuts
+    auto sizes = [&](int n, int parts) {
+      std::vector<int> cut;
+      while ((int)cut.size() < parts - 1) {
+        int c = rng_par.range(1, n - 1);
+        if (std::find(cut.begin(), cut.end(), c) == cut.end()) cut.push_back(c);
+      }
+      std::sort(cut.begin(), cut.end());
+      for (int i = (int)cut.size() - 1; i > 0; i--) cut[i] -= cut[i - 1];
+      return cut;
+    };
+    if (!p.uniform) {
+      p.col_w = sizes(W, p.tile_cols);
+      p.row_h = sizes(H, p.tile_rows);
+    }
+    p.lf_across_tiles = o.kv.count("lf_across_tiles") ? o.get("lf_across_tiles", 1) : rng_par.chance(0.5);
+  }
+
+  // The slice segments of a picture: the tile-scan address where each
+  // starts, and whether it is dependent. Without tiles, WPP or dependent
+  // segments: up to `slices` slices (random mode) at drawn addresses. Else a
+  // boundary comes at each CTB by chance, `slices` segments on average
+  // (random mode: up to that many), each dependent by the share
+  // `dependent`, where 6.3.1 and 7.4.7.1 let it be: a slice or a segment
+  // holds whole tiles or lies in one, and under WPP one that starts inside
+  // a CTB row ends in it (so a boundary comes where one must end).
+  struct Segment {
+    int ts;
+    bool dependent;
+  };
+  std::vector<Segment> draw_segments(const PPS& pp) {
+    const SPS& s = codec.sps[0];
+    int n = s.wctb * s.hctb;
+    std::vector<Segment> segs = {{0, false}};
+    if (!pp.tiles && !pp.wpp && !pp.dependent_slices) {
+      int nslices = std::min(n, random_mode ? rng.range(1, o.get("slices", 1)) : 1);
+      std::vector<int> starts = {0};
+      while ((int)starts.size() < nslices) {
+        int a = rng.range(1, n - 1);
+        if (std::find(starts.begin(), starts.end(), a) == starts.end()) starts.push_back(a);
+      }
+      std::sort(starts.begin(), starts.end());
+      for (size_t i = 1; i < starts.size(); i++) segs.push_back({starts[i], false});
+      return segs;
+    }
+    int want = random_mode ? rng_par.range(1, o.get("slices", 1)) : o.get("slices", 1);
+    double p_cut = n > 1 ? (double)(want - 1) / (n - 1) : 0, p_dep = o.getf("dependent", 0);
+    auto tile_start = [&](int t) { return t == 0 || t == n || pp.tile_id[t] != pp.tile_id[t - 1]; };
+    auto row_start = [&](int t) { return t == n || pp.ts_to_rs[t] % s.wctb == 0; };
+    // CTBs a to b - 1 may form a slice or a segment
+    auto whole = [&](int a, int b) {
+      if (pp.tiles && !(tile_start(a) && tile_start(b)) && pp.tile_id[a] != pp.tile_id[b - 1])
+        return false;
+      return !pp.wpp || row_start(a) || pp.ts_to_rs[a] / s.wctb == pp.ts_to_rs[b - 1] / s.wctb;
+    };
+    // one that starts at a and goes on past t - 1 breaks those rules
+    auto must_end = [&](int a, int t) {
+      return (pp.tiles && !tile_start(a) && tile_start(t)) || (pp.wpp && !row_start(a) && row_start(t));
+    };
+    int slice = 0, seg = 0;
+    for (int t = 1; t < n; t++) {
+      bool dep;
+      if (must_end(slice, t)) dep = false;
+      else if (must_end(seg, t) || rng_par.chance(p_cut)) dep = pp.dependent_slices && rng_par.chance(p_dep);
+      else continue;
+      if (!whole(seg, t) || (!dep && !whole(slice, t))) continue;
+      segs.push_back({t, dep});
+      seg = t;
+      if (!dep) slice = t;
+    }
+    return segs;
+  }
+
+  // entry_point_offset_minus1 + 1 of each substream but the last: its bytes
+  // in the NAL unit, emulation_prevention_three_bytes included (7.4.7.1).
+  // The header before the data ends in a byte that is not 0, so the data
+  // escapes alone as it does in the NAL unit.
+  static std::vector<uint32_t> entry_offsets(const std::vector<uint8_t>& data,
+                                             const std::vector<uint32_t>& starts) {
+    std::vector<uint32_t> out;
+    size_t k = 0, esc = 0, last = 0;
+    int zeros = 0;
+    for (size_t i = 0; k < starts.size(); i++) {
+      if (i == starts[k]) {
+        out.push_back((uint32_t)(esc - last));
+        last = esc;
+        k++;
+      }
+      if (i == data.size()) break;
+      if (zeros >= 2 && data[i] <= 3) {
+        esc++;
+        zeros = 0;
+      }
+      esc++;
+      zeros = data[i] == 0 ? zeros + 1 : 0;
+    }
+    return out;
+  }
   // the inter-RPS syntax that codes `want` from `ref`, with its deltaRps; false if none does
   bool inter_rps(StRps& want, const StRps& ref, int delta_idx_minus1) {
     std::vector<int> cands;
@@ -533,9 +647,11 @@ struct Writer {
   Job next_job() {
     Job j;
     // no IDR while the references generated for a CRA that starts the stream
-    // are held (the decoder refuses it: FFmpeg keeps them past the IDR)
-    bool generated = std::any_of(pics.begin(), pics.end(),
-                                 [](const PicInfo& pi) { return pi.kind == K_GENERATED; });
+    // are held (the decoder refuses it: FFmpeg keeps them past the IDR), in
+    // what later pictures may name or in FFmpeg's DPB
+    bool generated = held_generated || std::any_of(pics.begin(), pics.end(), [](const PicInfo& pi) {
+                       return pi.kind == K_GENERATED;
+                     });
     bool irap = decoded == 0 || (gop && since_irap >= gop && pending.empty() && !generated) ||
                 (refuse == "idr_over_generated" && generated && pending.empty());
     if (!irap) {
@@ -730,15 +846,7 @@ struct Writer {
       col_poc = random_mode ? curr[0][rng.range(0, (int)curr[0].size() - 1)]
                             : curr[j.slice == SLICE_B ? 1 : 0][0];
 
-    // slices: CTB addresses where they start
-    int nctb = s.wctb * s.hctb;
-    int nslices = std::min(nctb, random_mode ? rng.range(1, o.get("slices", 1)) : 1);
-    std::vector<int> starts = {0};
-    while ((int)starts.size() < nslices) {
-      int a = rng.range(1, nctb - 1);
-      if (std::find(starts.begin(), starts.end(), a) == starts.end()) starts.push_back(a);
-    }
-    std::sort(starts.begin(), starts.end());
+    std::vector<Segment> segs = draw_segments(pp);
 
     std::vector<uint8_t> sample;
     auto append = [&](const std::vector<uint8_t>& nal) {
@@ -762,48 +870,58 @@ struct Writer {
       chooser.reset(rc);
       rc->p_skip = o.getf("skip", 0.25);
       rc->p_pcm = o.getf("pcm_share", 0.08);
-      for (size_t i = 1; i < starts.size(); i++) rc->slice_ends.push_back(starts[i] - 1);
     } else {
       chooser.reset(new FramesChooser(codec, src));
     }
+    for (size_t i = 1; i < segs.size(); i++) chooser->segment_ends.push_back(segs[i].ts - 1);
     codec.ch = chooser.get();
     double bshare = o.getf("bslices", 0);
-    for (size_t si = 0; si < starts.size(); si++) {
+    SliceHeader slice_h;  // the header of the slice's independent segment
+    for (size_t si = 0; si < segs.size(); si++) {
       SliceHeader h = base;
+      if (segs[si].dependent) {
+        h = slice_h;
+        h.dependent = 1;
+      } else {
+        if (!inter_pic) h.type = SLICE_I;
+        else if (!random_mode) h.type = j.slice;
+        else if (!rng.chance(0.85)) h.type = SLICE_I;
+        else h.type = bshare > 0 && rng.chance(bshare) ? SLICE_B : SLICE_P;
+        h.sao_luma = s.sao && (!random_mode || rng.chance(0.8));
+        h.sao_chroma = s.sao && (!random_mode || rng.chance(0.7));
+        if (h.type != SLICE_I) inter_slice(h, pp, curr, col_poc);
+        h.qp_delta = random_mode ? rng.range(-6, 6) : qp - pp.init_qp;
+        if (pp.init_qp + h.qp_delta < 0 || pp.init_qp + h.qp_delta > 51) h.qp_delta = 0;
+        if (pp.slice_chroma_offsets) {
+          h.cb_offset = clip3(-12 - pp.cb_qp_offset, 12 - pp.cb_qp_offset, rng.range(-12, 12));
+          h.cr_offset = clip3(-12 - pp.cr_qp_offset, 12 - pp.cr_qp_offset, rng.range(-12, 12));
+        }
+        if (pp.deblock_override && rng.chance(0.6)) {
+          h.deblock_override = 1;
+          // not in a picture's first slice: FFmpeg's offsets for it would depend
+          // on its thread count (hevc.h: start_picture)
+          h.deblock_disabled = si > 0 && rng.chance(o.getf("deblock_off_share", 0.25));
+          h.beta_div2 = rng.range(-6, 6);
+          h.tc_div2 = rng.range(-6, 6);
+        }
+        h.lf_across = rng.chance(0.5);
+        slice_h = h;
+      }
       h.first = si == 0;
-      h.address = starts[si];
-      if (!inter_pic) h.type = SLICE_I;
-      else if (!random_mode) h.type = j.slice;
-      else if (!rng.chance(0.85)) h.type = SLICE_I;
-      else h.type = bshare > 0 && rng.chance(bshare) ? SLICE_B : SLICE_P;
-      if (refuse == "dependent_slice" && si == 1) h.dependent = 1;
-      h.sao_luma = s.sao && (!random_mode || rng.chance(0.8));
-      h.sao_chroma = s.sao && (!random_mode || rng.chance(0.7));
-      if (h.type != SLICE_I) inter_slice(h, pp, curr, col_poc);
-      h.qp_delta = random_mode ? rng.range(-6, 6) : qp - pp.init_qp;
-      if (pp.init_qp + h.qp_delta < 0 || pp.init_qp + h.qp_delta > 51) h.qp_delta = 0;
-      if (pp.slice_chroma_offsets) {
-        h.cb_offset = clip3(-12 - pp.cb_qp_offset, 12 - pp.cb_qp_offset, rng.range(-12, 12));
-        h.cr_offset = clip3(-12 - pp.cr_qp_offset, 12 - pp.cr_qp_offset, rng.range(-12, 12));
-      }
-      if (pp.deblock_override && rng.chance(0.6)) {
-        h.deblock_override = 1;
-        // not in a picture's first slice: FFmpeg's offsets for it would depend
-        // on its thread count (hevc.h: start_picture)
-        h.deblock_disabled = si > 0 && rng.chance(o.getf("deblock_off_share", 0.25));
-        h.beta_div2 = rng.range(-6, 6);
-        h.tc_div2 = rng.range(-6, 6);
-      }
-      h.lf_across = rng.chance(0.5);
+      h.address = pp.ts_to_rs[segs[si].ts];
+      h.entry.clear();
       Bits& b = codec.bits;
-      b.start_write();
       const SPS* sp;
       const PPS* ppp;
-      slice_header_syntax(b, h, codec.sps, codec.pps, sp, ppp);
+      const SliceHeader prev = codec.sh;
+      b.start_write();
+      slice_header_syntax(b, h, codec.sps, codec.pps, sp, ppp, prev);
       bool stop = refused_type;
-      stop |= refuse == "dependent_slice" && h.dependent;
       stop |= refuse == "missing_ref" && decoded == 1;
+      stop |= refuse == "wpp_tiles";  // the decoder refuses the PPS
       if (!stop) {
+        // the data first, in an RBSP of its own: the header before it holds
+        // the entry points of its substreams
         codec.set_slice(h, sp, ppp);
         if (h.first) {
           codec.start_picture();
@@ -811,7 +929,14 @@ struct Writer {
                                      std::to_string(codec.poc));
         }
         codec.start_slice();
+        b.start_write();
         codec.slice_data();
+        std::vector<uint8_t> data = std::move(b.out);
+        h.entry = entry_offsets(data, codec.subset_at);
+        if (o.get("bad_entry", 0) && !h.entry.empty()) h.entry[0]++;  // a wrong one, for the tests
+        b.start_write();
+        slice_header_syntax(b, h, codec.sps, codec.pps, sp, ppp, prev);
+        b.out.insert(b.out.end(), data.begin(), data.end());
       } else {
         b.trailing();
         ended = true;
@@ -846,6 +971,10 @@ struct Writer {
       if (std::find(keep.begin(), keep.end(), pi.poc) != keep.end())
         next.push_back({pi.poc, irap && pi.kind != K_GENERATED ? K_BEFORE_IRAP : pi.kind});
     pics = next;
+    // FFmpeg applies no RPS of a RASL picture it skips: what it holds stays
+    if (!skipped)
+      held_generated = std::any_of(next.begin(), next.end(),
+                                   [](const PicInfo& pi) { return pi.kind == K_GENERATED; });
     if ((irap || (type & 1)) && !skipped)
       pics.push_back({poc, rasl ? K_RASL : radl ? K_RADL : K_TRAIL});
     if (poc > last_poc) last_poc = poc;

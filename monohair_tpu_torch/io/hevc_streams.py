@@ -30,7 +30,16 @@ first and some later), ``leading`` (up to that many leading pictures after
 each IRAP: RASL after a CRA, RADL after an IDR_W_RADL; a CRA that starts
 the stream then names pictures before it that the stream does not hold),
 ``idr_n_lp``, ``refs`` (references kept), ``slices`` (up to that many a
-picture), ``intra_only``, the shares ``bslices`` (of the inter slices that
+picture; with WPP, tiles or dependent slice segments, slice segments: that
+many on average, up to that many in random mode), ``intra_only``, the
+parallel tools, off unless given (streams without them stay as they were):
+``wpp`` (entropy_coding_sync_enabled_flag), ``tiles`` with ``tile_cols``,
+``tile_rows``, ``uniform`` (else explicit sizes, of one CTB or more) and
+``lf_across_tiles`` (each drawn per PPS where absent), ``dependent`` (the
+share of slice segment boundaries that start a dependent slice segment;
+the slices and segments keep the standard's rules at tiles and WPP rows),
+``bad_entry`` (the first entry point of each slice segment one byte off,
+for the decoder's check), the shares ``bslices`` (of the inter slices that
 are B; 0 by default), ``mvd_l1_zero`` (B slices with mvd_l1_zero_flag),
 ``col_l1`` (B slices taking the collocated picture from list 1), ``nonref``
 (sub-layer non-reference pictures), ``no_output_prior`` (IRAPs with
@@ -44,13 +53,15 @@ the SPS's); ``hev1`` (sample entry hev1, parameter sets in band), ``inband``
 ``primaries``/``transfer`` (VUI colour), ``hrd`` (VUI timing and HRD
 parameters), ``ctts`` (0: no composition offsets for reordered pictures),
 ``refuse`` (write a feature the decoder refuses: main10, rext, bit_depth10,
-chroma422, long_term, tiles, wpp, dependent_slice, bla, tsa_stsa,
-missing_ref, idr_over_generated: an IDR right after the leading pictures of a
-CRA that starts the stream, with cra=3). Frames mode takes ``bframes`` (0-4 B pictures between
-anchors, each group coded after the anchor that follows it), ``pyramid``
-(the middle B a reference, coded first), ``refs``, and ``gop`` with ``cra``
-(1: every ``gop`` frames a CRA whose B pictures are RASL, an open GOP; 0: an
-IDR_W_RADL whose B pictures are RADL).
+chroma422, long_term, wpp_tiles (WPP and tiles in one PPS), bla, tsa_stsa,
+missing_ref, idr_over_generated: an IDR right after the leading pictures of
+a CRA that starts the stream, with cra=3). Frames mode takes ``bframes``
+(0-4 B pictures between anchors, each group coded after the anchor that
+follows it), ``pyramid`` (the middle B a reference, coded first), ``refs``,
+``gop`` with ``cra`` (1: every ``gop`` frames a CRA whose B pictures are
+RASL, an open GOP; 0: an IDR_W_RADL whose B pictures are RADL), and the
+parallel tools with ``slices`` as above (``wpp=1`` as x265 writes by
+default).
 """
 
 from __future__ import annotations

@@ -103,7 +103,14 @@ H264_STAT_NAMES = ("idr_pictures", "i_slices", "p_slices", "cabac_slices", "intr
 # their left and upper edges; sao_*: CTB components; hidden_pictures:
 # pic_output_flag 0; discarded_pictures: dropped by
 # no_output_of_prior_pics_flag; repeated_ref_slices: reference lists longer
-# than the pictures they cycle through)
+# than the pictures they cycle through; wpp_synced_rows and
+# wpp_initialised_rows: CTB rows whose contexts come from the row above, or
+# start afresh, under WPP; tiles: tiles decoded; tile_edges_unfiltered: CTB
+# edges on a tile's edge that the loop filters do not cross;
+# dependent_restores: dependent slice segments that take the contexts of the
+# segment before them; entry_points: entry_point_offset_minus1 read;
+# entry_point_mismatches: entry points that do not give their substream's
+# length, 0 in a right stream)
 HEVC_STAT_NAMES = ("idr_pictures", "cra_pictures", "trail_n_pictures", "i_slices", "p_slices",
                    "multi_slice_pictures", "ctb16_pictures", "ctb32_pictures", "ctb64_pictures",
                    "partial_ctbs", "intra_cus", "intra_nxn_cus", "pcm_cus", "bypass_cus",
@@ -119,7 +126,10 @@ HEVC_STAT_NAMES = ("idr_pictures", "cra_pictures", "trail_n_pictures", "i_slices
                    "b_slices", "bipred_pus", "l1_pus", "combined_merge_cands",
                    "mvd_l1_zero_pus", "col_l1_slices", "bi_col_blocks",
                    "weighted_bipred_slices", "rasl_pictures", "radl_pictures",
-                   "skipped_rasl_pictures")
+                   "skipped_rasl_pictures", "wpp_pictures", "wpp_synced_rows",
+                   "wpp_initialised_rows", "tile_pictures", "tiles", "tile_edges_unfiltered",
+                   "dependent_slice_segments", "dependent_restores", "entry_points",
+                   "entry_point_mismatches")
 _CODECS = {"mp4v": (SOURCE, MP4V_ENTRIES, STAT_NAMES),
            "h264": (H264_SOURCE, H264_ENTRIES, H264_STAT_NAMES),
            "hevc": (HEVC_SOURCE, HEVC_ENTRIES, HEVC_STAT_NAMES)}
@@ -133,8 +143,8 @@ class UnsupportedVideoError(ValueError):
     or the short video header; in H.264 SP/SI slices, fields/MBAFF, other
     chroma formats or bit depths, slice groups, redundant pictures, data
     partitioning, the transform bypass or a gap in frame_num; in HEVC BLA
-    and TSA/STSA pictures, WPP, tiles, dependent slice segments, long-term
-    references, other profiles, bit depths or chroma formats."""
+    and TSA/STSA pictures, tiles with WPP in one PPS, long-term references,
+    other profiles, bit depths or chroma formats."""
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

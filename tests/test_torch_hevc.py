@@ -13,14 +13,22 @@ named feature set of random Main-profile I/P/B syntax, two seeds each, at small
 sizes with partial CTBs on the right and bottom edges and CTBs of 16, 32 and
 64, with the frame count, fps and size that cv2 reports; the counters of
 what the stream used show that the feature was exercised, and every counter
-is exercised by some set. Where FFmpeg departs from the standard (SAO beside
-deferred deblocking, the chroma of transquant-bypass blocks under SAO, the
-deblocking offsets it carries from CTB to CTB, its output order, the RASL
-pictures it skips), the decoder takes FFmpeg's way, and the sets that reach
-those paths hold it. The writer's frames mode round-trips frames at >= 30 dB,
-I/P and I/P/B (B pyramids, open and closed GOPs). hvc1 and hev1 both decode;
-a portrait display matrix rotates the frames as cv2 rotates them.
-Every refused feature raises UnsupportedVideoError naming it."""
+is exercised by some set. The parallel tools are among the sets: WPP on
+pictures one and two CTBs wide and with slices, dependent slice segments and
+B slices; uniform and explicit tiles (tiles one CTB wide among them), with
+and without loop filtering across their edges; every substream of every
+stream starts where its entry points say (cv2's FFmpeg finds the substreams
+without them, so the decoder counts each that does not, and a stream whose
+writer was told to get one wrong shows it). Where FFmpeg departs from the
+standard (SAO beside deferred deblocking, the chroma of transquant-bypass
+blocks under SAO, the deblocking offsets it carries from CTB to CTB, the
+filters' order in tile scan, its output order, the RASL pictures it skips),
+the decoder takes FFmpeg's way, and the sets that reach those paths hold it.
+The writer's frames mode round-trips frames at >= 30 dB, I/P and I/P/B (B
+pyramids, open and closed GOPs), with WPP as x265 writes it by default, and
+with tiles and dependent slice segments. hvc1 and hev1 both decode; a
+portrait display matrix rotates the frames as cv2 rotates them. Every refused
+feature raises UnsupportedVideoError naming it."""
 
 import pytest
 
@@ -94,7 +102,36 @@ FEATURE_SETS = {
     # a stream that starts with a CRA: FFmpeg neither decodes nor outputs its RASL pictures
     "cra_first_skipped_rasl": (dict(cra=3, leading=3, gop=4, bslices=0.5, refs=3), SIZE,
                                ("skipped_rasl_pictures", "cra_pictures")),
+    # WPP on a picture one CTB wide: no CTB above and right, each row starts afresh
+    "wpp_one_ctb_wide": (dict(wpp=1, ctb=32, refs=2, sao=1, deblock=1), (24, 136),
+                         ("wpp_pictures", "wpp_initialised_rows", "entry_points")),
+    # two CTBs wide: each row takes the contexts stored after the row above's last CTB
+    "wpp_two_ctbs_wide": (dict(wpp=1, ctb=16, refs=2, cu_qp_delta=1), (32, 72),
+                          ("wpp_pictures", "wpp_synced_rows", "entry_points", "qp_delta_cus")),
+    "wpp_slices_dependent_b": (dict(wpp=1, ctb=16, slices=8, dependent=0.6, bslices=0.6, group=3,
+                                    refs=3, sao=1, deblock=1), (136, 72),
+                               ("wpp_synced_rows", "wpp_initialised_rows", "multi_slice_pictures",
+                                "dependent_slice_segments", "dependent_restores", "b_slices")),
+    "tiles_uniform_no_lf_ctb16": (dict(tiles=1, tile_cols=3, tile_rows=2, uniform=1,
+                                       lf_across_tiles=0, sao=1, deblock=1, ctb=16, refs=2),
+                                  (136, 72),
+                                  ("tile_pictures", "tiles", "tile_edges_unfiltered",
+                                   "sao_edge_ctbs", "sao_band_ctbs", "deblocked_slices")),
+    # explicit sizes on a picture of 5 x 3 CTBs: columns and rows one CTB wide
+    "tiles_explicit_dependent": (dict(tiles=1, tile_cols=4, tile_rows=3, uniform=0, slices=8,
+                                      dependent=0.6, ctb=16, refs=2), SIZE,
+                                 ("tiles", "dependent_slice_segments", "dependent_restores",
+                                  "entry_points")),
+    # PCM samples near 0 put emulation_prevention_three_bytes inside the
+    # substreams, which the entry points count
+    "wpp_pcm_escapes": (dict(wpp=1, ctb=16, intra_only=1, pcm=1, pcm_share=1), SIZE,
+                        ("wpp_pictures", "pcm_cus", "entry_points")),
+    "tiles_slices_qp_b": (dict(tiles=1, lf_across_tiles=1, slices=6, bslices=0.6, cu_qp_delta=1,
+                               group=2, refs=2, sao=1, deblock=1, ctb=32), (136, 72),
+                          ("tile_pictures", "multi_slice_pictures", "qp_delta_cus", "b_slices")),
 }
+# counters that every stream holds at 0
+ZERO_COUNTERS = ("entry_point_mismatches",)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -113,6 +150,8 @@ def test_decode_equals_cv2_bitwise(name, seed, tmp_path):
     assert_same_frames(got, want)
     for key in used:
         assert stats[key] > 0, (key, stats)
+    for key in ZERO_COUNTERS:
+        assert stats[key] == 0, (key, stats)
     if name == "cra_first_skipped_rasl":  # cv2 counts the samples, not the frames it returns
         assert len(got) <= FRAMES - stats["skipped_rasl_pictures"]
     data = open(path, "rb").read()
@@ -123,8 +162,8 @@ def test_decode_equals_cv2_bitwise(name, seed, tmp_path):
 
 
 def test_every_counter_is_held_against_cv2():
-    """The decoder claims no tool that no feature set exercises."""
-    held = {key for _, _, used in FEATURE_SETS.values() for key in used}
+    """The decoder claims no tool that no feature set exercises (or holds at 0)."""
+    held = {key for _, _, used in FEATURE_SETS.values() for key in used} | set(ZERO_COUNTERS)
     assert held == set(HEVC_STAT_NAMES), set(HEVC_STAT_NAMES) - held
 
 
@@ -164,6 +203,49 @@ def test_frames_mode_ipb_round_trip(gop, tmp_path):
     assert min(psnr(a, b) for a, b in zip(got, frames)) >= 30.0
 
 
+PARALLEL_FRAMES = {
+    # x265's defaults: WPP, 4 B pictures between anchors, a B pyramid, 3 references
+    "wpp_ipb": (dict(wpp=1, bframes=4, pyramid=1, refs=3, gop=8, cra=1, ctb=32),
+                ("wpp_pictures", "wpp_synced_rows", "b_slices", "entry_points")),
+    "tiles_dependent": (dict(tiles=1, tile_cols=3, tile_rows=2, lf_across_tiles=0, slices=10,
+                             dependent=0.5, ctb=16),
+                        ("tile_pictures", "tile_edges_unfiltered", "dependent_slice_segments",
+                         "entry_points")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARALLEL_FRAMES))
+def test_frames_mode_parallel_tools_round_trip(name, tmp_path):
+    features, used = PARALLEL_FRAMES[name]
+    frames = smooth_frames(72, 136, 10)
+    path = str(tmp_path / f"{name}.mp4")
+    write_frames(path, frames, fps=24, qp=24, **features)
+    want, props = cv2_read(path)
+    assert props == (len(frames), 24.0, 136, 72) and video_info(path) == props
+    with VideoReader(path) as reader:
+        got = list(reader)
+        stats = reader.stats
+    assert_same_frames(got, want)
+    for key in used:
+        assert stats[key] > 0, (key, stats)
+    assert stats["entry_point_mismatches"] == 0
+    assert min(psnr(a, b) for a, b in zip(got, frames)) >= 30.0
+
+
+def test_wrong_entry_points_are_counted(tmp_path):
+    """cv2's FFmpeg decodes a stream whose first entry point of each slice is
+    one byte off as it decodes a right one; the decoder does too, and counts
+    each wrong one."""
+    path = str(tmp_path / "bad_entry.mp4")
+    write_random(path, (72, 40), 4, seed=3, wpp=1, ctb=16, bad_entry=1)
+    want, _ = cv2_read(path)
+    with VideoReader(path) as reader:
+        got = list(reader)
+        stats = reader.stats
+    assert_same_frames(got, want)
+    assert stats["entry_point_mismatches"] == 4 and stats["entry_points"] == 8
+
+
 @pytest.mark.parametrize("entry", ["hvc1", "hev1"])
 def test_hvc1_and_hev1_decode(entry, tmp_path):
     path = str(tmp_path / f"{entry}.mp4")
@@ -198,9 +280,7 @@ REFUSED = {
     # name: (writer features, the words the error names)
     "bla_pictures": (dict(refuse="bla"), "BLA pictures"),
     "tsa_stsa_pictures": (dict(refuse="tsa_stsa"), "TSA/STSA pictures"),
-    "wpp": (dict(refuse="wpp"), "entropy_coding_sync_enabled_flag"),
-    "tiles": (dict(refuse="tiles"), "tiles"),
-    "dependent_slices": (dict(refuse="dependent_slice", slices=3), "dependent slice segments"),
+    "wpp_and_tiles": (dict(refuse="wpp_tiles"), "tiles and WPP in one PPS"),
     "long_term_refs": (dict(refuse="long_term"), "long-term reference pictures"),
     "main10_profile": (dict(refuse="main10"), "Main 10"),
     "rext_profile": (dict(refuse="rext"), "profiles other than Main"),
@@ -242,13 +322,16 @@ def test_an_unknown_sample_entry_is_refused_by_name(tmp_path):
 
 
 @pytest.mark.parametrize("rotation, b", [(0, {}), (90, {}),
-                                         (0, dict(bframes=4, pyramid=1, refs=3, gop=8, cra=1))],
-                         ids=["0", "90", "b_frames"])
+                                         (0, dict(bframes=4, pyramid=1, refs=3, gop=8, cra=1)),
+                                         (0, dict(bframes=4, pyramid=1, refs=3, gop=8, cra=1,
+                                                  wpp=1))],
+                         ids=["0", "90", "b_frames", "x265_defaults"])
 def test_extract_sharpest_frames_keeps_the_jax_frames(rotation, b, tmp_path):
     """On an HEVC file, the port keeps the frames the JAX package's
     extract_sharpest_frames keeps (cv2.VideoCapture there), with the same
     pixels; with a portrait display matrix both keep portrait frames; and
-    so on an I/P/B stream (B pyramid, an open GOP with RASL pictures)."""
+    so on an I/P/B stream (B pyramid, an open GOP with RASL pictures), with
+    WPP too as x265 writes by default."""
     import cv2
     import numpy as np
 

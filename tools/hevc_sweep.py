@@ -7,9 +7,12 @@ feature sets of tests/test_torch_hevc.py hold two seeds each: this draws
 configurations (CTB and coding block sizes, POCs out of decode order, IRAP
 kinds, RASL/RADL leading pictures, B slices with their list 1, mvd_l1_zero
 and collocated list, slices, deblocking and SAO, weights and bi-prediction
-weights, list modification, TMVP, the residual tools, ...) from a seed, on top of the writer's own per-stream
-draws, and prints one line a stream, then the count of mismatches. Run on
-the CPU:
+weights, list modification, TMVP, the residual tools, WPP or tiles and
+dependent slice segments, ...) from a seed, on top of the writer's own
+per-stream draws, and prints one line a stream, then the count of
+mismatches and of the streams that used WPP, tiles and dependent slice
+segments. A stream whose substreams do not start where its entry points say
+counts as a mismatch too. Run on the CPU:
 
     python tools/hevc_sweep.py --seed 1 --configs 100
 """
@@ -65,23 +68,37 @@ def draw(rnd: random.Random) -> tuple:
                          (0.5, dict(bslices=rnd.choice([0.3, 0.6, 1.0]))),
                          (0.3, dict(mvd_l1_zero=0.5)), (0.3, dict(col_l1=0.8)),
                          (0.2, dict(weighted_bipred=1)),
-                         (0.3, dict(leading=rnd.choice([1, 2, 3])))):
+                         (0.3, dict(leading=rnd.choice([1, 2, 3]))),
+                         (0.3, dict(dependent=rnd.choice([0.3, 0.6, 1.0]),
+                                    slices=rnd.choice([3, 6, 10])))):
         if rnd.random() < share:
             f.update(extra)
     size = rnd.choice([(72, 40), (64, 48), (32, 32), (136, 72), (96, 64)])
+    # WPP or tiles (the decoder refuses both in one PPS; tiles need two CTBs)
+    tool, ctbs = rnd.random(), -(-size[0] // f["ctb"]) * -(-size[1] // f["ctb"])
+    if tool < 0.3:
+        f.update(wpp=1)
+    elif tool < 0.6 and ctbs > 1:
+        f.update(tiles=1)
     return size, n, f
 
 
-def check(path: str, size, n: int, seed: int, features: dict) -> bool:
+TOOLS = {"wpp": "wpp_pictures", "tiles": "tile_pictures", "dependent": "dependent_slice_segments"}
+
+
+def check(path: str, size, n: int, seed: int, features: dict) -> tuple:
+    """Whether the stream decodes as cv2 decodes it, and the tools it used."""
     write_random(path, size, n, seed=seed, **features)
     want, props = cv2_frames(path)
     with VideoReader(path) as reader:
         got = list(reader)
+        stats = reader.stats
     same = (len(got) == len(want) and video_info(path) == props
-            and all(np.array_equal(a, b) for a, b in zip(got, want)))
+            and all(np.array_equal(a, b) for a, b in zip(got, want))
+            and not stats["entry_point_mismatches"])
     print(f"{'OK ' if same else 'BAD'} seed {seed} {size} {n} frames, {len(got)} decoded, "
           f"{len(want)} by cv2: {features}", flush=True)
-    return same
+    return same, {tool for tool, key in TOOLS.items() if stats[key]}
 
 
 def main(argv=None) -> int:
@@ -92,13 +109,18 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     rnd = random.Random(args.seed)
     bad = 0
+    used = dict.fromkeys(TOOLS, 0)
     with tempfile.TemporaryDirectory(prefix="hevc_sweep_") as tmp:
         path = os.path.join(tmp, "s.mp4")
         for k in range(args.configs):
             size, n, features = draw(rnd)
             for j in range(args.seeds):
-                bad += not check(path, size, n, 10 * k + j, features)
-    print(f"{bad} of {args.configs * args.seeds} streams differ from cv2")
+                same, tools = check(path, size, n, 10 * k + j, features)
+                bad += not same
+                for tool in tools:
+                    used[tool] += 1
+    print(f"{bad} of {args.configs * args.seeds} streams differ from cv2; "
+          + ", ".join(f"{v} used {k}" for k, v in used.items()))
     return 1 if bad else 0
 
 
