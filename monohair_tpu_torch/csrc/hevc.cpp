@@ -9,10 +9,12 @@
 // Each sample is one access unit.
 //
 // Decoder: hevc.h. H.265 defines every output sample in integers, so the
-// YUV planes are FFmpeg's; the frame is cropped to the conformance window and
-// converted to BGR24 as swscale converts yuv420p for cv2 (mp4.h), with the
-// VUI's matrix_coefficients and video_full_range_flag as cv2 hands them to
-// swscale, then rotated by the display matrix. What cv2 converts otherwise is
+// YUV planes are FFmpeg's, at 8, 9 or 10 bits; the frame is cropped to the
+// conformance window and converted to BGR24 as swscale converts yuv420p, or
+// yuv420p9/yuv420p10, for cv2 (mp4.h), with the VUI's matrix_coefficients
+// and video_full_range_flag as cv2 hands them to swscale, then rotated by the
+// display matrix. hvcC's bit depths are read and each SPS that disagrees with
+// them is counted (FFmpeg decodes by the SPS). What cv2 converts otherwise is
 // refused by name, as for H.264: a left crop, BT.2020 or other primaries,
 // PQ/HLG transfers, the GBR, YCgCo and BT.2020 matrices. Frames leave in the
 // order FFmpeg hands them to cv2 (hevc.h: Hevc::output_frames), the rest
@@ -33,7 +35,8 @@ struct Reader {
   size_t next = 0;
   int length_size = 4;
   int width = 0, height = 0;  // cropped, before rotation
-  int coded_w = 0, coded_h = 0;
+  int coded_w = 0, coded_h = 0, bit_depth = 0;
+  int hvcc_bit_depth[2] = {8, 8};  // hvcC's bitDepthLumaMinus8 + 8 and bitDepthChromaMinus8 + 8
   bool eos = false;
   bool skipping = false;  // the slices of a RASL picture FFmpeg skips
   std::vector<uint8_t> bgr;
@@ -49,6 +52,8 @@ struct Reader {
       unsupported("sample entry '" + t.entry + "' without an hvcC box (no HEVC configuration)");
     if (c.size() < 23) fail("short hvcC box");
     if (c[0] != 1) fail("hvcC configurationVersion " + std::to_string(c[0]));
+    hvcc_bit_depth[0] = (c[17] & 7) + 8;
+    hvcc_bit_depth[1] = (c[18] & 7) + 8;
     length_size = (c[21] & 3) + 1;
     if (length_size == 3) fail("hvcC lengthSizeMinusOne 2");
     size_t pos = 23;
@@ -125,9 +130,19 @@ struct Reader {
         coded_h = s.height;
         width = cw;
         height = ch;
+        bit_depth = s.bit_depth;
       } else if (s.width != coded_w || s.height != coded_h || cw != width || ch != height) {
         unsupported("a change of picture size within the stream");
+      } else if (s.bit_depth != bit_depth) {
+        unsupported("a change of bit depth within the stream");
       }
+      // FFmpeg decodes by the SPS and reads nothing of hvcC's bit depths:
+      // one that disagrees is counted, not refused
+      if (s.bit_depth != hvcc_bit_depth[0] || s.bit_depth_c != hvcc_bit_depth[1])
+        codec.stats[S_HVCC_MISMATCH]++;
+      if (s.bit_depth > 8 && ch < 10)
+        unsupported("a picture of " + std::to_string(ch) + " rows at " + std::to_string(s.bit_depth) +
+                    " bits (swscale converts fewer than 10 rows through its bilinear paths)");
       codec.sps[s.id] = s;
       return;
     }
@@ -209,11 +224,17 @@ struct Reader {
       dst = bgr.data();
     }
     bool colour = s.vui && s.signal_type && s.colour_desc;
-    yuv420_to_bgr(pic->y.data() + (size_t)y0 * pic->w + x0, pic->w,
-                  pic->cb.data() + (size_t)(y0 / 2) * (pic->w / 2) + x0 / 2,
-                  pic->cr.data() + (size_t)(y0 / 2) * (pic->w / 2) + x0 / 2, pic->w / 2, width,
-                  height, dst,
-                  yuv2rgb_coefficients(colour ? s.matrix : 2, s.vui && s.signal_type && s.full_range));
+    int matrix = colour ? s.matrix : 2;
+    bool full = s.vui && s.signal_type && s.full_range;
+    const Pel* Y = pic->y.data() + (size_t)y0 * pic->w + x0;
+    const Pel* U = pic->cb.data() + (size_t)(y0 / 2) * (pic->w / 2) + x0 / 2;
+    const Pel* V = pic->cr.data() + (size_t)(y0 / 2) * (pic->w / 2) + x0 / 2;
+    // FFmpeg reports the left chroma location for 4:2:0 without the VUI's
+    if (s.bit_depth > 8)
+      yuv420_high_to_bgr(Y, pic->w, U, V, pic->w / 2, width, height, s.bit_depth, dst, matrix, full,
+                         s.vui && s.chroma_loc ? s.chroma_loc_type : 0);
+    else
+      yuv420_to_bgr(Y, pic->w, U, V, pic->w / 2, width, height, dst, yuv2rgb_coefficients(matrix, full));
     if (movie.rotation) rotate_bgr(dst, width, height, movie.rotation, out);
     return 1;
   }

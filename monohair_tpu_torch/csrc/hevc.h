@@ -10,7 +10,14 @@
 // same pictures. The writer's streams are held against FFmpeg's decoder
 // (cv2), never only against this decoder.
 //
-// Scope: the Main profile's I, P and B slices, 8-bit 4:2:0: VPS/SPS/PPS with
+// Scope: the Main and Main 10 profiles' I, P and B slices, 4:2:0 at 8, 9 or
+// 10 bits (luma and chroma alike; the samples are 16-bit at every depth, and
+// each rule that scales with the bit depth takes it: QpBdOffset and QpY's
+// wrap, the chroma QP table's lower bound, dequantisation's and the inverse
+// transform's shifts, transform skip, intra's neutral value and strong
+// smoothing threshold, PCM's shift, the interpolation's and weighted
+// prediction's shifts and offsets, the deblocking's beta and tC, SAO's offset
+// range and band shift): VPS/SPS/PPS with
 // short-term reference picture sets (in the SPS and the slice header, with
 // inter-RPS prediction), the conformance window and VUI colour; NAL unit types
 // IDR_W_RADL, IDR_N_LP, CRA, TRAIL_N/R and the leading pictures RASL_N/R and
@@ -38,10 +45,12 @@
 // its way is taken, as each place says: the pictures it outputs and when
 // (ff_hevc_output_frames), the POC of a CRA that starts a stream, the RASL
 // pictures it skips (RaslRule), SAO at the edges of slices that do not
-// filter across them, the loop filters' order in tile scan (loop_filters).
+// filter across them, the loop filters' order in tile scan (loop_filters),
+// the residual added in 16-bit words at 10 bits (reconstruct_residual).
 // Everything else is refused by name (Error code 2): BLA, TSA/STSA, WPP
-// and tiles in one PPS, long-term reference pictures, profiles other than Main,
-// bit depths above 8, chroma formats other than 4:2:0, the
+// and tiles in one PPS, long-term reference pictures, profiles other than
+// Main and Main 10, bit depths above 10, luma and chroma bit depths that
+// differ, chroma formats other than 4:2:0, the
 // range/multilayer/3D/SCC extensions, a missing reference picture (other
 // than those of a CRA that starts the stream, which only its skipped RASL
 // pictures use).
@@ -64,6 +73,10 @@
 namespace {
 
 inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
+
+// A decoded sample, of 8, 9 or 10 bits, and Clip1 (8-4) to the largest one
+using Pel = uint16_t;
+inline Pel clip_pel(int v, int max) { return (Pel)(v < 0 ? 0 : v > max ? max : v); }
 inline int ceil_log2(int v) {
   int n = 0;
   while ((1 << n) < v) n++;
@@ -161,10 +174,9 @@ void refuse(const Bits& b, const std::string& what) {
 }
 
 void check_profile(const Bits& b, int profile_idc) {
-  if (profile_idc == 1 || b.writing) return;
-  if (profile_idc == 2) unsupported("profile Main 10 (general_profile_idc 2; the port decodes Main)");
+  if (profile_idc == 1 || profile_idc == 2 || b.writing) return;
   unsupported("general_profile_idc " + std::to_string(profile_idc) +
-              " (profiles other than Main; the port decodes Main)");
+              " (profiles other than Main and Main 10; the port decodes those two)");
 }
 
 struct VPS {
@@ -370,10 +382,14 @@ struct SPS {
   // VUI
   int vui = 0, aspect = 0, aspect_idc = 1, signal_type = 0, video_format = 5, full_range = 0;
   int colour_desc = 0, primaries = 2, transfer = 2, matrix = 2, chroma_loc = 0;
+  int chroma_loc_type = 0;  // chroma_sample_loc_type_top_field (FFmpeg's; the bottom field's is ignored)
   int default_window = 0, timing = 0, hrd = 0, restriction = 0;
   int field_seq = 0, frame_field_info = 0;
   // derived
   int ctb_log2 = 4, ctb = 16, wctb = 0, hctb = 0, min_cb = 8, max_tb_log2 = 4;
+  // QpBdOffsetY (= QpBdOffsetC: the bit depths are equal) and the largest sample
+  int qp_bd_offset() const { return 6 * (bit_depth - 8); }
+  int max_pel() const { return (1 << bit_depth) - 1; }
 };
 
 // hrd_parameters( 1, maxNumSubLayersMinus1 ): the writer codes one CPB of
@@ -425,7 +441,12 @@ void vui_syntax(Bits& b, SPS& s) {
     }
   }
   s.chroma_loc = b.flag(s.chroma_loc);
-  if (s.chroma_loc) { b.ue(0); b.ue(0); }
+  if (s.chroma_loc) {
+    s.chroma_loc_type = (int)b.ue(s.chroma_loc_type);
+    b.ue(s.chroma_loc_type);  // chroma_sample_loc_type_bottom_field
+  } else {
+    s.chroma_loc_type = 0;
+  }
   b.flag(0);  // neutral_chroma_indication_flag
   s.field_seq = b.flag(0);
   s.frame_field_info = b.flag(0);
@@ -486,9 +507,11 @@ void sps_syntax(Bits& b, SPS& s, const VPS* vps_table) {
     for (int i = 0; i < 4; i++) s.conf[i] = 0;
   s.bit_depth = (int)b.ue(s.bit_depth - 8) + 8;
   s.bit_depth_c = (int)b.ue(s.bit_depth_c - 8) + 8;
-  if (s.bit_depth != 8 || s.bit_depth_c != 8)
-    refuse(b, "bit depth " + std::to_string(std::max(s.bit_depth, s.bit_depth_c)) +
-                " (the port decodes 8-bit video)");
+  if (s.bit_depth != s.bit_depth_c)
+    refuse(b, "bit depths that differ (luma " + std::to_string(s.bit_depth) + ", chroma " +
+                std::to_string(s.bit_depth_c) + ")");
+  else if (s.bit_depth > 10)
+    refuse(b, "bit depth " + std::to_string(s.bit_depth) + " (the port decodes 8, 9 and 10 bits)");
   s.log2_max_poc_lsb = (int)b.ue(s.log2_max_poc_lsb - 4) + 4;
   if (s.log2_max_poc_lsb > 16) fail("log2_max_pic_order_cnt_lsb_minus4 out of range");
   s.ordering_info = b.flag(s.ordering_info);
@@ -530,7 +553,7 @@ void sps_syntax(Bits& b, SPS& s, const VPS* vps_table) {
     s.log2_min_pcm = (int)b.ue(s.log2_min_pcm - 3) + 3;
     s.log2_diff_pcm = (int)b.ue(s.log2_diff_pcm);
     s.pcm_loop_filter_disabled = b.flag(s.pcm_loop_filter_disabled);
-    if (s.pcm_bd > 8 || s.pcm_bd_c > 8 ||
+    if (s.pcm_bd > s.bit_depth || s.pcm_bd_c > s.bit_depth_c ||
         s.log2_min_pcm + s.log2_diff_pcm > std::min(s.ctb_log2, 5))
       fail("PCM parameters out of range");
   }
@@ -622,6 +645,7 @@ void pps_syntax(Bits& b, PPS& p, const SPS* sps_table) {
     if (p.num_ref_default[l] > 15) fail("num_ref_idx_default_active_minus1 out of range");
   }
   p.init_qp = b.se(p.init_qp - 26) + 26;
+  if (p.init_qp < -s.qp_bd_offset() || p.init_qp > 51) fail("init_qp_minus26 out of range");
   p.constrained_intra = b.flag(p.constrained_intra);
   // FFmpeg checks constrained intra prediction's neighbours by minimum
   // prediction blocks, which are larger than 4x4 here: not reproduced
@@ -904,7 +928,7 @@ void independent_header_syntax(Bits& b, SliceHeader& h, const SPS& s, const PPS&
   }
   h.qp_delta = b.se(h.qp_delta);
   h.qp = p.init_qp + h.qp_delta;
-  if (h.qp < 0 || h.qp > 51) fail("SliceQpY out of range");
+  if (h.qp < -s.qp_bd_offset() || h.qp > 51) fail("SliceQpY out of range");
   if (p.slice_chroma_offsets) {
     h.cb_offset = b.se(h.cb_offset);
     h.cr_offset = b.se(h.cr_offset);
@@ -949,23 +973,24 @@ struct PbMotion {
 
 struct Picture {
   int w = 0, h = 0, w4 = 0, h4 = 0;
-  std::vector<uint8_t> y, cb, cr;
+  std::vector<Pel> y, cb, cr;
   std::vector<PbMotion> mv;
   int poc = 0, id = 0;
   bool output = false, ref = false;
   bool missing = false;  // generated for an RPS entry that was not there (8.3.3)
-  void alloc(int width, int height) {
+  void alloc(int width, int height, int bit_depth = 8) {
     w = width;
     h = height;
     w4 = (w + 3) / 4;
     h4 = (h + 3) / 4;
+    Pel grey = (Pel)(1 << (bit_depth - 1));
     y.assign((size_t)w * h, 0);
-    cb.assign((size_t)(w / 2) * (h / 2), 128);
-    cr.assign((size_t)(w / 2) * (h / 2), 128);
+    cb.assign((size_t)(w / 2) * (h / 2), grey);
+    cr.assign((size_t)(w / 2) * (h / 2), grey);
     mv.assign((size_t)w4 * h4, PbMotion{});
   }
-  uint8_t* plane(int c) { return c == 0 ? y.data() : c == 1 ? cb.data() : cr.data(); }
-  const uint8_t* plane(int c) const { return c == 0 ? y.data() : c == 1 ? cb.data() : cr.data(); }
+  Pel* plane(int c) { return c == 0 ? y.data() : c == 1 ? cb.data() : cr.data(); }
+  const Pel* plane(int c) const { return c == 0 ? y.data() : c == 1 ? cb.data() : cr.data(); }
   int stride(int c) const { return c ? w / 2 : w; }
 };
 using PicPtr = std::shared_ptr<Picture>;
@@ -996,7 +1021,8 @@ enum Stat {
   S_SPS_RPS, S_HIDDEN, S_DISCARDED, S_CABAC_INIT, S_REPEATED_REF, S_BSLICE, S_BIPRED, S_L1_PU,
   S_COMBINED, S_MVD_L1_ZERO, S_COL_L1, S_BI_COL, S_WEIGHTED_BI, S_RASL, S_RADL, S_RASL_SKIPPED,
   S_WPP_PIC, S_WPP_SYNC, S_WPP_INIT, S_TILE_PIC, S_TILES, S_TILE_EDGE, S_DEPENDENT, S_DS_RESTORE,
-  S_ENTRY_POINTS, S_ENTRY_MISMATCH, kStatCount
+  S_ENTRY_POINTS, S_ENTRY_MISMATCH, S_PIC9, S_PIC10, S_NEG_QP, S_SAO_BIG, S_PCM_UPSHIFT,
+  S_HVCC_MISMATCH, kStatCount
 };
 
 // The RASL pictures FFmpeg skips: those that follow a CRA with
@@ -1043,7 +1069,7 @@ struct Chooser {
                    SaoParams& p) = 0;
   virtual int split_cu(int x0, int y0, int log2) = 0;
   virtual void cu(int x0, int y0, int log2, CuChoice& c) = 0;
-  virtual void pcm_samples(int x0, int y0, int log2, uint8_t* samples) = 0;
+  virtual void pcm_samples(int x0, int y0, int log2, Pel* samples) = 0;
   virtual int intra_mode(int x, int y, int log2) = 0;
   virtual int chroma_mode(int x0, int y0, int luma_mode) = 0;
   // merge: the merge candidates (max_merge of them); amvp_query(list, ref, flag) gives a predictor
@@ -1091,7 +1117,8 @@ struct Hevc {
 
   // the picture's block state, by 4x4 block (w4 x h4) or CTB
   int w4 = 0, h4 = 0;
-  std::vector<uint8_t> cuflags, qpy, ctdepth, ipm, cbf4;
+  std::vector<uint8_t> cuflags, ctdepth, ipm, cbf4;
+  std::vector<int8_t> qpy;  // QpY, below 0 at more than 8 bits
   std::vector<uint32_t> zs;        // z-scan order of each 4x4 block (6.5.2, in tile scan)
   std::vector<int> ctb_addr_slice;  // SliceAddrRs of each decoded CTB, -1 before
   std::vector<int> ctb_slice;       // index into slices
@@ -1268,7 +1295,7 @@ struct Hevc {
     for (const PicPtr& f : dpb)
       if (f->poc == poc) fail("two pictures with POC " + std::to_string(poc));
     cur = std::make_shared<Picture>();
-    cur->alloc(s->width, s->height);
+    cur->alloc(s->width, s->height, s->bit_depth);
     cur->poc = poc;
     cur->id = next_id++;
     cur->output = sh.pic_output != 0;
@@ -1288,8 +1315,8 @@ struct Hevc {
           if (g->ref && g->poc == want) f = g;
         if (!f && first && t == CRA) {
           f = std::make_shared<Picture>();
-          f->alloc(s->width, s->height);
-          std::fill(f->y.begin(), f->y.end(), 128);
+          f->alloc(s->width, s->height, s->bit_depth);
+          std::fill(f->y.begin(), f->y.end(), (Pel)(1 << (s->bit_depth - 1)));
           f->poc = want;
           f->id = next_id++;
           f->ref = true;
@@ -1319,6 +1346,8 @@ struct Hevc {
     if (s->ctb_log2 == 6) stats[S_CTB64]++;
     if (p->wpp) stats[S_WPP_PIC]++;
     if (p->tiles) stats[S_TILE_PIC]++;
+    if (s->bit_depth == 9) stats[S_PIC9]++;
+    if (s->bit_depth == 10) stats[S_PIC10]++;
   }
 
   // RefPicList0 (8.3.4): StCurrBefore then StCurrAfter, RefPicList1:
@@ -1534,8 +1563,12 @@ struct Hevc {
         P.type[2] = P.type[1];
       }
       if (!P.type[c]) continue;
-      int absv[4];
-      for (int i = 0; i < 4; i++) absv[i] = tr_bypass(7, std::abs(want.offset[c][i]));
+      // sao_offset_abs: cMax (1 << (Min(bitDepth, 10) - 5)) - 1
+      int absv[4], cmax = (1 << (std::min(s->bit_depth, 10) - 5)) - 1;
+      for (int i = 0; i < 4; i++) {
+        absv[i] = tr_bypass(cmax, std::abs(want.offset[c][i]));
+        stats[S_SAO_BIG] += absv[i] > 7;
+      }
       if (P.type[c] == 1) {
         stats[S_SAO_BAND]++;
         for (int i = 0; i < 4; i++) {
@@ -1582,7 +1615,9 @@ struct Hevc {
     }
   }
 
-  // 8.6.1: QpY of a coding unit from its quantization group's prediction and CuQpDeltaVal
+  // 8.6.1: QpY of a coding unit from its quantization group's prediction and
+  // CuQpDeltaVal, from -QpBdOffsetY to 51; QpCb and QpCr from Table 8-10
+  // (each without its QpBdOffsetC, which dequantisation adds)
   void derive_qp(int x0, int y0) {
     int ctb = s->ctb_log2;
     int qa = qp_prev, qb = qp_prev;
@@ -1590,13 +1625,14 @@ struct Hevc {
       qa = qpy[at4(qg_x - 1, qg_y)];
     if (((qg_y - 1) >> ctb) == (qg_y >> ctb) && qg_y > 0 && avail(x0, y0, qg_x, qg_y - 1))
       qb = qpy[at4(qg_x, qg_y - 1)];
-    int pred = (qa + qb + 1) >> 1;
-    qp_y = ((pred + qp_delta_val + 52) % 52);
-    qp_cb = chroma_qp(qp_y + p->cb_qp_offset + sh.cb_offset);
-    qp_cr = chroma_qp(qp_y + p->cr_qp_offset + sh.cr_offset);
+    int pred = (qa + qb + 1) >> 1, off = s->qp_bd_offset();
+    qp_y = ((pred + qp_delta_val + 52 + 2 * off) % (52 + off)) - off;
+    qp_cb = chroma_qp(qp_y + p->cb_qp_offset + sh.cb_offset, off);
+    qp_cr = chroma_qp(qp_y + p->cr_qp_offset + sh.cr_offset, off);
   }
-  static int chroma_qp(int qpi) {
-    qpi = clip3(0, 57, qpi);
+  // qPi clipped to -QpBdOffsetC..57, then Table 8-10
+  static int chroma_qp(int qpi, int off) {
+    qpi = clip3(-off, 57, qpi);
     return qpi < 30 ? qpi : qpi > 43 ? qpi - 6 : kQpC[qpi - 30];
   }
 
@@ -1712,29 +1748,32 @@ struct Hevc {
     }
     if (pcm && s->pcm_loop_filter_disabled) fill4(x0, y0, n, n, [&](int i) { cuflags[i] |= F_NOFILTER; });
     if (pcm) fill4(x0, y0, n, n, [&](int i) { cuflags[i] |= F_PCM; });
-    fill4(x0, y0, n, n, [&](int i) { qpy[i] = (uint8_t)qp_y; });
+    fill4(x0, y0, n, n, [&](int i) { qpy[i] = (int8_t)qp_y; });
+    if (qp_y < 0) stats[S_NEG_QP]++;
     if (!tree && !sh.deblock_disabled) bs_block(x0, y0, log2);
     last_cu_qp = qp_y;
   }
 
   // -------------------------------------------------------------- PCM --
+  // 8.4.4.1: each sample shifted up by BitDepth - PcmBitDepth
   void pcm_sample(int x0, int y0, int log2) {
     stats[S_PCM]++;
+    if (s->pcm_bd < s->bit_depth || s->pcm_bd_c < s->bit_depth_c) stats[S_PCM_UPSHIFT]++;
     int n = 1 << log2, nc = n / 2;
-    std::vector<uint8_t> smp(n * n + 2 * nc * nc);
+    std::vector<Pel> smp(n * n + 2 * nc * nc);
     if (W()) ch->pcm_samples(x0, y0, log2, smp.data());
     while (!bits.aligned()) bits.u(1, 0);  // pcm_alignment_zero_bit
-    for (int i = 0; i < n * n; i++) smp[i] = (uint8_t)bits.u(s->pcm_bd, smp[i]);
-    for (int i = n * n; i < (int)smp.size(); i++) smp[i] = (uint8_t)bits.u(s->pcm_bd_c, smp[i]);
+    for (int i = 0; i < n * n; i++) smp[i] = (Pel)bits.u(s->pcm_bd, smp[i]);
+    for (int i = n * n; i < (int)smp.size(); i++) smp[i] = (Pel)bits.u(s->pcm_bd_c, smp[i]);
     cabac.start();
     for (int y = 0; y < n; y++)
       for (int x = 0; x < n; x++)
-        cur->y[(size_t)(y0 + y) * cur->w + x0 + x] = (uint8_t)(smp[y * n + x] << (8 - s->pcm_bd));
+        cur->y[(size_t)(y0 + y) * cur->w + x0 + x] = (Pel)(smp[y * n + x] << (s->bit_depth - s->pcm_bd));
     for (int c = 1; c < 3; c++)
       for (int y = 0; y < nc; y++)
         for (int x = 0; x < nc; x++)
           cur->plane(c)[(size_t)(y0 / 2 + y) * (cur->w / 2) + x0 / 2 + x] =
-              (uint8_t)(smp[n * n + (c - 1) * nc * nc + y * nc + x] << (8 - s->pcm_bd_c));
+              (Pel)(smp[n * n + (c - 1) * nc * nc + y * nc + x] << (s->bit_depth_c - s->pcm_bd_c));
   }
 
   // ------------------------------------------------------------ intra --
@@ -1807,8 +1846,8 @@ struct Hevc {
   void intra_pred(int c, int x0, int y0, int log2, int mode) {
     int n = 1 << log2, sh2 = c ? 1 : 0;
     int xl = x0 << sh2, yl = y0 << sh2, unit = 4 >> sh2;
-    int stride = cur->stride(c);
-    uint8_t* pl = cur->plane(c);
+    int stride = cur->stride(c), bd = s->bit_depth, maxv = s->max_pel();
+    Pel* pl = cur->plane(c);
     // arr: p[-1][2n-1] .. p[-1][-1], p[0][-1] .. p[2n-1][-1]
     int arr[129];
     bool ok[129];
@@ -1842,7 +1881,7 @@ struct Hevc {
     }
     int total = 4 * n + 1;
     if (!any) {
-      for (int i = 0; i < total; i++) arr[i] = 128;
+      for (int i = 0; i < total; i++) arr[i] = 1 << (bd - 1);
     } else {
       if (!ok[0]) {
         int i = 1;
@@ -1863,7 +1902,7 @@ struct Hevc {
       int thres = n == 8 ? 7 : n == 16 ? 1 : 0;
       if (dist > thres) {
         int fl[129], ft[129];
-        int thr = 1 << (8 - 5);
+        int thr = 1 << (bd - 5);
         if (s->strong_smoothing && n == 32 &&
             std::abs(top[0] + top[2 * n] - 2 * top[n]) < thr &&
             std::abs(left[0] + left[2 * n] - 2 * left[n]) < thr) {
@@ -1888,11 +1927,11 @@ struct Hevc {
         memcpy(top, ft, sizeof(int) * (2 * n + 1));
       }
     }
-    auto out = [&](int x, int y) -> uint8_t& { return pl[(size_t)(y0 + y) * stride + x0 + x]; };
+    auto out = [&](int x, int y) -> Pel& { return pl[(size_t)(y0 + y) * stride + x0 + x]; };
     if (mode == 0) {  // planar
       for (int y = 0; y < n; y++)
         for (int x = 0; x < n; x++)
-          out(x, y) = (uint8_t)(((n - 1 - x) * left[y + 1] + (x + 1) * top[n + 1] +
+          out(x, y) = (Pel)(((n - 1 - x) * left[y + 1] + (x + 1) * top[n + 1] +
                                  (n - 1 - y) * top[x + 1] + (y + 1) * left[n + 1] + n) >>
                                 (log2 + 1));
       return;
@@ -1902,11 +1941,11 @@ struct Hevc {
       for (int i = 1; i <= n; i++) sum += left[i] + top[i];
       int dc = sum >> (log2 + 1);
       for (int y = 0; y < n; y++)
-        for (int x = 0; x < n; x++) out(x, y) = (uint8_t)dc;
+        for (int x = 0; x < n; x++) out(x, y) = (Pel)dc;
       if (c == 0 && n < 32) {
-        out(0, 0) = (uint8_t)((left[1] + 2 * dc + top[1] + 2) >> 2);
-        for (int x = 1; x < n; x++) out(x, 0) = (uint8_t)((top[x + 1] + 3 * dc + 2) >> 2);
-        for (int y = 1; y < n; y++) out(0, y) = (uint8_t)((left[y + 1] + 3 * dc + 2) >> 2);
+        out(0, 0) = (Pel)((left[1] + 2 * dc + top[1] + 2) >> 2);
+        for (int x = 1; x < n; x++) out(x, 0) = (Pel)((top[x + 1] + 3 * dc + 2) >> 2);
+        for (int y = 1; y < n; y++) out(0, y) = (Pel)((left[y + 1] + 3 * dc + 2) >> 2);
       }
       return;
     }
@@ -1931,15 +1970,15 @@ struct Hevc {
       for (int i = 0; i < n; i++) {
         int v = fact ? ((32 - fact) * ref[i + idx + 1] + fact * ref[i + idx + 2] + 16) >> 5
                      : ref[i + idx + 1];
-        if (vertical) out(i, j) = (uint8_t)v;
-        else out(j, i) = (uint8_t)v;
+        if (vertical) out(i, j) = (Pel)v;
+        else out(j, i) = (Pel)v;
       }
     }
     if (c == 0 && n < 32) {
       if (mode == 26)
-        for (int y = 0; y < n; y++) out(0, y) = clip8(top[1] + ((left[y + 1] - left[0]) >> 1));
+        for (int y = 0; y < n; y++) out(0, y) = clip_pel(top[1] + ((left[y + 1] - left[0]) >> 1), maxv);
       if (mode == 10)
-        for (int x = 0; x < n; x++) out(x, 0) = clip8(left[1] + ((top[x + 1] - top[0]) >> 1));
+        for (int x = 0; x < n; x++) out(x, 0) = clip_pel(left[1] + ((top[x + 1] - top[0]) >> 1), maxv);
     }
   }
 
@@ -2294,7 +2333,7 @@ struct Hevc {
 
   // 8.5.3.3: fractional sample interpolation and weighted sample prediction
   void predict_inter(int x0, int y0, int w, int h, const Motion& m) {
-    uint8_t* dst[3];
+    Pel* dst[3];
     int stride[3];
     for (int c = 0; c < 3; c++) {
       stride[c] = cur->stride(c);
@@ -2306,10 +2345,12 @@ struct Hevc {
   // 14-bit intermediates stay 16-bit, as FFmpeg's do. Default
   // bi-prediction averages them; explicit weights (weighted_pred_flag in P,
   // weighted_bipred_flag in B slices) weight each list's, uni or bi (8-252,
-  // 8-264)
-  void predict_block(int x0, int y0, int w, int h, const Motion& m, uint8_t* const dst[3],
+  // 8-264), with shift1 = 14 - bitDepth and the offsets scaled by
+  // 1 << (bitDepth - 8)
+  void predict_block(int x0, int y0, int w, int h, const Motion& m, Pel* const dst[3],
                      const int stride[3]) {
     bool weighted = sh.type == SLICE_P ? p->weighted_pred : sh.type == SLICE_B && p->weighted_bipred;
+    const int bd = s->bit_depth, maxv = s->max_pel(), shift1 = 14 - bd;
     static thread_local std::vector<int16_t> tmp[2];
     for (int l = 0; l < 2; l++) tmp[l].resize((size_t)w * h);
     for (int c = 0; c < 3; c++) {
@@ -2320,52 +2361,61 @@ struct Hevc {
         if (c == 0) mc_luma(ref, bx, by, bw, bh, m.mv[l][0], m.mv[l][1], tmp[l].data());
         else mc_chroma(ref, c, bx, by, bw, bh, m.mv[l][0], m.mv[l][1], tmp[l].data());
       }
-      int denom = c ? sh.chroma_denom : sh.luma_denom, log2wd = denom + 6;
+      int denom = c ? sh.chroma_denom : sh.luma_denom, log2wd = denom + shift1;
       auto wt = [&](int l) { return c ? sh.chroma_w[l][m.ref[l]][c - 1] : sh.luma_w[l][m.ref[l]]; };
-      auto of = [&](int l) { return c ? sh.chroma_o[l][m.ref[l]][c - 1] : sh.luma_o[l][m.ref[l]]; };
+      auto of = [&](int l) {
+        return (c ? sh.chroma_o[l][m.ref[l]][c - 1] : sh.luma_o[l][m.ref[l]]) * (1 << (bd - 8));
+      };
       const int16_t* a = tmp[0].data();
       const int16_t* b = tmp[1].data();
-      uint8_t* out = dst[c];
+      Pel* out = dst[c];
       int os = stride[c];
       if (m.pred == 3 && !weighted) {
+        int round = 1 << shift1;
         for (int y = 0; y < bh; y++)
           for (int x = 0; x < bw; x++)
-            out[y * os + x] = clip8((a[y * bw + x] + b[y * bw + x] + 64) >> 7);
+            out[y * os + x] = clip_pel((a[y * bw + x] + b[y * bw + x] + round) >> (shift1 + 1), maxv);
       } else if (m.pred == 3) {
         int w0 = wt(0), w1 = wt(1), o = (of(0) + of(1) + 1) << log2wd;
         for (int y = 0; y < bh; y++)
           for (int x = 0; x < bw; x++)
-            out[y * os + x] = clip8((a[y * bw + x] * w0 + b[y * bw + x] * w1 + o) >> (log2wd + 1));
+            out[y * os + x] =
+                clip_pel((a[y * bw + x] * w0 + b[y * bw + x] * w1 + o) >> (log2wd + 1), maxv);
       } else {
         int l = m.pred == 2 ? 1 : 0;
         const int16_t* t = l ? b : a;
         if (!weighted) {
+          int round = 1 << (shift1 - 1);
           for (int y = 0; y < bh; y++)
-            for (int x = 0; x < bw; x++) out[y * os + x] = clip8((t[y * bw + x] + 32) >> 6);
+            for (int x = 0; x < bw; x++) out[y * os + x] = clip_pel((t[y * bw + x] + round) >> shift1, maxv);
         } else {
           int w0 = wt(l), o = of(l);
           for (int y = 0; y < bh; y++)
             for (int x = 0; x < bw; x++)
-              out[y * os + x] = clip8(((t[y * bw + x] * w0 + (1 << (log2wd - 1))) >> log2wd) + o);
+              out[y * os + x] =
+                  clip_pel(((t[y * bw + x] * w0 + (1 << (log2wd - 1))) >> log2wd) + o, maxv);
         }
       }
     }
   }
   // reference samples (w + taps - 1) x (h + taps - 1) from (x, y), the picture's edges replicated
-  static void fetch(const uint8_t* pl, int pw, int ph, int x, int y, int w, int h, uint8_t* win) {
+  static void fetch(const Pel* pl, int pw, int ph, int x, int y, int w, int h, Pel* win) {
     if (x >= 0 && y >= 0 && x + w <= pw && y + h <= ph) {
-      for (int r = 0; r < h; r++) memcpy(win + r * w, pl + (size_t)(y + r) * pw + x, w);
+      for (int r = 0; r < h; r++) memcpy(win + r * w, pl + (size_t)(y + r) * pw + x, w * sizeof(Pel));
       return;
     }
     for (int r = 0; r < h; r++) {
-      const uint8_t* row = pl + (size_t)clip3(0, ph - 1, y + r) * pw;
+      const Pel* row = pl + (size_t)clip3(0, ph - 1, y + r) * pw;
       for (int k = 0; k < w; k++) win[r * w + k] = row[clip3(0, pw - 1, x + k)];
     }
   }
+  // 8.5.3.3.3: a full sample shifted up by shift3 = 14 - bitDepth; a filter
+  // pass on the samples shifted down by shift1 = bitDepth - 8, the second of
+  // two passes by shift2 = 6
   void mc_luma(const Picture& ref, int x0, int y0, int w, int h, int mvx, int mvy, int16_t* dst) {
     int xf = mvx & 3, yf = mvy & 3, xi = x0 + (mvx >> 2), yi = y0 + (mvy >> 2);
-    int ww = w + 7, wh = h + 7;
-    static thread_local std::vector<uint8_t> win;
+    int ww = w + 7, wh = h + 7, shift1 = s->bit_depth - 8, shift3 = 14 - s->bit_depth;
+    static thread_local std::vector<Pel> win;
     static thread_local std::vector<int16_t> t;
     win.resize((size_t)ww * wh);
     fetch(ref.y.data(), ref.w, ref.h, xi - 3, yi - 3, ww, wh, win.data());
@@ -2373,30 +2423,30 @@ struct Hevc {
     const int8_t* fy = kLumaFilter[yf];
     if (!xf && !yf) {
       for (int y = 0; y < h; y++)
-        for (int x = 0; x < w; x++) dst[y * w + x] = (int16_t)(win[(y + 3) * ww + x + 3] << 6);
+        for (int x = 0; x < w; x++) dst[y * w + x] = (int16_t)(win[(y + 3) * ww + x + 3] << shift3);
     } else if (!yf) {
       for (int y = 0; y < h; y++)
         for (int x = 0; x < w; x++) {
-          const uint8_t* s8 = &win[(y + 3) * ww + x];
+          const Pel* s8 = &win[(y + 3) * ww + x];
           int v = 0;
           for (int i = 0; i < 8; i++) v += fx[i] * s8[i];
-          dst[y * w + x] = (int16_t)v;
+          dst[y * w + x] = (int16_t)(v >> shift1);
         }
     } else if (!xf) {
       for (int y = 0; y < h; y++)
         for (int x = 0; x < w; x++) {
           int v = 0;
           for (int i = 0; i < 8; i++) v += fy[i] * win[(y + i) * ww + x + 3];
-          dst[y * w + x] = (int16_t)v;
+          dst[y * w + x] = (int16_t)(v >> shift1);
         }
     } else {
       t.resize((size_t)w * wh);
       for (int r = 0; r < wh; r++)
         for (int x = 0; x < w; x++) {
-          const uint8_t* s8 = &win[r * ww + x];
+          const Pel* s8 = &win[r * ww + x];
           int v = 0;
           for (int i = 0; i < 8; i++) v += fx[i] * s8[i];
-          t[r * w + x] = (int16_t)v;
+          t[r * w + x] = (int16_t)(v >> shift1);
         }
       for (int y = 0; y < h; y++)
         for (int x = 0; x < w; x++) {
@@ -2406,11 +2456,12 @@ struct Hevc {
         }
     }
   }
+  // 8.5.3.3.3.2: the chroma counterpart, with the 4-tap filters
   void mc_chroma(const Picture& ref, int c, int x0, int y0, int w, int h, int mvx, int mvy,
                  int16_t* dst) {
     int xf = mvx & 7, yf = mvy & 7, xi = x0 + (mvx >> 3), yi = y0 + (mvy >> 3);
-    int ww = w + 3, wh = h + 3;
-    static thread_local std::vector<uint8_t> win;
+    int ww = w + 3, wh = h + 3, shift1 = s->bit_depth_c - 8, shift3 = 14 - s->bit_depth_c;
+    static thread_local std::vector<Pel> win;
     static thread_local std::vector<int16_t> t;
     win.resize((size_t)ww * wh);
     fetch(ref.plane(c), ref.w / 2, ref.h / 2, xi - 1, yi - 1, ww, wh, win.data());
@@ -2418,26 +2469,28 @@ struct Hevc {
     const int8_t* fy = kChromaFilter[yf];
     if (!xf && !yf) {
       for (int y = 0; y < h; y++)
-        for (int x = 0; x < w; x++) dst[y * w + x] = (int16_t)(win[(y + 1) * ww + x + 1] << 6);
+        for (int x = 0; x < w; x++) dst[y * w + x] = (int16_t)(win[(y + 1) * ww + x + 1] << shift3);
     } else if (!yf) {
       for (int y = 0; y < h; y++)
         for (int x = 0; x < w; x++) {
-          const uint8_t* s4 = &win[(y + 1) * ww + x];
-          dst[y * w + x] = (int16_t)(fx[0] * s4[0] + fx[1] * s4[1] + fx[2] * s4[2] + fx[3] * s4[3]);
+          const Pel* s4 = &win[(y + 1) * ww + x];
+          dst[y * w + x] =
+              (int16_t)((fx[0] * s4[0] + fx[1] * s4[1] + fx[2] * s4[2] + fx[3] * s4[3]) >> shift1);
         }
     } else if (!xf) {
       for (int y = 0; y < h; y++)
         for (int x = 0; x < w; x++) {
           int v = 0;
           for (int i = 0; i < 4; i++) v += fy[i] * win[(y + i) * ww + x + 1];
-          dst[y * w + x] = (int16_t)v;
+          dst[y * w + x] = (int16_t)(v >> shift1);
         }
     } else {
       t.resize((size_t)w * wh);
       for (int r = 0; r < wh; r++)
         for (int x = 0; x < w; x++) {
-          const uint8_t* s4 = &win[r * ww + x];
-          t[r * w + x] = (int16_t)(fx[0] * s4[0] + fx[1] * s4[1] + fx[2] * s4[2] + fx[3] * s4[3]);
+          const Pel* s4 = &win[r * ww + x];
+          t[r * w + x] =
+              (int16_t)((fx[0] * s4[0] + fx[1] * s4[1] + fx[2] * s4[2] + fx[3] * s4[3]) >> shift1);
         }
       for (int y = 0; y < h; y++)
         for (int x = 0; x < w; x++) {
@@ -2488,7 +2541,8 @@ struct Hevc {
       while (pre && k < 5 && cabac.bin(C_QP_DELTA + 1, a > k)) k++;
       if (k == 5) k += eg_bypass(0, a - 5);
       if (k && cabac.bypass(v < 0)) k = -k;
-      if (k < -26 || k > 25) fail("CuQpDeltaVal out of range");
+      int half = s->qp_bd_offset() / 2;
+      if (k < -(26 + half) || k > 25 + half) fail("CuQpDeltaVal out of range");
       qp_delta_coded = true;
       qp_delta_val = k;
       if (k) stats[S_QP_DELTA]++;
@@ -2729,18 +2783,20 @@ struct Hevc {
     reconstruct_residual(c, x0, y0, log2, out, ts);
   }
 
-  // 8.6.2-8.6.4: scaling, transform and the residual added to the prediction
+  // 8.6.2-8.6.4: scaling (qP = Qp' = Qp + QpBdOffset, bdShift = bitDepth +
+  // log2 - 5), transform (the second stage's bdShift 20 - bitDepth, which
+  // transform skip's d << 7 takes too) and the residual added to the prediction
   void reconstruct_residual(int c, int x0, int y0, int log2, const int16_t* lv, int ts) {
     const Tables& T = tables();
-    int n = 1 << log2;
+    int n = 1 << log2, bd = c ? s->bit_depth_c : s->bit_depth;
     int res[32 * 32];
-    uint8_t* pl = cur->plane(c);
+    Pel* pl = cur->plane(c);
     int stride = cur->stride(c);
     if (cu_bypass) {
       for (int i = 0; i < n * n; i++) res[i] = lv[i];
     } else {
-      int qp = c == 0 ? qp_y : c == 1 ? qp_cb : qp_cr;
-      int bd_shift = log2 + 3;
+      int qp = (c == 0 ? qp_y : c == 1 ? qp_cb : qp_cr) + s->qp_bd_offset();
+      int bd_shift = bd + log2 - 5, bd_shift2 = 20 - bd;
       int64_t scale = (int64_t)kLevelScale[qp % 6] << (qp / 6);
       bool lists = s->scaling_enabled && !(ts && log2 > 2);
       const ScalingList& sl = p->scaling_present ? p->sl : s->sl;
@@ -2766,7 +2822,7 @@ struct Hevc {
           maxy = std::max(maxy, y);
         }
       if (ts) {
-        for (int i = 0; i < n * n; i++) res[i] = (d[i] * 128 + (1 << 11)) >> 12;
+        for (int i = 0; i < n * n; i++) res[i] = (d[i] * 128 + (1 << (bd_shift2 - 1))) >> bd_shift2;
       } else {
         if (log2 == 5) stats[S_TB32]++;
         bool dst = cu_intra && c == 0 && log2 == 2;
@@ -2787,7 +2843,7 @@ struct Hevc {
           }
           for (int y = 0; y < n; y++) e[y * n + x] = clip3(-32768, 32767, (col[y] + 64) >> 7);
         }
-        // rows: res[y][x] = (sum_k basis_k[x] e[y][k] + 2048) >> 12
+        // rows: res[y][x] = (sum_k basis_k[x] e[y][k] + (1 << (bdShift - 1))) >> bdShift
         for (int y = 0; y < n; y++) {
           int row[32] = {0};
           for (int k = 0; k <= maxx; k++) {
@@ -2796,14 +2852,21 @@ struct Hevc {
             const int8_t* bk = basis(k);
             for (int x = 0; x < n; x++) row[x] += bk[x] * c;
           }
-          for (int x = 0; x < n; x++) res[y * n + x] = (row[x] + 2048) >> 12;
+          for (int x = 0; x < n; x++) res[y * n + x] = (row[x] + (1 << (bd_shift2 - 1))) >> bd_shift2;
         }
       }
     }
+    // FFmpeg adds the residual, clipped to 16 bits, to the prediction: at 10
+    // bits in 16-bit words without saturation (x86 paddw), so a sum past
+    // 32767 wraps below 0 and is clipped to 0; at 8 bits saturating (which
+    // the clip to 0..255 absorbs) and at 9 in C (exact)
+    const int maxv = (1 << bd) - 1;
+    const bool wrap = bd == 10;
     for (int y = 0; y < n; y++)
       for (int x = 0; x < n; x++) {
-        uint8_t& px = pl[(size_t)(y0 + y) * stride + x0 + x];
-        px = clip8(px + res[y * n + x]);
+        Pel& px = pl[(size_t)(y0 + y) * stride + x0 + x];
+        int v = px + clip3(-32768, 32767, res[y * n + x]);
+        px = clip_pel(wrap ? (int16_t)v : v, maxv);
       }
   }
   // the index of (x, y) in the up-right diagonal scan of a (1 << l) block
@@ -2888,15 +2951,16 @@ struct Hevc {
     }
   }
   // one 4-sample segment of a luma or chroma edge at luma (x, y), with the
-  // offsets FFmpeg's loop gives it (deblock_ctb)
+  // offsets FFmpeg's loop gives it (deblock_ctb); beta and tC scaled by
+  // 1 << (bitDepth - 8)
   void luma_segment(int x, int y, int dir, int beta_off, int tc_off) {
     if (x >= s->width || y >= s->height) return;
     int i = at4(x, y), b = dir ? bsh[i] : bsv[i];
     if (!b) return;
     int pi = dir ? i - w4 : i - 1;
-    int qpl = (qpy[i] + qpy[pi] + 1) >> 1;
-    int beta = kBetaTable[clip3(0, 51, qpl + beta_off)];
-    int tc = kTcTable[clip3(0, 53, qpl + 2 * (b - 1) + tc_off)];
+    int qpl = (qpy[i] + qpy[pi] + 1) >> 1, scale = 1 << (s->bit_depth - 8);
+    int beta = kBetaTable[clip3(0, 51, qpl + beta_off)] * scale;
+    int tc = kTcTable[clip3(0, 53, qpl + 2 * (b - 1) + tc_off)] * scale;
     luma_edge(x, y, dir, beta, tc, cuflags[pi] & F_NOFILTER, cuflags[i] & F_NOFILTER);
   }
   void chroma_segment(int c, int x, int y, int dir, int tc_off) {
@@ -2905,9 +2969,10 @@ struct Hevc {
     if ((dir ? bsh[i] : bsv[i]) != 2) return;
     int pi = dir ? i - w4 : i - 1;
     int qpl = (qpy[i] + qpy[pi] + 1) >> 1;
-    // the PPS offset only: the slice's is not used (FFmpeg clips qPi to 0..57)
-    int qpc = chroma_qp(qpl + (c == 1 ? p->cb_qp_offset : p->cr_qp_offset));
-    int tc = kTcTable[clip3(0, 53, qpc + 2 + tc_off)];
+    // the PPS offset only: the slice's is not used (FFmpeg clips qPi to 0..57,
+    // where the standard takes Table 8-10 below 0 too: tC' is 0 either way)
+    int qpc = chroma_qp(qpl + (c == 1 ? p->cb_qp_offset : p->cr_qp_offset), 0);
+    int tc = kTcTable[clip3(0, 53, qpc + 2 + tc_off)] * (1 << (s->bit_depth_c - 8));
     chroma_edge(c, x / 2, y / 2, dir, tc, cuflags[pi] & F_NOFILTER, cuflags[i] & F_NOFILTER);
   }
   // 8.7.2 for one CTB as FFmpeg's deblocking_filter_CTB cuts the picture:
@@ -2967,12 +3032,12 @@ struct Hevc {
       }
   }
   void luma_edge(int x0, int y0, int dir, int beta, int tc, bool nop, bool noq) {
-    uint8_t* pl = cur->y.data();
-    int stride = cur->w;
+    Pel* pl = cur->y.data();
+    int stride = cur->w, maxv = s->max_pel();
     int xs = dir ? 1 : stride, step = dir ? stride : 1;  // xs: along the edge; step: across
-    uint8_t* base = pl + (size_t)y0 * stride + x0;
-    auto P = [&](int k, int i) -> uint8_t& { return base[k * xs - (i + 1) * step]; };
-    auto Q = [&](int k, int i) -> uint8_t& { return base[k * xs + i * step]; };
+    Pel* base = pl + (size_t)y0 * stride + x0;
+    auto P = [&](int k, int i) -> Pel& { return base[k * xs - (i + 1) * step]; };
+    auto Q = [&](int k, int i) -> Pel& { return base[k * xs + i * step]; };
     int dp0 = std::abs(P(0, 2) - 2 * P(0, 1) + P(0, 0)), dp3 = std::abs(P(3, 2) - 2 * P(3, 1) + P(3, 0));
     int dq0 = std::abs(Q(0, 2) - 2 * Q(0, 1) + Q(0, 0)), dq3 = std::abs(Q(3, 2) - 2 * Q(3, 1) + Q(3, 0));
     int d = dp0 + dq0 + dp3 + dq3;
@@ -2989,38 +3054,40 @@ struct Hevc {
       if (strong) {
         int t2 = 2 * tc;
         if (!nop) {
-          P(k, 0) = (uint8_t)clip3(p0 - t2, p0 + t2, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
-          P(k, 1) = (uint8_t)clip3(p1 - t2, p1 + t2, (p2 + p1 + p0 + q0 + 2) >> 2);
-          P(k, 2) = (uint8_t)clip3(p2 - t2, p2 + t2, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
+          P(k, 0) = (Pel)clip3(p0 - t2, p0 + t2, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
+          P(k, 1) = (Pel)clip3(p1 - t2, p1 + t2, (p2 + p1 + p0 + q0 + 2) >> 2);
+          P(k, 2) = (Pel)clip3(p2 - t2, p2 + t2, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
         }
         if (!noq) {
-          Q(k, 0) = (uint8_t)clip3(q0 - t2, q0 + t2, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
-          Q(k, 1) = (uint8_t)clip3(q1 - t2, q1 + t2, (p0 + q0 + q1 + q2 + 2) >> 2);
-          Q(k, 2) = (uint8_t)clip3(q2 - t2, q2 + t2, (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3);
+          Q(k, 0) = (Pel)clip3(q0 - t2, q0 + t2, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
+          Q(k, 1) = (Pel)clip3(q1 - t2, q1 + t2, (p0 + q0 + q1 + q2 + 2) >> 2);
+          Q(k, 2) = (Pel)clip3(q2 - t2, q2 + t2, (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3);
         }
       } else {
         int delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4;
         if (std::abs(delta) >= tc * 10) continue;
         delta = clip3(-tc, tc, delta);
-        if (!nop) P(k, 0) = clip8(p0 + delta);
-        if (!noq) Q(k, 0) = clip8(q0 - delta);
-        if (dep && !nop) P(k, 1) = clip8(p1 + clip3(-(tc >> 1), tc >> 1, (((p2 + p0 + 1) >> 1) - p1 + delta) >> 1));
-        if (deq && !noq) Q(k, 1) = clip8(q1 + clip3(-(tc >> 1), tc >> 1, (((q2 + q0 + 1) >> 1) - q1 - delta) >> 1));
+        if (!nop) P(k, 0) = clip_pel(p0 + delta, maxv);
+        if (!noq) Q(k, 0) = clip_pel(q0 - delta, maxv);
+        if (dep && !nop)
+          P(k, 1) = clip_pel(p1 + clip3(-(tc >> 1), tc >> 1, (((p2 + p0 + 1) >> 1) - p1 + delta) >> 1), maxv);
+        if (deq && !noq)
+          Q(k, 1) = clip_pel(q1 + clip3(-(tc >> 1), tc >> 1, (((q2 + q0 + 1) >> 1) - q1 - delta) >> 1), maxv);
       }
     }
   }
   void chroma_edge(int c, int x0, int y0, int dir, int tc, bool nop, bool noq) {
-    uint8_t* pl = cur->plane(c);
-    int stride = cur->stride(c);
+    Pel* pl = cur->plane(c);
+    int stride = cur->stride(c), maxv = s->max_pel();
     int xs = dir ? 1 : stride, step = dir ? stride : 1;
-    uint8_t* base = pl + (size_t)y0 * stride + x0;
+    Pel* base = pl + (size_t)y0 * stride + x0;
     int len = std::min(4, dir ? cur->w / 2 - x0 : cur->h / 2 - y0);
     for (int k = 0; k < len; k++) {
-      uint8_t* q = base + k * xs;
+      Pel* q = base + k * xs;
       int p0 = q[-step], p1 = q[-2 * step], q0 = q[0], q1 = q[step];
       int delta = clip3(-tc, tc, ((((q0 - p0) * 4) + p1 - q1 + 4) >> 3));
-      if (!nop) q[-step] = clip8(p0 + delta);
-      if (!noq) q[0] = clip8(q0 - delta);
+      if (!nop) q[-step] = clip_pel(p0 + delta, maxv);
+      if (!noq) q[0] = clip_pel(q0 - delta, maxv);
     }
   }
 
@@ -3034,7 +3101,7 @@ struct Hevc {
   // without loop_filter_across_tiles_enabled_flag; PCM samples under
   // pcm_loop_filter_disabled_flag and transquant-bypass samples stay as
   // they are.
-  std::vector<uint8_t> pre[3];   // samples as SAO found them, in the CTBs it has done
+  std::vector<Pel> pre[3];       // samples as SAO found them, in the CTBs it has done
   std::vector<uint8_t> applied;  // by CTB and component: SAO done
   void sao_ctb(int rx, int ry) {
     int addr = ry * s->wctb + rx;
@@ -3044,10 +3111,11 @@ struct Hevc {
       if (!(c ? si.sao_chroma : si.sao_luma) || !P.type[c]) continue;
       int pw = c ? s->width / 2 : s->width, ph = c ? s->height / 2 : s->height;
       int stride = cur->stride(c), sh2 = c ? 1 : 0, ctb = s->ctb >> sh2;
-      uint8_t* pl = cur->plane(c);
+      int maxv = s->max_pel(), band_shift = s->bit_depth - 5;
+      Pel* pl = cur->plane(c);
       int x0 = rx * ctb, y0 = ry * ctb, x1 = std::min(pw, x0 + ctb), y1 = std::min(ph, y0 + ctb);
       for (int y = y0; y < y1; y++)
-        memcpy(&pre[c][(size_t)y * stride + x0], &pl[(size_t)y * stride + x0], x1 - x0);
+        memcpy(&pre[c][(size_t)y * stride + x0], &pl[(size_t)y * stride + x0], (x1 - x0) * sizeof(Pel));
       applied[addr * 3 + c] = 1;  // its own samples: as found
       auto input = [&](int x, int y) {
         int cx = (x << sh2) >> s->ctb_log2, cy = (y << sh2) >> s->ctb_log2;
@@ -3070,7 +3138,7 @@ struct Hevc {
             continue;
           int v = pre[c][(size_t)y * stride + x], o;
           if (P.type[c] == 1) {
-            o = table[v >> 3];
+            o = table[v >> band_shift];
           } else {
             int ax = x + dx[eo][0], ay = y + dy[eo][0], bx = x + dx[eo][1], by = y + dy[eo][1];
             if (ax < 0 || ay < 0 || bx < 0 || by < 0 || ax >= pw || bx >= pw || ay >= ph || by >= ph)
@@ -3088,7 +3156,7 @@ struct Hevc {
             int e = map[sgn + 2];
             o = e ? P.offset[c][e - 1] : 0;
           }
-          pl[(size_t)y * stride + x] = clip8(v + o);
+          pl[(size_t)y * stride + x] = clip_pel(v + o, maxv);
         }
     }
   }

@@ -55,7 +55,13 @@ struct Writer;
 struct RandomChooser : Chooser {
   Hevc& c;
   Rng& rng;
-  RandomChooser(Hevc& co, Rng& r) : c(co), rng(r) {}
+  Rng& rng_bd;  // what only 9- and 10-bit streams draw
+  RandomChooser(Hevc& co, Rng& r, Rng& r_bd) : c(co), rng(r), rng_bd(r_bd) {}
+  // at more than 8 bits, half the PCM blocks sample one smooth surface over
+  // the picture, gently curved (its second difference over 32 samples 4-40
+  // levels), so that 32x32 intra blocks beside them reach the strong
+  // smoothing threshold 1 << (bitDepth - 5) from both sides
+  int field[4] = {-1, 0, 0, 0};  // level at the origin, slope across and down (/16), curvature
   double p_split = 0.55, p_skip = 0.25, p_intra = 0.2, p_pcm = 0.08, p_bypass = 0.08;
   double p_merge = 0.4, p_tskip = 0.3, p_qp = 0.5;
 
@@ -68,10 +74,12 @@ struct RandomChooser : Chooser {
     }
     p.type[2] = p.type[1];
     p.eo[2] = p.eo[1];
+    // sao_offset_abs up to (1 << (Min(bitDepth, 10) - 5)) - 1
+    int most = (1 << (std::min(c.s->bit_depth, 10) - 5)) - 1;
     for (int k = 0; k < 3; k++) {
       p.band[k] = rng.range(0, 31);
       for (int i = 0; i < 4; i++) {
-        int a = rng.chance(0.3) ? 0 : rng.range(1, 7);
+        int a = rng.chance(0.3) ? 0 : rng.range(1, most);
         p.offset[k][i] = rng.chance(0.5) ? -a : a;
       }
     }
@@ -96,13 +104,29 @@ struct RandomChooser : Chooser {
     }
     ch.rqt_root_cbf = rng.chance(0.65);
   }
-  void pcm_samples(int, int, int log2, uint8_t* smp) override {
+  void pcm_samples(int x0, int y0, int log2, Pel* smp) override {
     const SPS& s = *c.s;
     int n = 1 << log2, nl = n * n, nc = n * n / 2;
-    int base = rng.range(0, 255);
-    for (int i = 0; i < nl; i++)
-      smp[i] = (uint8_t)(clip3(0, 255, base + rng.range(-40, 40)) >> (8 - s.pcm_bd));
-    for (int i = 0; i < nc; i++) smp[nl + i] = (uint8_t)(rng.range(0, 255) >> (8 - s.pcm_bd_c));
+    int maxv = s.max_pel(), spread = 40 << (s.bit_depth - 8), base = rng.range(0, maxv);
+    if (s.bit_depth > 8 && field[0] < 0) {
+      field[0] = rng_bd.range(0, maxv / 2);
+      field[1] = rng_bd.range(-8, 8);
+      field[2] = rng_bd.range(-8, 8);
+      field[3] = rng_bd.range(8, 80);
+    }
+    if (s.bit_depth > 8 && rng_bd.chance(0.5)) {
+      for (int y = 0; y < n; y++)
+        for (int x = 0; x < n; x++) {
+          int64_t X = x0 + x, Y = y0 + y;
+          int v = field[0] + (int)((X * field[1] + Y * field[2]) >> 4) +
+                  (int)(((X * X + Y * Y) * field[3]) >> 12);
+          smp[y * n + x] = (Pel)(clip3(0, maxv, v) >> (s.bit_depth - s.pcm_bd));
+        }
+    } else {
+      for (int i = 0; i < nl; i++)
+        smp[i] = (Pel)(clip3(0, maxv, base + rng.range(-spread, spread)) >> (s.bit_depth - s.pcm_bd));
+    }
+    for (int i = 0; i < nc; i++) smp[nl + i] = (Pel)(rng.range(0, maxv) >> (s.bit_depth_c - s.pcm_bd_c));
   }
   int intra_mode(int, int, int) override { return rng.range(0, 34); }
   int chroma_mode(int, int, int) override { return rng.range(0, 4); }
@@ -111,7 +135,8 @@ struct RandomChooser : Chooser {
   int cbf(int comp, int, int, int, int) override { return rng.chance(comp ? 0.45 : 0.6); }
   int qp_delta(int, int) override {
     if (!rng.chance(p_qp)) return 0;
-    return rng.chance(0.85) ? rng.range(-6, 6) : rng.range(-26, 25);
+    int half = c.s->qp_bd_offset() / 2;  // CuQpDeltaVal's range widens at more than 8 bits
+    return rng.chance(0.85) ? rng.range(-6, 6) : rng.range(-(26 + half), 25 + half);
   }
   int transform_skip(int, int, int, int) override { return rng.chance(p_tskip); }
   void coeffs(int, int, int, int log2, int16_t* lv) override {
@@ -132,6 +157,11 @@ struct RandomChooser : Chooser {
       any = true;
     }
     if (!any) lv[0] = 1;
+    // at more than 8 bits, now and then a level near the largest in a
+    // transquant-bypass block: its residual then overflows 16 bits beside
+    // the prediction, as FFmpeg adds it
+    if (c.s->bit_depth > 8 && c.cu_bypass && rng_bd.chance(0.2))
+      lv[rng_bd.range(0, n * n - 1)] = (int16_t)rng_bd.range(32000, 32767);
   }
 };
 
@@ -152,7 +182,7 @@ struct FramesChooser : Chooser {
   void sao(int, int, bool, bool, int& ml, int& mu, SaoParams&) override { ml = mu = 0; }
   int split_cu(int, int, int log2) override { return log2 > 4; }
   void cu(int x0, int y0, int log2, CuChoice& ch) override;
-  void pcm_samples(int, int, int, uint8_t*) override {}
+  void pcm_samples(int, int, int, Pel*) override {}
   int intra_mode(int, int, int) override { return mode; }
   int chroma_mode(int, int, int) override { return 4; }
   void pu(int, int, int, int, int, const Motion*, PuChoice& ch) override { ch = pu_plan; }
@@ -164,18 +194,18 @@ struct FramesChooser : Chooser {
     memcpy(out, lv[comp], sizeof(int16_t) << (2 * log2));
   }
 
-  int sad(int comp, int x0, int y0, int n, const uint8_t* pred, int pstride) const {
-    const uint8_t* s8 = src.plane(comp);
+  int sad(int comp, int x0, int y0, int n, const Pel* pred, int pstride) const {
+    const Pel* s8 = src.plane(comp);
     int stride = src.stride(comp), t = 0;
     for (int y = 0; y < n; y++)
       for (int x = 0; x < n; x++) t += std::abs(s8[(y0 + y) * stride + x0 + x] - pred[y * pstride + x]);
     return t;
   }
   // forward transform and quantisation of src - pred into levels; true if any
-  bool quantise(int comp, int x0, int y0, int log2, const uint8_t* pred, int pstride, bool intra,
+  bool quantise(int comp, int x0, int y0, int log2, const Pel* pred, int pstride, bool intra,
                 int16_t* out);
   // the prediction of an n x n block with motion m (the decoding process's)
-  void predict_motion(int x0, int y0, int n, const Motion& m, uint8_t* pred[3]) {
+  void predict_motion(int x0, int y0, int n, const Motion& m, Pel* pred[3]) {
     int stride[3] = {n, n / 2, n / 2};
     c.predict_block(x0, y0, n, n, m, pred, stride);
   }
@@ -205,6 +235,8 @@ struct Writer {
   Rng rng{0};
   Rng rng_pps{0};  // the PPS's B-slice fields, drawn apart (streams without B slices stay as they were)
   Rng rng_par{0};  // tiles and slice segments, drawn apart likewise
+  Rng rng_bd{0};   // what only 9- and 10-bit streams draw, apart likewise
+  int bit_depth = 8;
   Hevc codec;
   FILE* f = nullptr;
   std::string path;
@@ -258,7 +290,10 @@ struct Writer {
     rng = Rng((uint64_t)o.get("seed", 0));
     rng_pps = Rng((uint64_t)o.get("seed", 0) ^ 0x5bd1e995u);
     rng_par = Rng((uint64_t)o.get("seed", 0) ^ 0x27d4eb2fu);
+    rng_bd = Rng((uint64_t)o.get("seed", 0) ^ 0x165667b1u);
     refuse = o.gets("refuse", "");
+    bit_depth = o.get("bit_depth", 8);
+    if (bit_depth < 8 || bit_depth > 10) fail("bit_depth must be 8, 9 or 10");
     qp = o.get("qp", 24);
     group = random_mode ? o.get("group", 1) : 1;
     gop = o.get("gop", 0);
@@ -321,7 +356,8 @@ struct Writer {
     SPS& s = sps;
     s.id = 0;
     s.vps_id = 0;
-    s.profile_idc = refuse == "main10" ? 2 : refuse == "rext" ? 4 : 1;
+    bool deep = bit_depth > 8 || refuse == "bit_depth_mixed" || refuse == "bit_depth12";
+    s.profile_idc = refuse == "rext" ? 4 : deep ? 2 : 1;
     int ctb = o.get("ctb", random_mode ? 16 << rng.range(0, 2) : 64);
     if (ctb != 16 && ctb != 32 && ctb != 64) fail("ctb must be 16, 32 or 64");
     s.ctb_log2 = ceil_log2(ctb);
@@ -357,7 +393,11 @@ struct Writer {
     }
     s.conf_win = s.conf[0] || s.conf[1] || s.conf[2] || s.conf[3];
     s.chroma_format_idc = refuse == "chroma422" ? 2 : 1;
-    s.bit_depth = s.bit_depth_c = refuse == "bit_depth10" ? 10 : 8;
+    s.bit_depth = s.bit_depth_c = refuse == "bit_depth12" ? 12 : bit_depth;
+    if (refuse == "bit_depth_mixed") {
+      s.bit_depth = 10;
+      s.bit_depth_c = 8;
+    }
     s.log2_max_poc_lsb = pick("poc_bits", 4, 8, 8);
     // pictures that may precede another in decode order and follow it in
     // output order: a group's, or an IRAP's leading pictures; two with a B
@@ -383,6 +423,12 @@ struct Writer {
       s.log2_min_pcm = rng.range(3, hi);
       s.log2_diff_pcm = rng.range(0, hi - s.log2_min_pcm);
       s.pcm_loop_filter_disabled = rng.chance(0.5);
+      if (bit_depth > 8) {  // PCM depths up to the bit depth, or as given
+        s.pcm_bd = rng_bd.range(5, bit_depth);
+        s.pcm_bd_c = rng_bd.range(5, bit_depth);
+      }
+      if (o.kv.count("pcm_bd")) s.pcm_bd = s.pcm_bd_c = o.get("pcm_bd", 8);
+      if (s.pcm_bd < 1 || s.pcm_bd > bit_depth) fail("pcm_bd must be within 1 and bit_depth");
     }
     s.long_term = refuse == "long_term";
     s.temporal_mvp = chance("tmvp", 0.7, 1);
@@ -402,7 +448,7 @@ struct Writer {
       s.st_rps[i] = r;
     }
     s.vui = chance("vui", 0.5, 0) || o.kv.count("matrix") || o.kv.count("full_range") ||
-            o.kv.count("primaries") || o.kv.count("transfer");
+            o.kv.count("primaries") || o.kv.count("transfer") || o.kv.count("chroma_loc_type");
     if (s.vui) {
       s.aspect = rng.chance(0.5);
       s.signal_type = o.kv.count("matrix") || o.kv.count("full_range") || rng.chance(0.3);
@@ -412,6 +458,10 @@ struct Writer {
       s.primaries = o.get("primaries", 2);
       s.transfer = o.get("transfer", 2);
       s.chroma_loc = rng.chance(0.3);
+      if (o.kv.count("chroma_loc_type")) {  // 0 (left) to 5, or above (cv2: unspecified)
+        s.chroma_loc = 1;
+        s.chroma_loc_type = o.get("chroma_loc_type", 0);
+      }
       s.timing = o.get("hrd", 0) || rng.chance(0.3);
       s.hrd = o.get("hrd", 0);
       s.restriction = rng.chance(0.5);
@@ -443,6 +493,10 @@ struct Writer {
       bool bslices = o.getf("bslices", 0) > 0;
       p.num_ref_default[1] = random_mode && bslices ? rng_pps.range(1, 3) : 1;
       p.init_qp = random_mode ? rng.range(18, 40) : qp;
+      // at more than 8 bits from -QpBdOffsetY, in the first PPS at or below
+      // 0 (in another half the time), so that QpY goes below 0
+      if (random_mode && bit_depth > 8)
+        p.init_qp = !i || rng_bd.chance(0.5) ? rng_bd.range(-s.qp_bd_offset(), 0) : rng_bd.range(1, 40);
       p.constrained_intra = s.log2_min_cb == 3 && chance("constrained_intra", 0.25, 0);
       p.transform_skip = chance("transform_skip", 0.5, 0);
       p.cu_qp_delta = chance("cu_qp_delta", 0.5, 0);
@@ -652,11 +706,16 @@ struct Writer {
     bool generated = held_generated || std::any_of(pics.begin(), pics.end(), [](const PicInfo& pi) {
                        return pi.kind == K_GENERATED;
                      });
+    // the next anchor's POC may lie at most MaxPicOrderCntLsb / 2 above
+    // prevTid0Pic's (8.3.1), which sub-layer non-reference pictures leave
+    // behind: a smaller group then, or an IDR where even one picture would not
+    int room = (1 << (codec.sps[0].log2_max_poc_lsb - 1)) - (last_poc - codec.poc_tid0);
     bool irap = decoded == 0 || (gop && since_irap >= gop && pending.empty() && !generated) ||
-                (refuse == "idr_over_generated" && generated && pending.empty());
+                (refuse == "idr_over_generated" && generated && pending.empty()) ||
+                (pending.empty() && room < 1 && !generated);
     if (!irap) {
       if (pending.empty()) {
-        int g = rng.range(1, group);
+        int g = std::max(1, std::min(rng.range(1, group), room));
         int base = last_poc;
         Job a;
         a.poc = base + g;  // the anchor first
@@ -678,8 +737,10 @@ struct Writer {
     int cra_opt = o.get("cra", 0);
     bool cra = decoded > 0 ? cra_opt == 1 || ((cra_opt == 2 || cra_opt == 4) && rng.chance(0.5))
                            : cra_opt >= 3;
+    cra &= !decoded || room >= 1;  // a later CRA follows the pictures before it, within room
     j.type = cra ? CRA : o.get("idr_n_lp", 0) && rng.chance(0.5) ? IDR_N_LP : IDR_W_RADL;
     j.lead = leading && j.type != IDR_N_LP ? rng.range(0, leading) : 0;
+    if (cra && decoded) j.lead = std::min(j.lead, room - 1);
     if (refuse == "idr_over_generated" && !decoded) j.lead = std::max(j.lead, 1);
     // the leading pictures: a CRA's RASL pictures between the pictures before
     // it and it; an IDR's RADL pictures before POC 0
@@ -866,7 +927,7 @@ struct Writer {
     std::unique_ptr<Chooser> chooser;
     RandomChooser* rc = nullptr;
     if (random_mode) {
-      rc = new RandomChooser(codec, rng);
+      rc = new RandomChooser(codec, rng, rng_bd);
       chooser.reset(rc);
       rc->p_skip = o.getf("skip", 0.25);
       rc->p_pcm = o.getf("pcm_share", 0.08);
@@ -891,7 +952,7 @@ struct Writer {
         h.sao_chroma = s.sao && (!random_mode || rng.chance(0.7));
         if (h.type != SLICE_I) inter_slice(h, pp, curr, col_poc);
         h.qp_delta = random_mode ? rng.range(-6, 6) : qp - pp.init_qp;
-        if (pp.init_qp + h.qp_delta < 0 || pp.init_qp + h.qp_delta > 51) h.qp_delta = 0;
+        if (pp.init_qp + h.qp_delta < -s.qp_bd_offset() || pp.init_qp + h.qp_delta > 51) h.qp_delta = 0;
         if (pp.slice_chroma_offsets) {
           h.cb_offset = clip3(-12 - pp.cb_qp_offset, 12 - pp.cb_qp_offset, rng.range(-12, 12));
           h.cr_offset = clip3(-12 - pp.cr_qp_offset, 12 - pp.cr_qp_offset, rng.range(-12, 12));
@@ -919,6 +980,7 @@ struct Writer {
       bool stop = refused_type;
       stop |= refuse == "missing_ref" && decoded == 1;
       stop |= refuse == "wpp_tiles";  // the decoder refuses the PPS
+      stop |= refuse == "bit_depth_mixed" || refuse == "bit_depth12";  // and these the SPS
       if (!stop) {
         // the data first, in an RBSP of its own: the header before it holds
         // the entry points of its substreams
@@ -1030,7 +1092,10 @@ struct Writer {
       random_weights(h);
   }
 
+  // the weights and offsets; at more than 8 bits the offsets over their
+  // whole range (the decoder scales them by 1 << (bitDepth - 8))
   void random_weights(SliceHeader& h) {
+    bool deep = bit_depth > 8;
     h.luma_denom = rng.range(0, 7);
     h.chroma_denom = rng.range(0, 7);
     for (int l = 0; l < (h.type == SLICE_B ? 2 : 1); l++)
@@ -1038,23 +1103,30 @@ struct Writer {
         h.lw_flag[l][i] = rng.chance(0.6);
         h.cw_flag[l][i] = rng.chance(0.6);
         h.dlw[l][i] = rng.range(-30, 30);
-        h.lo[l][i] = rng.range(-40, 40);
+        h.lo[l][i] = deep ? rng.range(-128, 127) : rng.range(-40, 40);
         for (int k = 0; k < 2; k++) {
           h.dcw[l][i][k] = rng.range(-30, 30);
-          h.dco[l][i][k] = rng.range(-200, 200);
+          h.dco[l][i][k] = deep ? rng.range(-512, 511) : rng.range(-200, 200);
         }
       }
   }
 
   // ------------------------------------------------ frames mode source --
+  // BT.601 limited range, as FFmpeg's swscale converts BGR24 for an encoder;
+  // at more than 8 bits scaled up from the exact values, with a pattern of
+  // +-1 in the lowest bit on luma, so that a decoder that drops it shows
   void load_source(const uint8_t* bgr) {
-    src.alloc(cw, ch);
-    // BT.601 limited range, as FFmpeg's swscale converts BGR24 for an encoder
+    src.alloc(cw, ch, bit_depth);
+    const int up = bit_depth - 8, maxv = (1 << bit_depth) - 1;
+    auto level = [&](double v, int detail) {
+      return clip_pel((int)std::lround(v * (1 << up)) + (up ? detail : 0), maxv);
+    };
     for (int y = 0; y < ch; y++) {
       const uint8_t* row = bgr + (size_t)std::min(y, height - 1) * width * 3;
       for (int x = 0; x < cw; x++) {
         const uint8_t* px = row + 3 * std::min(x, width - 1);
-        src.y[(size_t)y * cw + x] = clip8((int)std::lround(16 + (65.481 * px[2] + 128.553 * px[1] + 24.966 * px[0]) / 255.0));
+        src.y[(size_t)y * cw + x] =
+            level(16 + (65.481 * px[2] + 128.553 * px[1] + 24.966 * px[0]) / 255.0, (x + 2 * y) % 3 - 1);
       }
     }
     for (int y = 0; y < ch / 2; y++)
@@ -1068,8 +1140,8 @@ struct Writer {
             r += px[2];
           }
         r /= 4; g /= 4; b /= 4;
-        src.cb[(size_t)y * cw / 2 + x] = clip8((int)std::lround(128 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255.0));
-        src.cr[(size_t)y * cw / 2 + x] = clip8((int)std::lround(128 + (112.0 * r - 93.786 * g - 18.214 * b) / 255.0));
+        src.cb[(size_t)y * cw / 2 + x] = level(128 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255.0, 0);
+        src.cr[(size_t)y * cw / 2 + x] = level(128 + (112.0 * r - 93.786 * g - 18.214 * b) / 255.0, 0);
       }
   }
 
@@ -1078,16 +1150,18 @@ struct Writer {
     if (!random_mode) schedule(true);
     std::vector<uint8_t> hvcc;
     bool hev1 = o.get("hev1", 0);
+    // the bit depths as given (hvcc_bd: a wrong one, for the decoder's check)
+    int hvcc_bd = o.get("hvcc_bd", sps.bit_depth);
     hvcc.push_back(1);                                   // configurationVersion
     hvcc.push_back((uint8_t)(sps.profile_idc & 31));     // profile space, tier, profile
-    put_be(hvcc, 0x60000000u, 4);                        // compatibility flags (1 and 2)
+    put_be(hvcc, sps.profile_idc == 2 ? 0x20000000u : 0x60000000u, 4);  // compatibility: 1 and 2, or 2
     put_be(hvcc, 0x900000000000ull, 6);                  // progressive, frame-only
     hvcc.push_back(93);                                  // level
     put_be(hvcc, 0xF000, 2);                             // min_spatial_segmentation_idc
     hvcc.push_back(0xFC);                                // parallelismType
     hvcc.push_back(0xFC | 1);                            // chromaFormat
-    hvcc.push_back(0xF8);                                // bitDepthLumaMinus8
-    hvcc.push_back(0xF8);                                // bitDepthChromaMinus8
+    hvcc.push_back((uint8_t)(0xF8 | ((hvcc_bd - 8) & 7)));             // bitDepthLumaMinus8
+    hvcc.push_back((uint8_t)(0xF8 | ((sps.bit_depth_c - 8) & 7)));     // bitDepthChromaMinus8
     put_be(hvcc, 0, 2);                                  // avgFrameRate
     hvcc.push_back((uint8_t)(0x08 | (length_size() - 1)));  // 1 temporal layer, lengthSizeMinusOne
     bool sets = !hev1;
@@ -1203,8 +1277,8 @@ int FramesChooser::search(int x0, int y0, int n, int l, const int* start, int* m
     if (rx < 0 || ry < 0 || rx + n > ref.w || ry + n > ref.h) return 1 << 30;
     int t = 16;  // a little against coding a vector
     for (int y = 0; y < n; y++) {
-      const uint8_t* a = &src.y[(size_t)(y0 + y) * src.w + x0];
-      const uint8_t* b = &ref.y[(size_t)(ry + y) * ref.w + rx];
+      const Pel* a = &src.y[(size_t)(y0 + y) * src.w + x0];
+      const Pel* b = &ref.y[(size_t)(ry + y) * ref.w + rx];
       for (int x = 0; x < n; x++) t += std::abs(a[x] - b[x]);
     }
     return t;
@@ -1227,26 +1301,27 @@ int FramesChooser::search(int x0, int y0, int n, int l, const int* start, int* m
   return best;
 }
 
-bool FramesChooser::quantise(int comp, int x0, int y0, int log2, const uint8_t* pred, int pstride,
+bool FramesChooser::quantise(int comp, int x0, int y0, int log2, const Pel* pred, int pstride,
                              bool intra, int16_t* out) {
   const Tables& T = tables();
-  int n = 1 << log2, step = 32 >> log2;
-  const uint8_t* s8 = src.plane(comp);
+  int n = 1 << log2, step = 32 >> log2, bd = c.s->bit_depth;
+  const Pel* s8 = src.plane(comp);
   int stride = src.stride(comp);
   int res[32 * 32], tmp[32 * 32];
   for (int y = 0; y < n; y++)
     for (int x = 0; x < n; x++) res[y * n + x] = s8[(y0 + y) * stride + x0 + x] - pred[y * pstride + x];
-  // forward transform: columns then rows, shifts log2 - 1 and log2 + 6
-  int s1 = log2 - 1, s2 = log2 + 6;
+  // forward transform: columns then rows, shifts log2 + bitDepth - 9 and log2 + 6
+  int s1 = log2 + bd - 9, s2 = log2 + 6;
   for (int k = 0; k < n; k++)
     for (int x = 0; x < n; x++) {
       int64_t v = 0;
       for (int y = 0; y < n; y++) v += T.dct[k * step][y] * res[y * n + x];
       tmp[k * n + x] = (int)((v + (1 << (s1 - 1))) >> s1);
     }
-  int q = comp ? (comp == 1 ? c.qp_cb : c.qp_cr) : c.qp_y;
+  // Qp' (with QpBdOffset); the quantiser's shift 14 + Qp' / 6 + 15 - bitDepth - log2
+  int q = (comp ? (comp == 1 ? c.qp_cb : c.qp_cr) : c.qp_y) + c.s->qp_bd_offset();
   static const int kQuant[6] = {26214, 23302, 20560, 18396, 16384, 14564};
-  int qbits = 21 + q / 6 - log2;
+  int qbits = 29 - bd + q / 6 - log2;
   int64_t offset = (int64_t)(intra ? 171 : 85) << (qbits - 9);
   bool any = false;
   for (int k = 0; k < n; k++)
@@ -1265,7 +1340,7 @@ bool FramesChooser::quantise(int comp, int x0, int y0, int log2, const uint8_t* 
 void FramesChooser::cu(int x0, int y0, int log2, CuChoice& ch) {
   int n = 1 << log2;
   ch = CuChoice{};
-  static thread_local std::vector<uint8_t> buf[3], best[3];
+  static thread_local std::vector<Pel> buf[3], best[3];
   for (int k = 0; k < 3; k++) {
     buf[k].resize((size_t)n * n);
     best[k].resize((size_t)n * n);
@@ -1293,7 +1368,7 @@ void FramesChooser::cu(int x0, int y0, int log2, CuChoice& ch) {
   if (inter) {
     c.cu_part = P2Nx2N;
     c.merge_list(x0, y0, n, n, 0, cands);
-    uint8_t* pr[3] = {buf[0].data(), buf[1].data(), buf[2].data()};
+    Pel* pr[3] = {buf[0].data(), buf[1].data(), buf[2].data()};
     for (int i = 0; i < c.sh.max_merge; i++) {
       predict_motion(x0, y0, n, cands[i], pr);
       int sd = sad(0, x0, y0, n, buf[0].data(), n);
@@ -1339,7 +1414,7 @@ void FramesChooser::cu(int x0, int y0, int log2, CuChoice& ch) {
   }
   ch.intra = 0;
   ch.part = P2Nx2N;
-  uint8_t* pr[3] = {best[0].data(), best[1].data(), best[2].data()};
+  Pel* pr[3] = {best[0].data(), best[1].data(), best[2].data()};
   pu_plan = PuChoice{};
   if (merge_idx >= 0) {
     pu_plan.merge = 1;

@@ -22,7 +22,8 @@
 // mirror, a shear) is refused by name.
 //
 // Also here: the moov box the writers emit, YUV 4:2:0 -> BGR24 as swscale
-// converts it for cv2, and the rotation of a BGR frame.
+// converts it for cv2 (8-bit, and 9- or 10-bit), and the rotation of a BGR
+// frame.
 
 #pragma once
 
@@ -32,7 +33,9 @@
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <string>
 #include <vector>
 
@@ -575,17 +578,18 @@ Yuv2Rgb yuv2rgb_coefficients(int matrix, bool full_range) {
 }
 
 // The chroma terms are computed once a row pair, then added to each pixel's
-// luma term (the same integers as the per-pixel sums).
-void yuv420_to_bgr(const uint8_t* Y, int ys, const uint8_t* U, const uint8_t* V, int cs,
-                   int width, int height, uint8_t* out,
-                   const Yuv2Rgb& k = yuv2rgb_coefficients(2, false)) {
+// luma term (the same integers as the per-pixel sums). The samples are 8-bit,
+// in bytes or (HEVC's planes) in 16-bit words.
+template <class T>
+void yuv420_to_bgr(const T* Y, int ys, const T* U, const T* V, int cs, int width, int height,
+                   uint8_t* out, const Yuv2Rgb& k = yuv2rgb_coefficients(2, false)) {
   const int yc = k.yc, yoff = k.yoff, ub = k.ub, ug = k.ug, vg = k.vg, vrc = k.vr;
   std::vector<int> cbv((width + 1) / 2), cgv((width + 1) / 2), crv((width + 1) / 2);
   int *cb = cbv.data(), *cg = cgv.data(), *cr = crv.data();
   for (int y = 0; y < height; y++) {
     if (!(y & 1)) {
-      const uint8_t* ur = U + (size_t)(y >> 1) * cs;
-      const uint8_t* vr = V + (size_t)(y >> 1) * cs;
+      const T* ur = U + (size_t)(y >> 1) * cs;
+      const T* vr = V + (size_t)(y >> 1) * cs;
       for (int x = 0; x < (width + 1) / 2; x++) {
         int u = ur[x] * 8 - 1024, v = vr[x] * 8 - 1024;
         cb[x] = (u * ub) >> 16;
@@ -593,13 +597,289 @@ void yuv420_to_bgr(const uint8_t* Y, int ys, const uint8_t* U, const uint8_t* V,
         cr[x] = (v * vrc) >> 16;
       }
     }
-    const uint8_t* yr = Y + (size_t)y * ys;
+    const T* yr = Y + (size_t)y * ys;
     uint8_t* o = out + (size_t)y * width * 3;
     for (int x = 0; x < width; x++) {
       int yy = ((yr[x] * 8 - yoff) * yc) >> 16;
       o[3 * x] = clip8(yy + cb[x >> 1]);
       o[3 * x + 1] = clip8(yy + cg[x >> 1]);
       o[3 * x + 2] = clip8(yy + cr[x >> 1]);
+    }
+  }
+}
+
+// ---------------------------------------- YUV 4:2:0 at 9 or 10 bits -> BGR24 --
+// What cv2 does with the decoder's yuv420p10le or yuv420p9le frames, read
+// off cv2's own frames value by value (PCM pictures of chosen samples): no
+// unscaled converter of swscale takes these formats, so they go through its
+// general scaler (SWS_BICUBIC, as cv2 asks for), on x86 as follows.
+// - Luma: unscaled, as 15-bit intermediates Y << (15 - bitDepth).
+// - Chroma, across: the rows keep their width. swscale places the chroma of
+//   packed RGB output in the centre of each pair of pixels and the input's
+//   where the frame's chroma location says (FFmpeg's HEVC decoder: the VUI's
+//   chroma_sample_loc_type_top_field, else left, for 4:2:0): co-sited on the
+//   left (types 0, 2, 4), the output lies a quarter chroma sample to the
+//   right, and a bicubic filter (B 0, C 0.6) of 4 taps with 14-bit
+//   coefficients as initFilter makes them (sws_filter) interpolates it;
+//   centred (1, 3, 5, and the unspecified types above 5), the filter is
+//   one tap. The sum is shifted down by bitDepth - 1 (truncated, at most
+//   32767) into 15 bits. Each output chroma sample serves two pixels: no
+//   full chroma interpolation.
+// - Chroma, down: upsampled 2x by the same kernel (4 taps, 12-bit
+//   coefficients) from the input's rows, centred between two luma rows
+//   (types 0, 1), on the upper one (2, 3) or the lower one (4, 5); the
+//   picture's edge rows stand in for those beyond it.
+// - All rows but the last two: the MMX vertical filter and yuv2rgb (x86
+//   yuv2bgr24_X): each tap's product's high half (pmulhw) summed, plus a
+//   rounder of 4, gives 8 times the 8-bit value (luma: (Y15 >> 4) + 4), and
+//   the 16-bit arithmetic of the 8-bit converter above turns it into B, G
+//   and R, saturated. No dither.
+// - The last two rows: swscale switches to its C vertical scaler there
+//   (yuv2bgr24_X_c): Y, U and V rounded to 8 bits ((sum + (1 << 18)) >> 19)
+//   and looked up in ff_yuv2rgb_c_init_tables' tables, whose limited-range
+//   luma lies up to 2.3 levels below the exact conversion.
+// Limited and full range, and the matrices, come in as for 8 bits: the same
+// coefficients (yuv2rgb_coefficients), and the tables from them.
+
+// initFilter (libswscale/utils.c) for the bicubic kernel as the two calls
+// below need it: unscaled (one tap), the same size at another position, or
+// upscaling (inc <= 1 << 16, in 1/65536 input samples). For each of dst
+// outputs, the first input sample of its taps and their coefficients,
+// normalised to one; src_pos and dst_pos are the first sample's position in
+// 1/256 of a sample from the edge, as get_local_pos gives them.
+struct SwsFilter {
+  int size = 0;
+  std::vector<int> pos, coeff;
+};
+SwsFilter sws_filter(int64_t inc, int src, int dst, int align, int one, int src_pos, int dst_pos) {
+  const int64_t fone = 1LL << 54, B = 0, C = (int64_t)(0.6 * (1 << 24));
+  const bool unscaled = std::abs(inc - 0x10000) < 10 && src_pos == dst_pos;
+  // 1 + the bicubic size factor, at most src - 2
+  const int size = unscaled ? 1 : std::max(std::min(5, src - 2), 1);
+  std::vector<int> pos(dst);
+  std::vector<int64_t> f((size_t)dst * size, 0);
+  int64_t x_dst_in_src = ((dst_pos * inc) >> 7) - ((src_pos * 0x10000LL) >> 7);
+  for (int i = 0; i < dst && unscaled; i++) {
+    pos[i] = i;
+    f[i] = fone;
+  }
+  for (int i = 0; i < dst && !unscaled; i++, x_dst_in_src += 2 * inc) {
+    int xx = (int)((x_dst_in_src - (size - 2) * (1LL << 16)) / (1 << 17));
+    pos[i] = xx;
+    for (int j = 0; j < size; j++, xx++) {
+      int64_t d = std::llabs((int64_t)xx * (1 << 17) - x_dst_in_src) << 13;
+      if (d >= 1LL << 31) continue;  // 0 beyond two samples
+      int64_t dd = (d * d) >> 30, ddd = (dd * d) >> 30;
+      f[(size_t)i * size + j] =
+          d < 1LL << 30 ? (12 * (1 << 24) - 9 * B - 6 * C) * ddd + (-18 * (1 << 24) + 12 * B + 6 * C) * dd +
+                              (6 * (1 << 24) - 2 * B) * (1 << 30)
+                        : (-B - 6 * C) * ddd + (6 * B + 30 * C) * dd + (-12 * B - 48 * C) * d +
+                              (8 * B + 24 * C) * (1 << 30);
+    }
+  }
+  // drop near-zero taps: from the left by moving the filter on, from the right by size
+  int min_size = 0;
+  for (int i = dst - 1; i >= 0; i--) {
+    int64_t* fi = &f[(size_t)i * size];
+    int keep = size;
+    int64_t cut = 0;
+    for (int j = 0; j < size; j++) {
+      cut += std::llabs(fi[0]);
+      if (cut > 0.002 * fone) break;
+      if (i < dst - 1 && pos[i] >= pos[i + 1]) break;
+      for (int k = 1; k < size; k++) fi[k - 1] = fi[k];
+      fi[size - 1] = 0;
+      pos[i]++;
+    }
+    cut = 0;
+    for (int j = size - 1; j > 0; j--) {
+      cut += std::llabs(fi[j]);
+      if (cut > 0.002 * fone) break;
+      keep--;
+    }
+    min_size = std::max(min_size, keep);
+  }
+  const int out_size = (min_size + align - 1) & ~(align - 1);
+  std::vector<int64_t> g((size_t)dst * out_size, 0);
+  for (int i = 0; i < dst; i++)
+    for (int j = 0; j < std::min(out_size, size); j++) g[(size_t)i * out_size + j] = f[(size_t)i * size + j];
+  // the borders: taps before the first sample or after the last fold onto it
+  for (int i = 0; i < dst; i++) {
+    int64_t* gi = &g[(size_t)i * out_size];
+    if (pos[i] < 0) {
+      for (int j = 1; j < out_size; j++) {
+        int left = std::max(j + pos[i], 0);
+        gi[left] += gi[j];
+        gi[j] = 0;
+      }
+      pos[i] = 0;
+    }
+    if (pos[i] + out_size > src) {
+      int shift = pos[i] + std::min(out_size - src, 0);
+      int64_t acc = 0;
+      for (int j = out_size - 1; j >= 0; j--)
+        if (pos[i] + j >= src) {
+          acc += gi[j];
+          gi[j] = 0;
+        }
+      for (int j = out_size - 1; j >= 0; j--) gi[j] = j < shift ? 0 : gi[j - shift];
+      pos[i] -= shift;
+      gi[src - 1 - pos[i]] += acc;
+    }
+  }
+  // normalised to one, each rounding error carried to the next tap
+  SwsFilter out;
+  out.size = out_size;
+  out.pos = pos;
+  out.coeff.assign((size_t)dst * out_size, 0);
+  for (int i = 0; i < dst; i++) {
+    const int64_t* gi = &g[(size_t)i * out_size];
+    int64_t sum = 0, error = 0;
+    for (int j = 0; j < out_size; j++) sum += gi[j];
+    sum = (sum + one / 2) / one;
+    for (int j = 0; j < out_size; j++) {
+      int64_t v = gi[j] + error;
+      int64_t iv = v >= 0 ? (v + (sum >> 1)) / sum : (v - (sum >> 1)) / sum;  // ROUNDED_DIV
+      out.coeff[(size_t)i * out_size + j] = (int)iv;
+      error = v - iv * sum;
+    }
+  }
+  return out;
+}
+
+// ff_yuv2rgb_c_init_tables for 24-bit output: the luma table and, by U or
+// V, the offsets into it (rV, gU, bU) and the green offset by V (gV)
+struct Yuv2RgbTables {
+  static const int kHeadroom = 512;  // YUVRGB_TABLE_HEADROOM and its luma counterpart
+  std::vector<uint8_t> y;
+  int rv[256 + 2 * kHeadroom], gu[256 + 2 * kHeadroom], bu[256 + 2 * kHeadroom],
+      gv[256 + 2 * kHeadroom];
+  Yuv2RgbTables(int matrix, bool full_range) {
+    const int32_t* m = kYuvMatrices[matrix >= 0 && matrix <= 10 ? matrix : 2];
+    int64_t crv = m[0], cbu = m[1], cgu = -(int64_t)m[2], cgv = -(int64_t)m[3];
+    int64_t cy = 1 << 16, oy = 0;
+    if (!full_range) {
+      cy = cy * 255 / 219;
+      oy = 16 << 16;
+    } else {
+      crv = crv * 224 / 255;
+      cbu = cbu * 224 / 255;
+      cgu = cgu * 224 / 255;
+      cgv = cgv * 224 / 255;
+    }
+    crv = (crv * (1 << 16) + 0x8000) / cy;
+    cbu = (cbu * (1 << 16) + 0x8000) / cy;
+    cgu = (cgu * (1 << 16) + 0x8000) / cy;
+    cgv = (cgv * (1 << 16) + 0x8000) / cy;
+    const int yoffs = (full_range ? 384 : 326) + kHeadroom;
+    y.resize(1024 + 2 * kHeadroom);
+    int64_t yb = -(384LL << 16) - kHeadroom * cy - oy;
+    for (uint8_t& v : y) {
+      v = clip8((int)((yb + 0x8000) >> 16));
+      yb += cy;
+    }
+    for (int i = 0; i < 256 + 2 * kHeadroom; i++) {
+      int64_t c = clip8(i - kHeadroom);
+      rv[i] = yoffs - (int)(crv >> 9) + (int)((c * crv) >> 16);
+      gu[i] = yoffs - (int)(cgu >> 9) + (int)((c * cgu) >> 16);
+      bu[i] = yoffs - (int)(cbu >> 9) + (int)((c * cbu) >> 16);
+      gv[i] = -(int)(cgv >> 9) + (int)((c * cgv) >> 16);
+    }
+  }
+};
+
+// Y, U, V of bit_depth (9 or 10) bits, U and V at half the width and height,
+// into (height, width, 3) BGR bytes as above; height of 10 rows or more
+// (below that swscale takes its bilinear vertical paths); loc is the chroma
+// location type (chroma_sample_loc_type)
+void yuv420_high_to_bgr(const uint16_t* Y, int ys, const uint16_t* U, const uint16_t* V, int cs,
+                        int width, int height, int bit_depth, uint8_t* out, int matrix,
+                        bool full_range, int loc) {
+  const int cw = (width + 1) / 2, ch = (height + 1) / 2, sh = bit_depth - 1;
+  const Yuv2Rgb k = yuv2rgb_coefficients(matrix, full_range);
+  // the input chroma's place in the luma grid, in 1/256 of a luma sample, by
+  // type (left, centre, top left, top, bottom left, bottom; the centre when
+  // unspecified), then as get_local_pos turns it
+  static const int kLocX[6] = {0, 128, 0, 128, 0, 128}, kLocY[6] = {128, 128, 0, 0, 256, 256};
+  const bool known = loc >= 0 && loc <= 5;
+  const int xpos = known ? kLocX[loc] : 128, ypos = known ? kLocY[loc] : 128;
+  const SwsFilter hf = sws_filter((((int64_t)cw << 16) + (cw >> 1)) / cw, cw, cw, 4, 1 << 14,
+                                  (xpos + 128) >> 1, 128);
+  const SwsFilter vf = sws_filter((((int64_t)ch << 16) + (height >> 1)) / height, ch, height, 2,
+                                  1 << 12, (ypos + 128) >> 1, 128);
+  // the chroma rows scaled across, 15-bit (a tap past the row's end has
+  // coefficient 0: it reads the last sample)
+  std::vector<int> at((size_t)cw * hf.size);
+  for (int x = 0; x < cw; x++)
+    for (int j = 0; j < hf.size; j++) at[(size_t)x * hf.size + j] = std::min(hf.pos[x] + j, cw - 1);
+  std::vector<int16_t> u15((size_t)ch * cw), v15((size_t)ch * cw);
+  for (int r = 0; r < ch; r++) {
+    const uint16_t* ur = U + (size_t)r * cs;
+    const uint16_t* vr = V + (size_t)r * cs;
+    for (int x = 0; x < cw; x++) {
+      const int* c = &hf.coeff[(size_t)x * hf.size];
+      const int* a = &at[(size_t)x * hf.size];
+      int su = 0, sv = 0;
+      for (int j = 0; j < hf.size; j++) {
+        su += ur[a[j]] * c[j];
+        sv += vr[a[j]] * c[j];
+      }
+      u15[(size_t)r * cw + x] = (int16_t)std::min(su >> sh, 32767);
+      v15[(size_t)r * cw + x] = (int16_t)std::min(sv >> sh, 32767);
+    }
+  }
+  std::unique_ptr<Yuv2RgbTables> tab;
+  std::vector<int> cu(cw), cv(cw), tb(cw), tg(cw), tr(cw);
+  for (int y = 0; y < height; y++) {
+    const uint16_t* yr = Y + (size_t)y * ys;
+    uint8_t* o = out + (size_t)y * width * 3;
+    const int* vc = &vf.coeff[(size_t)y * vf.size];
+    const int16_t* ur = &u15[(size_t)vf.pos[y] * cw];
+    const int16_t* vr = &v15[(size_t)vf.pos[y] * cw];
+    if (y < height - 2) {  // MMX: pmulhw sums with the rounder, then yuv2rgb
+      std::fill(cu.begin(), cu.end(), 4 - 1024);
+      std::fill(cv.begin(), cv.end(), 4 - 1024);
+      for (int j = 0; j < vf.size; j++) {
+        const int c = vc[j];
+        const int16_t* uj = ur + (size_t)j * cw;
+        const int16_t* vj = vr + (size_t)j * cw;
+        for (int x = 0; x < cw; x++) {
+          cu[x] += (uj[x] * c) >> 16;
+          cv[x] += (vj[x] * c) >> 16;
+        }
+      }
+      for (int x = 0; x < cw; x++) {
+        tb[x] = (cu[x] * k.ub) >> 16;
+        tg[x] = ((cu[x] * k.ug) >> 16) + ((cv[x] * k.vg) >> 16);
+        tr[x] = (cv[x] * k.vr) >> 16;
+      }
+      const int up = 15 - bit_depth;
+      for (int x = 0; x < width; x++) {
+        int yy = ((((yr[x] << up) >> 4) + 4 - k.yoff) * k.yc) >> 16;
+        o[3 * x] = clip8(yy + tb[x >> 1]);
+        o[3 * x + 1] = clip8(yy + tg[x >> 1]);
+        o[3 * x + 2] = clip8(yy + tr[x >> 1]);
+      }
+    } else {  // C: 8-bit values through the tables
+      if (!tab) tab.reset(new Yuv2RgbTables(matrix, full_range));
+      const Yuv2RgbTables& t = *tab;
+      const int hr = Yuv2RgbTables::kHeadroom;
+      for (int x = 0; x < cw; x++) {
+        int su = 1 << 18, sv = 1 << 18;
+        for (int j = 0; j < vf.size; j++) {
+          su += ur[(size_t)j * cw + x] * vc[j];
+          sv += vr[(size_t)j * cw + x] * vc[j];
+        }
+        cu[x] = su >> 19;
+        cv[x] = sv >> 19;
+      }
+      for (int x = 0; x < width; x++) {
+        int y8 = (((yr[x] << (15 - bit_depth)) * 4096) + (1 << 18)) >> 19;
+        int u = cu[x >> 1] + hr, v = cv[x >> 1] + hr;
+        o[3 * x] = t.y[t.bu[u] + y8];
+        o[3 * x + 1] = t.y[t.gu[u] + t.gv[v] + y8];
+        o[3 * x + 2] = t.y[t.rv[v] + y8];
+      }
     }
   }
 }

@@ -13,7 +13,14 @@ against ``cv2.VideoCapture``, never only against the port's decoder.
 ``write_random`` draws the syntax of ``n_frames`` pictures from a seed;
 ``write_frames`` codes BGR frames (intra 2Nx2N, skip, merge and AMVP coding
 units of 16x16 at a fixed QP; list 0, list 1 or bi-prediction in B
-pictures). The keyword features become the writer's options; where one is
+pictures). Both take ``bit_depth`` (8, 9 or 10; 8 unless given, Main 10's
+profile above 8): at 9 and 10 bits random mode draws samples, PCM values
+(half of the blocks on one gently curved surface over the picture) and
+depths (``pcm_bd`` gives the PCM depth), weighted offsets over their
+whole range, QPs below 0 and SAO offsets above 7, from a generator of its
+own, so that streams written without it stay as they were; frames mode
+scales the frames up, with a pattern in the lowest bit of luma. The
+keyword features become the writer's options; where one is
 absent, random mode draws it per stream: ``ctb`` (16, 32 or 64), ``min_cb``
 (8 or 16), ``max_tb`` (the largest transform), ``amp``, ``sao``, ``pcm``,
 ``scaling`` (scaling lists, in the SPS and/or the PPSs), ``tmvp``,
@@ -50,10 +57,13 @@ no_output_of_prior_pics_flag), ``skip`` (skipped coding units),
 the SPS's); ``hev1`` (sample entry hev1, parameter sets in band), ``inband``
 (hvc1 that repeats them before each IRAP), ``length_size``, ``quicktime``,
 ``rotation``, ``crop_top``/``crop_left``, ``full_range``/``matrix``/
-``primaries``/``transfer`` (VUI colour), ``hrd`` (VUI timing and HRD
+``primaries``/``transfer`` (VUI colour), ``chroma_loc_type`` (the VUI's
+chroma_sample_loc_type, 0-5, or above: unspecified), ``hrd`` (VUI timing and HRD
 parameters), ``ctts`` (0: no composition offsets for reordered pictures),
-``refuse`` (write a feature the decoder refuses: main10, rext, bit_depth10,
-chroma422, long_term, wpp_tiles (WPP and tiles in one PPS), bla, tsa_stsa,
+``hvcc_bd`` (hvcC's luma bit depth, for the decoder's check of a wrong one),
+``refuse`` (write a feature the decoder refuses: rext, bit_depth_mixed (luma
+10 bits, chroma 8), bit_depth12, chroma422, long_term, wpp_tiles (WPP and
+tiles in one PPS), bla, tsa_stsa,
 missing_ref, idr_over_generated: an IDR right after the leading pictures of
 a CRA that starts the stream, with cra=3). Frames mode takes ``bframes``
 (0-4 B pictures between anchors, each group coded after the anchor that

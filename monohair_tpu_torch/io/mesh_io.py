@@ -9,6 +9,7 @@ uniform area-weighted surface sampling with normals (o3d
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,17 +37,26 @@ def _load_plain_triangles(path: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         lines = f.read().splitlines()
     if any(line.startswith("vt ") for line in lines):
         return None
-    vtok = " ".join(line[2:] for line in lines if line.startswith("v ")).split()
-    fjoined = " ".join(line[2:] for line in lines if line.startswith("f "))
-    ftok = fjoined.split()
-    nv = sum(line.startswith("v ") for line in lines)
-    nf = sum(line.startswith("f ") for line in lines)
-    if len(vtok) != 3 * nv or len(ftok) != 3 * nf or "/" in fjoined:
+    vrec = [line[2:] for line in lines if line.startswith("v ")]
+    frec = [line[2:] for line in lines if line.startswith("f ")]
+    fjoined = " ".join(frec)
+    if "/" in fjoined:
         return None
-    faces = np.array(ftok, dtype=np.int64).reshape(-1, 3)
+    # numpy's text parser rounds as float() does; text it cannot read ends
+    # the array early (the counts below refuse it) or raises, as later numpy does
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        try:
+            verts = np.fromstring(" ".join(vrec), dtype=np.float64, sep=" ")
+            faces = np.fromstring(fjoined, dtype=np.int64, sep=" ")
+        except ValueError:
+            return None
+    if len(verts) != 3 * len(vrec) or len(faces) != 3 * len(frec):
+        return None
+    faces = faces.reshape(-1, 3)
     if len(faces) and faces.min() < 1:
         return None
-    return np.array(vtok, dtype=np.float64).reshape(-1, 3), faces - 1
+    return verts.reshape(-1, 3), faces - 1
 
 
 def load_obj_with_uv(path: str):

@@ -18,15 +18,18 @@ does not use HEVC, and what x264 (FFmpeg, HandBrake) writes by default, B
 pictures, B references and implicit weights included, with the frames cv2
 hands over in its order (and the pictures it drops, where the file does not
 tell FFmpeg the reorder delay). HEVC is bit-exact by its standard too:
-the HEVC decoder gives cv2's frames bit for bit on the Main profile's I, P
-and B slices (tests/test_torch_hevc.py): CTBs of 16, 32 and 64, CABAC,
+the HEVC decoder gives cv2's frames bit for bit on the Main and Main 10
+profiles' I, P and B slices at 8, 9 and 10 bits (tests/test_torch_hevc.py;
+at 9 and 10 bits converted to BGR24 through swscale's general scaler, as
+cv2 converts them): CTBs of 16, 32 and 64, CABAC,
 intra, merge/AMVP/TMVP inter prediction from either list, bi-prediction,
 weighted prediction and bi-prediction, scaling lists, transform skip, sign
 hiding, PCM, transquant bypass, the deblocking filter and SAO, several
 slices a picture, IDR, CRA, trailing and RASL/RADL leading pictures (open
 GOPs), POCs out of decode order, with FFmpeg's output order, the RASL
 pictures it skips and its departures from the standard in the loop
-filters; what a phone, or x265 by default, writes. The display matrix of a phone's
+filters, WPP, tiles and dependent slice segments; what a phone, or x265 by
+default, writes, 10-bit (a camera's or a phone's) included. The display matrix of a phone's
 portrait video is applied as cv2 applies it: the frames come rotated by 90,
 180 or 270 degrees, and ``width``/``height`` are the rotated frame's.
 Streams the codecs do not take raise ``UnsupportedVideoError`` naming the
@@ -39,11 +42,12 @@ data partitioning, video packets and the short video header; in H.264 SP
 and SI slices, fields and MBAFF, other chroma formats and bit depths, slice
 groups, redundant pictures, data partitioning, the lossless transform bypass,
 gaps in frame_num, reference lists longer than the references held; in HEVC
-BLA and TSA/STSA pictures, WPP,
-tiles, dependent slice segments, long-term references, profiles other than
-Main and the SPS/PPS extensions, bit depths above 8, chroma formats other
-than 4:2:0, coded fields, constrained intra prediction with coding blocks of
-16x16 or more, a missing reference picture; in H.264 and HEVC a left
+BLA and TSA/STSA pictures, WPP and tiles in one PPS, long-term references,
+profiles other than Main and Main 10 and the SPS/PPS extensions, bit
+depths above 10 or that differ between luma and chroma, 9- and 10-bit
+pictures of fewer than 10 rows, chroma formats other than 4:2:0, coded
+fields, constrained intra prediction with coding blocks of 16x16 or more, a
+missing reference picture; in H.264 and HEVC a left
 crop, and the colour descriptions whose frames cv2
 converts through colour management (BT.2020 primaries, PQ/HLG transfers, the
 GBR, YCgCo and BT.2020 matrices). Full range and the BT.601/BT.709 matrices
@@ -110,7 +114,12 @@ H264_STAT_NAMES = ("idr_pictures", "i_slices", "p_slices", "cabac_slices", "intr
 # dependent_restores: dependent slice segments that take the contexts of the
 # segment before them; entry_points: entry_point_offset_minus1 read;
 # entry_point_mismatches: entry points that do not give their substream's
-# length, 0 in a right stream)
+# length, 0 in a right stream; pictures_9bit and pictures_10bit: by the SPS's
+# bit depth; negative_qp_cus: coding units with QpY below 0 (at more than 8
+# bits); sao_offsets_above_7: SAO offsets coded above 7 (at 9 and 10 bits);
+# pcm_upshifted_cus: PCM coding units whose PCM bit depth is below the
+# picture's; hvcc_bit_depth_mismatches: SPSs whose bit depths hvcC's do not
+# give, 0 in a right file)
 HEVC_STAT_NAMES = ("idr_pictures", "cra_pictures", "trail_n_pictures", "i_slices", "p_slices",
                    "multi_slice_pictures", "ctb16_pictures", "ctb32_pictures", "ctb64_pictures",
                    "partial_ctbs", "intra_cus", "intra_nxn_cus", "pcm_cus", "bypass_cus",
@@ -129,7 +138,8 @@ HEVC_STAT_NAMES = ("idr_pictures", "cra_pictures", "trail_n_pictures", "i_slices
                    "skipped_rasl_pictures", "wpp_pictures", "wpp_synced_rows",
                    "wpp_initialised_rows", "tile_pictures", "tiles", "tile_edges_unfiltered",
                    "dependent_slice_segments", "dependent_restores", "entry_points",
-                   "entry_point_mismatches")
+                   "entry_point_mismatches", "pictures_9bit", "pictures_10bit", "negative_qp_cus",
+                   "sao_offsets_above_7", "pcm_upshifted_cus", "hvcc_bit_depth_mismatches")
 _CODECS = {"mp4v": (SOURCE, MP4V_ENTRIES, STAT_NAMES),
            "h264": (H264_SOURCE, H264_ENTRIES, H264_STAT_NAMES),
            "hevc": (HEVC_SOURCE, HEVC_ENTRIES, HEVC_STAT_NAMES)}
@@ -144,7 +154,7 @@ class UnsupportedVideoError(ValueError):
     chroma formats or bit depths, slice groups, redundant pictures, data
     partitioning, the transform bypass or a gap in frame_num; in HEVC BLA
     and TSA/STSA pictures, tiles with WPP in one PPS, long-term references,
-    other profiles, bit depths or chroma formats."""
+    other profiles, bit depths above 10 or mixed, or chroma formats."""
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

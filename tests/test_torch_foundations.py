@@ -235,6 +235,31 @@ def test_obj_cameras_and_points_match_jax(tmp_path, rng):
     np.testing.assert_array_equal(tcams.w2c.numpy(), np.asarray(jcams.w2c))
 
 
+
+OBJ_TEXTS = {
+    # plain triangles in every float spelling, among records the loader skips
+    "plain": "# mesh\no head\nv 0.5 -1e-3 2.5E+2\nv +3 -0.0 1.234567890123456789\n"
+             "vn 0 0 1\n\nv 7 8 9.000000001\nf 1 2 3\nf 3 2 1\n",
+    # a quad, fan-triangulated by the general parser
+    "quad": "v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nf 1 2 3 4\n",
+    # corners with texture indices
+    "uv": "v 0 0 0\nv 1 0 0\nv 1 1 0\nvt 0 0\nvt 1 0\nvt 1 1\nf 1/1 2/2 3/3\n",
+}
+
+
+@pytest.mark.parametrize("kind", sorted(OBJ_TEXTS))
+def test_obj_loader_reads_as_the_jax_loader(tmp_path, kind):
+    from monohair_tpu.io import mesh_io as jmesh
+    from monohair_tpu_torch.io import mesh_io as tmesh
+    path = tmp_path / "m.obj"
+    path.write_text(OBJ_TEXTS[kind])
+    v, f = jmesh.load_obj(str(path))
+    v2, f2 = tmesh.load_obj(str(path))
+    np.testing.assert_array_equal(v, v2)
+    np.testing.assert_array_equal(f, f2)
+    assert v2.dtype == np.float64 and f2.dtype == np.int64 and f2.shape[1] == 3
+
+
 # ---------------------------------------------------------------------------
 # config
 # ---------------------------------------------------------------------------

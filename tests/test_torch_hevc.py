@@ -8,8 +8,10 @@ drives the decoder's own syntax code, so every stream is held against
 cv2.VideoCapture, never against the port alone.
 
 Held bitwise (max |diff| 0 on every frame, no tolerance needed: H.265 defines
-every decoded sample in integers, and the BGR conversion is swscale's): each
-named feature set of random Main-profile I/P/B syntax, two seeds each, at small
+every decoded sample in integers, and the BGR conversion is swscale's, its
+unscaled yuv2rgb at 8 bits and its general scaler at 9 and 10): each
+named feature set of random Main and Main 10 I/P/B syntax (8, 9 and 10
+bits), two seeds each, at small
 sizes with partial CTBs on the right and bottom edges and CTBs of 16, 32 and
 64, with the frame count, fps and size that cv2 reports; the counters of
 what the stream used show that the feature was exercised, and every counter
@@ -25,10 +27,13 @@ blocks under SAO, the deblocking offsets it carries from CTB to CTB, the
 filters' order in tile scan, its output order, the RASL pictures it skips),
 the decoder takes FFmpeg's way, and the sets that reach those paths hold it.
 The writer's frames mode round-trips frames at >= 30 dB, I/P and I/P/B (B
-pyramids, open and closed GOPs), with WPP as x265 writes it by default, and
-with tiles and dependent slice segments. hvc1 and hev1 both decode; a
-portrait display matrix rotates the frames as cv2 rotates them. Every refused
-feature raises UnsupportedVideoError naming it."""
+pyramids, open and closed GOPs), Main 10 I/P/B, with WPP as x265 writes it
+by default, and with tiles and dependent slice segments. hvc1 and hev1 both
+decode; a wrong bit depth in hvcC is counted (FFmpeg reads the SPS's); a
+portrait display matrix rotates the frames as cv2 rotates them; the
+signalled colour converts as cv2 converts it at 8 and 10 bits. Every
+refused feature raises UnsupportedVideoError naming it (mixed bit depths,
+12 bits, BT.2020 and the HDR transfers among them)."""
 
 import pytest
 
@@ -129,9 +134,45 @@ FEATURE_SETS = {
     "tiles_slices_qp_b": (dict(tiles=1, lf_across_tiles=1, slices=6, bslices=0.6, cu_qp_delta=1,
                                group=2, refs=2, sao=1, deblock=1, ctb=32), (136, 72),
                           ("tile_pictures", "multi_slice_pictures", "qp_delta_cus", "b_slices")),
+    # Main 10: intra with PCM at 8 bits (shifted up) and at 10, transform skip,
+    # transquant bypass, strong smoothing, scaling lists and cu_qp_delta
+    # taking QpY below 0
+    "main10_intra_pcm8": (dict(bit_depth=10, intra_only=1, ctb=32, max_tb=32, pcm=1, pcm_bd=8,
+                               pcm_share=0.15, bypass=1, transform_skip=1, strong=1, cu_qp_delta=1,
+                               scaling=1, sao=0), (96, 64),
+                          ("pictures_10bit", "pcm_cus", "pcm_upshifted_cus", "bypass_cus",
+                           "transform_skip_blocks", "strong_smoothing_blocks",
+                           "scaling_list_slices", "qp_delta_cus", "negative_qp_cus")),
+    "main10_intra_pcm10": (dict(bit_depth=10, intra_only=1, ctb=32, max_tb=32, pcm=1, pcm_bd=10,
+                                pcm_share=0.15, bypass=1, transform_skip=1, strong=1,
+                                cu_qp_delta=1, scaling=1, sao=0), (96, 64),
+                           ("pictures_10bit", "pcm_cus", "bypass_cus", "transform_skip_blocks",
+                            "strong_smoothing_blocks", "negative_qp_cus")),
+    # 32x32 intra blocks beside PCM blocks that sample one gently curved
+    # surface: strong smoothing's threshold, 1 << (bitDepth - 5)
+    "main10_strong_smoothing": (dict(bit_depth=10, intra_only=1, ctb=64, min_cb=16, max_tb=32,
+                                     pcm=1, pcm_bd=10, pcm_share=0.5, strong=1, bypass=0, sao=0,
+                                     deblock=0, transform_skip=0), (128, 96),
+                                ("pictures_10bit", "strong_smoothing_blocks", "pcm_cus")),
+    # explicit weights with offsets over their whole range, AMP
+    "main10_p_weighted_amp": (dict(bit_depth=10, ctb=32, amp=1, weighted=1, refs=2), SIZE,
+                              ("pictures_10bit", "weighted_slices", "amp_cus", "p_slices")),
+    # I/P/B with WPP, SAO band and edge offsets above 7, deblocking with offsets
+    "main10_ipb_wpp_sao_deblock": (dict(bit_depth=10, wpp=1, bslices=0.6, group=3, refs=3, sao=1,
+                                        deblock=1, ctb=16), (136, 72),
+                                   ("pictures_10bit", "wpp_pictures", "b_slices", "bipred_pus",
+                                    "sao_band_ctbs", "sao_edge_ctbs", "sao_offsets_above_7",
+                                    "deblocked_slices", "negative_qp_cus")),
+    "main10_b_weighted_bipred_tmvp": (dict(bit_depth=10, bslices=1, weighted_bipred=1, tmvp=1,
+                                           col_l1=1, refs=3, group=3), SIZE,
+                                      ("pictures_10bit", "weighted_bipred_slices", "bipred_pus",
+                                       "tmvp_candidates")),
+    "main9": (dict(bit_depth=9, bslices=0.5, group=2, refs=2, sao=1, deblock=1, pcm=1,
+                   cu_qp_delta=1, weighted=1), SIZE,
+              ("pictures_9bit", "sao_offsets_above_7", "negative_qp_cus", "qp_delta_cus")),
 }
 # counters that every stream holds at 0
-ZERO_COUNTERS = ("entry_point_mismatches",)
+ZERO_COUNTERS = ("entry_point_mismatches", "hvcc_bit_depth_mismatches")
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -167,11 +208,15 @@ def test_every_counter_is_held_against_cv2():
     assert held == set(HEVC_STAT_NAMES), set(HEVC_STAT_NAMES) - held
 
 
-@pytest.mark.parametrize("ctb", [16, 64])
-def test_frames_mode_round_trip(ctb, tmp_path):
+@pytest.mark.parametrize("ctb, extra", [(16, {}), (64, {}),
+                                       (64, dict(bit_depth=10, bframes=4, pyramid=1, refs=3))],
+                         ids=["16", "64", "main10_ipb"])
+def test_frames_mode_round_trip(ctb, extra, tmp_path):
+    """I/P, and Main 10 I/P/B (the source frames scaled up to 10 bits with
+    detail in the lowest bit)."""
     frames = smooth_frames(72, 136, 6)
     path = str(tmp_path / f"frames_{ctb}.mp4")
-    write_frames(path, frames, fps=24, qp=24, ctb=ctb)
+    write_frames(path, frames, fps=24, qp=24, ctb=ctb, **extra)
     want, props = cv2_read(path)
     assert props == (len(frames), 24.0, 136, 72)
     with VideoReader(path) as reader:
@@ -179,6 +224,8 @@ def test_frames_mode_round_trip(ctb, tmp_path):
         stats = reader.stats
     assert_same_frames(got, want)
     assert stats["skip_cus"] + stats["merge_pus"] > 0 and stats["p_slices"] > 0
+    if extra:
+        assert stats["pictures_10bit"] == len(frames) and stats["b_slices"] > 0
     assert min(psnr(a, b) for a, b in zip(got, frames)) >= 30.0
 
 
@@ -232,6 +279,37 @@ def test_frames_mode_parallel_tools_round_trip(name, tmp_path):
     assert min(psnr(a, b) for a, b in zip(got, frames)) >= 30.0
 
 
+@pytest.mark.parametrize("features, seed", [(dict(), 6), (dict(leading=6, cra=1, gop=3), 18)],
+                         ids=["groups", "cra"])
+def test_non_reference_pictures_keep_pocs_in_range(features, seed, tmp_path):
+    """Sub-layer non-reference pictures leave prevTid0Pic behind: with 4 POC
+    bits the writer keeps each next anchor, or CRA, at most 8 above it (a
+    smaller group, fewer leading pictures, or an IDR), where it once wrote a
+    POC that decodes 16 lower."""
+    path = str(tmp_path / "nonref.mp4")
+    write_random(path, (64, 48), 10, seed=seed, group=4, nonref=0.5, poc_bits=4, refs=2,
+                 **features)
+    want, _ = cv2_read(path)
+    with VideoReader(path) as reader:
+        got = list(reader)
+        stats = reader.stats
+    assert_same_frames(got, want)
+    assert stats["trail_n_pictures"] > 0
+
+
+def test_wrong_hvcc_bit_depth_is_counted(tmp_path):
+    """cv2's FFmpeg decodes by the SPS and reads nothing of hvcC's bit
+    depths; the decoder does too, and counts an SPS that disagrees."""
+    path = str(tmp_path / "hvcc_bd.mp4")
+    write_random(path, (64, 48), 3, seed=2, bit_depth=10, hvcc_bd=8)
+    want, _ = cv2_read(path)
+    with VideoReader(path) as reader:
+        got = list(reader)
+        stats = reader.stats
+    assert_same_frames(got, want)
+    assert stats["hvcc_bit_depth_mismatches"] == 1 and stats["pictures_10bit"] == 3
+
+
 def test_wrong_entry_points_are_counted(tmp_path):
     """cv2's FFmpeg decodes a stream whose first entry point of each slice is
     one byte off as it decodes a right one; the decoder does too, and counts
@@ -267,13 +345,32 @@ def test_portrait_display_matrix_rotates_as_cv2(degrees, tmp_path):
     assert_same_frames(got, want)
 
 
-@pytest.mark.parametrize("colour", [dict(full_range=1), dict(matrix=1),
-                                    dict(matrix=6, full_range=1)])
-def test_signalled_colour_converts_as_cv2(colour, tmp_path):
+COLOURS = [dict(full_range=1), dict(matrix=1), dict(matrix=6, full_range=1)]
+
+
+@pytest.mark.parametrize("colour, bit_depth", [(c, d) for d in (8, 10) for c in COLOURS],
+                         ids=[f"colour{i}{'' if d == 8 else '-10'}" for d in (8, 10)
+                              for i in range(len(COLOURS))])
+def test_signalled_colour_converts_as_cv2(colour, bit_depth, tmp_path):
+    """At 8 bits swscale's unscaled yuv2rgb; at 10 bits its general scaler
+    (mp4.h: yuv420_high_to_bgr), each with the matrix and range signalled."""
     path = str(tmp_path / "colour.mp4")
-    write_random(path, (64, 48), 3, seed=7, **colour)
+    write_random(path, (64, 48), 3, seed=7, bit_depth=bit_depth, **colour)
     want, _ = cv2_read(path)
     assert_same_frames(list(read_video(path)), want)
+
+
+@pytest.mark.parametrize("loc", range(7))
+def test_chroma_location_converts_as_cv2(loc, tmp_path):
+    """At 10 bits swscale interpolates the chroma from where the VUI's
+    chroma_sample_loc_type puts it (types 0-5; above 5 cv2 takes it as
+    unspecified, the centre); at 8 bits its unscaled yuv2rgb ignores it."""
+    path = str(tmp_path / "loc.mp4")
+    for bit_depth in (8, 10):
+        write_random(path, (64, 48), 2, seed=loc, bit_depth=bit_depth, chroma_loc_type=loc,
+                     pcm=1, pcm_share=0.3)
+        want, _ = cv2_read(path)
+        assert_same_frames(list(read_video(path)), want)
 
 
 REFUSED = {
@@ -282,9 +379,11 @@ REFUSED = {
     "tsa_stsa_pictures": (dict(refuse="tsa_stsa"), "TSA/STSA pictures"),
     "wpp_and_tiles": (dict(refuse="wpp_tiles"), "tiles and WPP in one PPS"),
     "long_term_refs": (dict(refuse="long_term"), "long-term reference pictures"),
-    "main10_profile": (dict(refuse="main10"), "Main 10"),
     "rext_profile": (dict(refuse="rext"), "profiles other than Main"),
-    "bit_depth10": (dict(refuse="bit_depth10"), "bit depth 10"),
+    "bit_depth_mixed": (dict(refuse="bit_depth_mixed"), r"bit depths that differ \(luma 10, chroma 8\)"),
+    "bit_depth12": (dict(refuse="bit_depth12"), "bit depth 12"),
+    # swscale converts 10-bit pictures of fewer than 10 rows by other paths
+    "short_main10_picture": (dict(bit_depth=10), "8 rows at 10 bits"),
     "chroma422": (dict(refuse="chroma422"), "chroma_format_idc 2"),
     "missing_reference": (dict(refuse="missing_ref"), "missing reference picture"),
     "idr_over_generated_refs": (dict(refuse="idr_over_generated", cra=3, leading=2),
@@ -303,7 +402,7 @@ REFUSED = {
 def test_refused_features_raise_by_name(name, tmp_path):
     features, words = REFUSED[name]
     path = str(tmp_path / f"{name}.mp4")
-    size = (56, 40) if name == "left_crop" else (64, 48)
+    size = {"left_crop": (56, 40), "short_main10_picture": (64, 8)}.get(name, (64, 48))
     write_random(path, size, 4, seed=1, refs=2, **features)
     with pytest.raises(UnsupportedVideoError, match=words):
         list(read_video(path))
@@ -324,14 +423,16 @@ def test_an_unknown_sample_entry_is_refused_by_name(tmp_path):
 @pytest.mark.parametrize("rotation, b", [(0, {}), (90, {}),
                                          (0, dict(bframes=4, pyramid=1, refs=3, gop=8, cra=1)),
                                          (0, dict(bframes=4, pyramid=1, refs=3, gop=8, cra=1,
-                                                  wpp=1))],
-                         ids=["0", "90", "b_frames", "x265_defaults"])
+                                                  wpp=1)),
+                                         (0, dict(bframes=4, pyramid=1, refs=3, gop=8, cra=1,
+                                                  wpp=1, bit_depth=10))],
+                         ids=["0", "90", "b_frames", "x265_defaults", "main10"])
 def test_extract_sharpest_frames_keeps_the_jax_frames(rotation, b, tmp_path):
     """On an HEVC file, the port keeps the frames the JAX package's
     extract_sharpest_frames keeps (cv2.VideoCapture there), with the same
     pixels; with a portrait display matrix both keep portrait frames; and
     so on an I/P/B stream (B pyramid, an open GOP with RASL pictures), with
-    WPP too as x265 writes by default."""
+    WPP too as x265 writes by default, and so at 10 bits (Main 10)."""
     import cv2
     import numpy as np
 

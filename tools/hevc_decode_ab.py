@@ -1,5 +1,5 @@
 """The host decode's ms a frame of chip_smoke.py's phase-14e HEVC streams with
-and without the parallel tools, in turns in one process: the 30 frames of
+and without the parallel tools, in turns in one process: the HEVC_FRAMES of
 1920x1080 I/P/B in x265's GOP shape with WPP (chip_smoke.HEVC_B) and without
 it, and the first 10 as I/P in 4x3 tiles with dependent slice segments
 (chip_smoke.HEVC_TILES) and without them. Each stream is decoded --repeats

@@ -8,10 +8,11 @@ configurations (CTB and coding block sizes, POCs out of decode order, IRAP
 kinds, RASL/RADL leading pictures, B slices with their list 1, mvd_l1_zero
 and collocated list, slices, deblocking and SAO, weights and bi-prediction
 weights, list modification, TMVP, the residual tools, WPP or tiles and
-dependent slice segments, ...) from a seed, on top of the writer's own
-per-stream draws, and prints one line a stream, then the count of
-mismatches and of the streams that used WPP, tiles and dependent slice
-segments. A stream whose substreams do not start where its entry points say
+dependent slice segments, the bit depth (8, 9 or 10) and the chroma
+location, ...) from a seed, on
+top of the writer's own per-stream draws, and prints one line a stream,
+then the count of mismatches and of the streams that used WPP, tiles,
+dependent slice segments and 9 or 10 bits. A stream whose substreams do not start where its entry points say
 counts as a mismatch too. Run on the CPU:
 
     python tools/hevc_sweep.py --seed 1 --configs 100
@@ -67,6 +68,7 @@ def draw(rnd: random.Random) -> tuple:
                          (0.1, dict(poc_bits=4)),
                          (0.5, dict(bslices=rnd.choice([0.3, 0.6, 1.0]))),
                          (0.3, dict(mvd_l1_zero=0.5)), (0.3, dict(col_l1=0.8)),
+                         (0.2, dict(chroma_loc_type=rnd.choice(range(7)))),
                          (0.2, dict(weighted_bipred=1)),
                          (0.3, dict(leading=rnd.choice([1, 2, 3]))),
                          (0.3, dict(dependent=rnd.choice([0.3, 0.6, 1.0]),
@@ -80,10 +82,14 @@ def draw(rnd: random.Random) -> tuple:
         f.update(wpp=1)
     elif tool < 0.6 and ctbs > 1:
         f.update(tiles=1)
+    depth = rnd.random()
+    if depth < 0.4:
+        f.update(bit_depth=10 if depth < 0.25 else 9)
     return size, n, f
 
 
-TOOLS = {"wpp": "wpp_pictures", "tiles": "tile_pictures", "dependent": "dependent_slice_segments"}
+TOOLS = {"wpp": "wpp_pictures", "tiles": "tile_pictures", "dependent": "dependent_slice_segments",
+         "9 bits": "pictures_9bit", "10 bits": "pictures_10bit"}
 
 
 def check(path: str, size, n: int, seed: int, features: dict) -> tuple:
