@@ -167,7 +167,14 @@ Phases, each printing a line when it starts and when it ends:
               10 (10-bit) I/P/B in the same shape (HEVC_MAIN10): ms a frame
               to decode beside the 8-bit I/P/B stream's, PSNR (>= 30 dB),
               the extraction's frames/s and kept frames, every picture at
-              10 bits
+              10 bits; then 5 frames from a numpy seed as an iPhone's HDR
+              recording in the same shape (HEVC_HLG: Main 10, BT.2020
+              matrix and primaries, HLG, the alternative transfer SEI,
+              Dolby Vision 8.4's RPU units and dvvC box): the stream's and
+              the decoded frames' SHA-256 against the recorded ones (the
+              frames are cv2's, held on the CPU), the 3D LUT's against
+              its own (this host's libm), ms a frame to decode beside the
+              8-bit I/P/B stream's, the extraction's kept frame
  15. hair parser training
               15a BiSeNet (the hair parser) and MODNet (the matte) at width
               1.0, flax's initialisers from a seed: one training step of 2
@@ -197,6 +204,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import hashlib
 import json
 import math
 import os
@@ -2748,6 +2756,22 @@ HEVC_TILES_FRAMES = 10
 # frames up, with detail in the lowest bit), on the first 10 of 14b's frames
 HEVC_MAIN10 = dict(HEVC_B, bit_depth=10)
 HEVC_MAIN10_FRAMES = 10
+# 14e's HDR stream, an iPhone's default recording: Main 10 in HEVC_B's shape
+# with the BT.2020 matrix and primaries and HLG (9/9/18), the alternative
+# transfer characteristics SEI naming HLG, and Dolby Vision 8.4's RPU units
+# and dvvC box; 5 frames of 1920x1080 made from a numpy seed (hlg_frames)
+HEVC_HLG = dict(HEVC_B, bit_depth=10, matrix=9, primaries=9, transfer=18, atc_sei=18, dv_rpu=1,
+                dvcc=8)
+HLG_FRAMES = 5
+HLG_SEED = 2022
+# SHA-256 of the HDR stream's bytes (the writer) and of its decoded frames
+# (the decoder: the frames cv2 returns, held to cv2 on the CPU at the size
+# they were taken), and of the 3D LUT the decoder converts it through
+# (video_io.colour_lut(True, True), BT.2020 and HLG: each node held to
+# swscale's when taken; built with every libm function the LUTs call)
+HLG_STREAM_SHA256 = "0a6a77acbbb96f7ddb5a4659b2d15b0b82c1d4b61a28a4fdadb3111b080dda53"
+HLG_DECODED_SHA256 = "2db4912c56531fbb15bf6178808e94d2a16939c606cbde5cf4a304a6b836b8a6"
+HLG_LUT_SHA256 = "be9edc8cf25d2e306551795d217346948dc2f0bd328e40c99b0fb6f003b3aa6a"
 FLY_SIZE = (720, 1280)           # render_camera_path_video's default (H, W)
 FLY_POSES = 3
 FLY_FRAMES_PER_SEG = 2
@@ -3086,6 +3110,7 @@ def phase_video_hevc(dev: torch.device, tmp: str, frames_1080: list, frames_720:
     out["tiles"] = phase_video_hevc_tiles(dev, tmp, frames_1080[:HEVC_TILES_FRAMES])
     out["main10"] = phase_video_hevc_main10(dev, tmp, frames_1080[:HEVC_MAIN10_FRAMES],
                                             out["b_frames"]["decode_ms"])
+    out["hlg"] = phase_video_hevc_hlg(dev, tmp, out["b_frames"]["decode_ms"])
     return out
 
 
@@ -3242,6 +3267,92 @@ def phase_video_hevc_main10(dev: torch.device, tmp: str, frames: list, b_decode_
     return res
 
 
+def hlg_frames(H: int, W: int, n: int) -> list:
+    """n BGR frames made in integers from HLG_SEED (the same bytes on any
+    host): a colour field bilinearly spread from a coarse random grid, with
+    fine random texture; the first sharp, the rest box-blurred (9 x 9)."""
+    rng = np.random.default_rng(HLG_SEED)
+    gh, gw = 9, 16
+    grid = rng.integers(0, 256, (gh, gw, 3)).astype(np.int32)
+    ys = np.arange(H, dtype=np.int32) * (gh - 1) * 256 // (H - 1)
+    xs = np.arange(W, dtype=np.int32) * (gw - 1) * 256 // (W - 1)
+    y0, fy = np.minimum(ys >> 8, gh - 2), ys - (np.minimum(ys >> 8, gh - 2) << 8)
+    x0, fx = np.minimum(xs >> 8, gw - 2), xs - (np.minimum(xs >> 8, gw - 2) << 8)
+    top = grid[y0][:, x0] * (256 - fx)[None, :, None] + grid[y0][:, x0 + 1] * fx[None, :, None]
+    bot = grid[y0 + 1][:, x0] * (256 - fx)[None, :, None] + grid[y0 + 1][:, x0 + 1] * fx[None, :, None]
+    field = (top * (256 - fy)[:, None, None] + bot * fy[:, None, None]) >> 16
+    sharp = np.clip(field + rng.integers(-48, 49, (H, W, 1), dtype=np.int32), 0, 255)
+    r = VIDEO_BLUR // 2
+    pad = np.pad(sharp, ((r + 1, r), (r + 1, r), (0, 0)), mode="edge").cumsum(0).cumsum(1)
+    box = (pad[VIDEO_BLUR:, VIDEO_BLUR:] - pad[:-VIDEO_BLUR, VIDEO_BLUR:]
+           - pad[VIDEO_BLUR:, :-VIDEO_BLUR] + pad[:-VIDEO_BLUR, :-VIDEO_BLUR]) // VIDEO_BLUR ** 2
+    return [np.ascontiguousarray((sharp if k == 0 else box).astype(np.uint8)) for k in range(n)]
+
+
+def phase_video_hevc_hlg(dev: torch.device, tmp: str, b_decode_ms: float) -> dict:
+    """14e, HDR: HLG_FRAMES 1920x1080 frames from a numpy seed as HEVC_HLG
+    (an iPhone's HLG recording's signalling in HEVC_B's shape), decoded on
+    the host through cv2's colour management (csrc/mp4.h) and through the
+    extraction on the card: the stream's and the decoded frames' SHA-256
+    against the recorded ones, the 3D LUT's against its own (the libm of this
+    host), the LUT's build and the decode's ms a frame beside the 8-bit I/P/B
+    stream's of this call."""
+    t = time.perf_counter()
+    lut_sha = hashlib.sha256(video_io.colour_lut(True, True).tobytes()).hexdigest()
+    lut_s = time.perf_counter() - t
+    frames = hlg_frames(1080, 1920, HLG_FRAMES)
+    H, W = frames[0].shape[:2]
+    path = os.path.join(tmp, "hevc_hlg.mp4")
+    t = time.perf_counter()
+    hevc_streams.write_frames(path, frames, fps=VIDEO_FPS, qp=HEVC_QP, ctb=HEVC_CTB, **HEVC_HLG)
+    enc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with video_io.VideoReader(path) as reader:
+        decoded = list(reader)
+        stats = reader.stats
+    dec_s = time.perf_counter() - t
+    stream_sha = hashlib.sha256(open(path, "rb").read()).hexdigest()
+    decoded_sha = hashlib.sha256(b"".join(f.tobytes() for f in decoded)).hexdigest()
+    info = video_io.video_info(path)
+    out_dir = os.path.join(tmp, "hevc_hlg_frames")
+    sync(dev)
+    t = time.perf_counter()
+    kept = extract_sharpest_frames(path, out_dir, interval=VIDEO_INTERVAL, device=dev)
+    sync(dev)
+    ext_s = time.perf_counter() - t
+    n = len(frames)
+    res = dict(lut_build_s=lut_s, encode_s=enc_s, decode_ms=dec_s / n * 1e3,
+               bytes=os.path.getsize(path), extract_s=ext_s, frames_per_s=n / ext_s,
+               kept=len(kept), stream_sha256=stream_sha, decoded_sha256=decoded_sha,
+               lut_sha256=lut_sha,
+               **{k: stats[k] for k in (
+                   "pictures_10bit", "b_slices", "colour_managed_pictures",
+                   "alternative_transfer_seis", "dolby_vision_rpus", "wpp_pictures",
+                   "entry_point_mismatches")})
+    res["decode_vs_b"] = res["decode_ms"] / b_decode_ms
+    log(f"14e HEVC HLG at {W}x{H} ({HEVC_HLG}, CTB {HEVC_CTB}, QP {HEVC_QP}): {n} frames from "
+        f"seed {HLG_SEED} written in {enc_s:.3f} s ({res['bytes']} bytes, stream SHA-256 "
+        f"{stream_sha}{'' if stream_sha == HLG_STREAM_SHA256 else ', not the recorded one'}); "
+        f"the 3D LUT built in {lut_s:.3f} s, SHA-256 {lut_sha}"
+        f"{'' if lut_sha == HLG_LUT_SHA256 else ', not the recorded one'}; "
+        f"{stats['colour_managed_pictures']} pictures through the LUT, "
+        f"{stats['alternative_transfer_seis']} SEIs naming the transfer, "
+        f"{stats['dolby_vision_rpus']} RPU units skipped; decode {res['decode_ms']:.3f} ms a frame "
+        f"on the host ({res['decode_vs_b']:.3f}x the 8-bit I/P/B stream's); decoded SHA-256 "
+        f"{decoded_sha}{'' if decoded_sha == HLG_DECODED_SHA256 else ', not the recorded one'}; "
+        f"extract_sharpest_frames {ext_s:.3f} s, {res['frames_per_s']:.2f} frames/s, kept "
+        f"{len(kept)}")
+    if (info != (n, float(VIDEO_FPS), W, H) or len(decoded) != n or lut_sha != HLG_LUT_SHA256
+            or stream_sha != HLG_STREAM_SHA256 or decoded_sha != HLG_DECODED_SHA256
+            or stats["pictures_10bit"] != n or stats["colour_managed_pictures"] != n
+            or not stats["b_slices"] or stats["alternative_transfer_seis"] < 1
+            or stats["dolby_vision_rpus"] != n or stats["wpp_pictures"] != n
+            or stats["entry_point_mismatches"]):
+        raise AssertionError(f"14e: the HEVC HLG stream: {info}, {res}")
+    check_kept(decoded, out_dir, kept, sharp_indices(n), False, "14e HLG")
+    return res
+
+
 def phase_video_fly(dev: torch.device, tmp: str) -> dict:
     """14c: the NeRF fly-through at 720x1280 on a seeded full-width field."""
     from monohair_tpu_torch.synthetic import CAPTURE_FOV_Y, capture_orbit_pose
@@ -3310,6 +3421,7 @@ PARSER_TIMED_STEPS = 20          # steady steps timed with CUDA events
 PARSER_BUDGET_S = 10.0           # 15b: the CLI's training time, both nets (the script's time)
 PARSER_FRAMES = (64, 8)          # 15b: training and eval frames (the tool's: 640 + 48)
 PARSER_GATE_WINDOW = 25          # 15b: the first and last steps whose mean losses are compared
+PARSER_MIN_STEPS = 3 * PARSER_GATE_WINDOW  # 15b: each net's steps however slow its 15a step
 PARSER_NETS = {"parser": (lambda: BiSeNet(19, width=1.0), parser_loss, True, 0),
                "matte": (lambda: MODNet(width=1.0), matte_loss, False, 1)}
 
@@ -3404,10 +3516,11 @@ def phase_hair_parser(dev: torch.device) -> dict:
     """Phase 15: the segmentation nets' training. 15a per net
     (parser_card_against_cpu); 15b python -m monohair_tpu_torch.train_hair_parser's
     main at width 1.0 on PARSER_FRAMES frames of 512x512, each net's steps cut
-    to half of PARSER_BUDGET_S at 15a's step time (at most the tool's 4000 and
-    3000), its .npz read back through the runners (hair IoU and matte MAE
-    printed, not gated at this cut); the gate: each net's mean loss over its
-    last PARSER_GATE_WINDOW steps below its first."""
+    to half of PARSER_BUDGET_S at 15a's step time (at least PARSER_MIN_STEPS,
+    so that the gate's two windows never overlap on a slower card or host; at
+    most the tool's 4000 and 3000), its .npz read back through the runners
+    (hair IoU and matte MAE printed, not gated at this cut); the gate: each
+    net's mean loss over its last PARSER_GATE_WINDOW steps below its first."""
     exact_f32()
     torch.cuda.empty_cache()
     result = {}
@@ -3417,7 +3530,8 @@ def phase_hair_parser(dev: torch.device) -> dict:
     torch.cuda.empty_cache()
     with Phase("15b train_hair_parser CLI"), \
             tempfile.TemporaryDirectory(prefix="chip_smoke_parser_") as tmp:
-        steps = {k: min(default, int(PARSER_BUDGET_S / 2 * 1e3 / result[k]["ms"]))
+        steps = {k: min(default, max(PARSER_MIN_STEPS,
+                                     int(PARSER_BUDGET_S / 2 * 1e3 / result[k]["ms"])))
                  for k, default in (("parser", 4000), ("matte", 3000))}
         argv = ["--steps", str(steps["parser"]), "--modnet_steps", str(steps["matte"]),
                 "--n_train", str(PARSER_FRAMES[0]), "--n_eval", str(PARSER_FRAMES[1]),

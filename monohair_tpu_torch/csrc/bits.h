@@ -318,6 +318,19 @@ std::vector<uint8_t> escape_rbsp(std::vector<uint8_t> out, const std::vector<uin
   return out;
 }
 
+// An SEI RBSP of one message (payload type and size coded in bytes of 255
+// and a last byte), with its trailing bits: the writers' SEI NAL units
+std::vector<uint8_t> sei_rbsp(int type, const std::vector<uint8_t>& payload) {
+  std::vector<uint8_t> r;
+  for (int v : {type, (int)payload.size()}) {
+    for (; v >= 255; v -= 255) r.push_back(255);
+    r.push_back((uint8_t)v);
+  }
+  r.insert(r.end(), payload.begin(), payload.end());
+  r.push_back(0x80);
+  return r;
+}
+
 // ------------------------------------------------- the writers' options --
 struct Rng {  // splitmix64
   uint64_t s;

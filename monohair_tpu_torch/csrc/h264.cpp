@@ -12,10 +12,13 @@
 // YUV planes are FFmpeg's; the frame is cropped as frame_cropping says and
 // converted to BGR24 as swscale converts yuv420p for cv2 (mp4.h), with the
 // VUI's matrix_coefficients and video_full_range_flag as cv2 hands them to
-// swscale, then rotated by the display matrix. What cv2 converts otherwise
-// is refused by name: a left crop (FFmpeg aligns the planes and cv2 then
-// rescales), BT.2020 or other primaries (gamut mapping), PQ/HLG transfers
-// (tone mapping), the GBR, YCgCo and BT.2020 matrices. Frames leave in the
+// swscale (the BT.2020 matrix among them), then rotated by the display
+// matrix. What cv2 converts otherwise is refused by name: a left crop
+// (FFmpeg aligns the planes and cv2 then rescales), BT.2020 or other
+// primaries (gamut mapping), PQ/HLG transfers (tone mapping), from the VUI
+// or from an alternative transfer characteristics SEI (which replaces the
+// VUI's in FFmpeg's frames), the GBR, YCgCo and BT.2020 constant-luminance
+// matrices. Frames leave in the
 // order FFmpeg hands them to cv2: held back by the reorder delay that the
 // container's composition offsets (ctts) and the VUI's
 // max_num_reorder_frames give, and without the VUI by the delay FFmpeg
@@ -94,7 +97,8 @@ struct Reader {
     int ref_idc = (d[0] >> 5) & 3, type = d[0] & 31;
     if (type >= 2 && type <= 4)
       unsupported("data partitioning (NAL unit type " + std::to_string(type) + ")");
-    if (type != 1 && type != 5 && type != 7 && type != 8) return;  // SEI, AUD, ...
+    if (type == 6) return sei(d + 1, n - 1);
+    if (type != 1 && type != 5 && type != 7 && type != 8) return;  // AUD, ...
     std::vector<uint8_t> rbsp = unescape(d + 1, n - 1);
     Bits& b = codec.bits;
     b.start_read(rbsp.data(), rbsp.size());
@@ -152,12 +156,40 @@ struct Reader {
         if (v == k) return true;
       return false;
     };
-    if (!in(s.matrix, {1, 2, 3, 4, 5, 6, 7}))
+    if (!in(s.matrix, {1, 2, 3, 4, 5, 6, 7, 9}))
       unsupported("matrix_coefficients " + std::to_string(s.matrix));
     if (!in(s.primaries, {1, 2, 4, 5, 6, 7}))
       unsupported("colour_primaries " + std::to_string(s.primaries) + " (cv2 maps the gamut)");
     if (!in(s.transfer, {1, 2, 4, 5, 6, 7, 8, 13, 14}))
       unsupported("transfer_characteristics " + std::to_string(s.transfer) + " (cv2 tone-maps)");
+  }
+
+  // SEI messages: the alternative transfer characteristics (147) replace
+  // the VUI's transfer in FFmpeg's frames from their access unit on (an SEI
+  // naming no transfer or "unspecified" aside); those cv2 converts as it
+  // converts the VUI's are taken, the others refused by name
+  void sei(const uint8_t* d, size_t n) {
+    std::vector<uint8_t> r = unescape(d, n);
+    size_t pos = 0;
+    auto byte_sum = [&]() {
+      int v = 0;
+      while (pos < r.size() && r[pos] == 0xFF) v += r[pos++];
+      if (pos >= r.size()) fail("truncated SEI message");
+      return v + r[pos++];
+    };
+    while (pos + 1 < r.size() || (pos < r.size() && r[pos] != 0x80)) {
+      const int type = byte_sum(), size = byte_sum();
+      if (pos + size > r.size()) fail("SEI payload runs past its NAL unit");
+      if (type == 147 && size >= 1) {
+        const int v = r[pos];
+        bool sdr = false;
+        for (int k : {1, 2, 4, 5, 6, 7, 8, 13, 14}) sdr |= v == k;
+        if (v <= 18 && !sdr)
+          unsupported("transfer_characteristics " + std::to_string(v) +
+                      " from the alternative transfer characteristics SEI (cv2 tone-maps)");
+      }
+      pos += size;
+    }
   }
 
   void decode_sample(size_t i) {

@@ -336,6 +336,10 @@ struct Writer {
       append(sps_nal);
       append(pps_nal);
     }
+    // the alternative transfer characteristics SEI (payload 147) in the
+    // first access unit
+    if (o.kv.count("atc_sei") && frame == 0)
+      append(nal_unit(0, 6, sei_rbsp(147, {(uint8_t)o.get("atc_sei", 2)})));
     if (refuse == "partitioning" && frame == 1) {
       std::vector<uint8_t> part = {0x12, 0x34, 0x80};
       append(nal_unit(2, 2, part));

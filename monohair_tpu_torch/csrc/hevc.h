@@ -716,7 +716,7 @@ enum NalType {
   TRAIL_N = 0, TRAIL_R = 1, TSA_N = 2, STSA_R = 5, RADL_N = 6, RADL_R = 7, RASL_N = 8,
   RASL_R = 9, BLA_W_LP = 16,
   BLA_N_LP = 18, IDR_W_RADL = 19, IDR_N_LP = 20, CRA = 21, VPS_NUT = 32, SPS_NUT = 33,
-  PPS_NUT = 34, EOS_NUT = 36
+  PPS_NUT = 34, EOS_NUT = 36, PREFIX_SEI_NUT = 39, DOLBY_RPU_NUT = 62
 };
 enum SliceType { SLICE_B = 0, SLICE_P = 1, SLICE_I = 2 };
 
@@ -978,6 +978,7 @@ struct Picture {
   int poc = 0, id = 0;
   bool output = false, ref = false;
   bool missing = false;  // generated for an RPS entry that was not there (8.3.3)
+  int transfer = -1;  // the reader's: an SEI's transfer_characteristics in effect at its decoding
   void alloc(int width, int height, int bit_depth = 8) {
     w = width;
     h = height;
@@ -1022,7 +1023,7 @@ enum Stat {
   S_COMBINED, S_MVD_L1_ZERO, S_COL_L1, S_BI_COL, S_WEIGHTED_BI, S_RASL, S_RADL, S_RASL_SKIPPED,
   S_WPP_PIC, S_WPP_SYNC, S_WPP_INIT, S_TILE_PIC, S_TILES, S_TILE_EDGE, S_DEPENDENT, S_DS_RESTORE,
   S_ENTRY_POINTS, S_ENTRY_MISMATCH, S_PIC9, S_PIC10, S_NEG_QP, S_SAO_BIG, S_PCM_UPSHIFT,
-  S_HVCC_MISMATCH, kStatCount
+  S_HVCC_MISMATCH, S_MANAGED, S_ATC_SEI, S_DOLBY_RPU, kStatCount
 };
 
 // The RASL pictures FFmpeg skips: those that follow a CRA with

@@ -236,6 +236,7 @@ struct Writer {
   Rng rng_pps{0};  // the PPS's B-slice fields, drawn apart (streams without B slices stay as they were)
   Rng rng_par{0};  // tiles and slice segments, drawn apart likewise
   Rng rng_bd{0};   // what only 9- and 10-bit streams draw, apart likewise
+  Rng rng_dv{0};   // the Dolby Vision RPU payloads, apart likewise
   int bit_depth = 8;
   Hevc codec;
   FILE* f = nullptr;
@@ -291,6 +292,7 @@ struct Writer {
     rng_pps = Rng((uint64_t)o.get("seed", 0) ^ 0x5bd1e995u);
     rng_par = Rng((uint64_t)o.get("seed", 0) ^ 0x27d4eb2fu);
     rng_bd = Rng((uint64_t)o.get("seed", 0) ^ 0x165667b1u);
+    rng_dv = Rng((uint64_t)o.get("seed", 0) ^ 0x61c88647u);
     refuse = o.gets("refuse", "");
     bit_depth = o.get("bit_depth", 8);
     if (bit_depth < 8 || bit_depth > 10) fail("bit_depth must be 8, 9 or 10");
@@ -922,6 +924,26 @@ struct Writer {
       append(sps_nal);
       for (const auto& pn : pps_nals) append(pn);
     }
+    // the alternative transfer characteristics SEI (payload 147): in the
+    // first access unit, every one (atc_aus=all), each IRAP's (irap), or
+    // only the access unit of that number
+    if (o.kv.count("atc_sei")) {
+      std::string at = o.gets("atc_aus", "first");
+      if (at == "all" || (at == "first" && !decoded) || (at == "irap" && irap) ||
+          (at != "all" && at != "first" && at != "irap" && decoded == o.get("atc_aus", 0)))
+        append(nal_unit(PREFIX_SEI_NUT, 0, sei_rbsp(147, {(uint8_t)o.get("atc_sei", 2)})));
+    }
+    // HDR10's static metadata SEIs in the first access unit: a mastering
+    // display colour volume (137; BT.2020 primaries, D65, 1000 and 0.005
+    // cd/m2) and a content light level (144; 1000 and 400 cd/m2)
+    if (o.get("luminance_sei", 0) && !decoded) {
+      std::vector<uint8_t> mdcv;
+      for (int v : {8500, 39850, 6550, 2300, 35400, 14600, 15635, 16450}) put_be(mdcv, v, 2);
+      put_be(mdcv, 10000000, 4);
+      put_be(mdcv, 50, 4);
+      append(nal_unit(PREFIX_SEI_NUT, 0, sei_rbsp(137, mdcv)));
+      append(nal_unit(PREFIX_SEI_NUT, 0, sei_rbsp(144, {0x03, 0xE8, 0x01, 0x90})));
+    }
     bool refused_type = (refuse == "bla" || refuse == "tsa_stsa") && decoded == 2;
     if (refused_type) base.nal_type = type = refuse == "bla" ? BLA_W_LP : TSA_N;
     std::unique_ptr<Chooser> chooser;
@@ -1006,6 +1028,7 @@ struct Writer {
       append(nal_unit(type, 0, b.out));
       if (stop) break;
     }
+    if (o.get("dv_rpu", 0)) append(dolby_rpu());
     codec.finish_picture();
     codec.ch = nullptr;
     codec.ready.clear();
@@ -1145,6 +1168,27 @@ struct Writer {
       }
   }
 
+  // An RPU-shaped NAL unit of type 62 as Dolby Vision streams end each
+  // access unit with: the prefix 0x19, rpu_type 2, rpu_format 18, random
+  // bytes, a CRC-32 (MPEG-2) of what follows the prefix and the final
+  // 0x80. The decoders skip it; it is not meant to parse as metadata.
+  std::vector<uint8_t> dolby_rpu() {
+    std::vector<uint8_t> body = {0x08, 0x09};  // rpu_type 2, rpu_format 0x12, ...
+    int n = rng_dv.range(8, 40);
+    for (int i = 0; i < n; i++) body.push_back((uint8_t)rng_dv.range(0, 255));
+    uint32_t crc = 0xFFFFFFFFu;
+    for (uint8_t v : body)
+      for (int k = 7; k >= 0; k--) {
+        bool bit = ((crc >> 31) ^ (v >> k)) & 1;
+        crc = (crc << 1) ^ (bit ? 0x04C11DB7u : 0);
+      }
+    std::vector<uint8_t> rbsp = {0x19};
+    rbsp.insert(rbsp.end(), body.begin(), body.end());
+    put_be(rbsp, crc, 4);
+    rbsp.push_back(0x80);
+    return nal_unit(DOLBY_RPU_NUT, 0, rbsp);
+  }
+
   void release() {
     if (!f) return;
     if (!random_mode) schedule(true);
@@ -1187,9 +1231,20 @@ struct Writer {
     spec.height = height;
     spec.timescale = fps_num;
     spec.delta = fps_den;
-    spec.entry_type = hev1 ? "hev1" : "hvc1";
+    std::string dv_entry = o.gets("dv_entry", "");
+    if (!dv_entry.empty() && dv_entry != "dvh1" && dv_entry != "dvhe") fail("dv_entry must be dvh1 or dvhe");
+    spec.entry_type = !dv_entry.empty() ? (dv_entry == "dvh1" ? "dvh1" : "dvhe") : hev1 ? "hev1" : "hvc1";
     spec.entry = visual_entry(width, height);
     box(spec.entry, "hvcC", hvcc);
+    if (o.kv.count("dvcc")) {  // DOVIDecoderConfigurationRecord: dvcC up to profile 7, dvvC above
+      int profile = o.get("dvcc", 8);
+      int compat = profile == 8 ? 4 : profile == 7 ? 6 : 0;  // HLG; HDR10; none
+      std::vector<uint8_t> dv = {1, 0};  // version 1.0
+      put_be(dv, ((uint32_t)profile << 9) | (6u << 3) | (1u << 2) | ((profile == 7) << 1) | 1u, 2);  // level 6, rpu, el, bl
+      dv.push_back((uint8_t)(compat << 4));
+      put_be(dv, 0, 19);
+      box(spec.entry, profile <= 7 ? "dvcC" : "dvvC", dv);
+    }
     spec.sizes = sizes;
     spec.sync = sync;
     spec.mdat_start = mdat_start;

@@ -41,7 +41,8 @@ long-term reference, the co-located picture), ``ctts`` (0: no composition offset
 (an edit list from that media time, or "movenc", FFmpeg's muxer's edit from
 the first composition time, the default with ctts version 0, or "none"),
 ``equal_chroma_offsets`` (the PPS's two chroma QP offsets equal, as
-FFmpeg's fast loop filter needs), ``refuse`` (write a feature the decoder refuses: sp_slice, si_slice,
+FFmpeg's fast loop filter needs), ``atc_sei`` (an alternative transfer
+characteristics SEI naming that transfer in the first access unit), ``refuse`` (write a feature the decoder refuses: sp_slice, si_slice,
 redundant, partitioning, chroma422, bit_depth10, transform_bypass, fields,
 slice_groups, frame_num_gap).
 """

@@ -61,6 +61,16 @@ the SPS's); ``hev1`` (sample entry hev1, parameter sets in band), ``inband``
 chroma_sample_loc_type, 0-5, or above: unspecified), ``hrd`` (VUI timing and HRD
 parameters), ``ctts`` (0: no composition offsets for reordered pictures),
 ``hvcc_bd`` (hvcC's luma bit depth, for the decoder's check of a wrong one),
+the HDR signalling, off unless given (streams without it stay as they
+were): ``atc_sei`` (an alternative transfer characteristics SEI naming that
+transfer, in the access units ``atc_aus`` says: ``first`` (the default),
+``all``, ``irap``, or the number of one), ``luminance_sei`` (HDR10's
+mastering display colour volume and content light level SEIs in the first),
+``dv_rpu`` (Dolby Vision RPU-shaped NAL units of type 62 ending each access
+unit, their payloads from a generator of their own), ``dvcc`` (a Dolby
+Vision configuration box of that profile: dvcC up to 7, dvvC above, its
+base layer HLG-compatible for profile 8) and ``dv_entry`` (the sample entry
+``dvh1`` or ``dvhe``),
 ``refuse`` (write a feature the decoder refuses: rext, bit_depth_mixed (luma
 10 bits, chroma 8), bit_depth12, chroma422, long_term, wpp_tiles (WPP and
 tiles in one PPS), bla, tsa_stsa,

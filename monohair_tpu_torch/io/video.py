@@ -71,7 +71,7 @@ H264_SOURCE = "h264.cpp"
 HEVC_SOURCE = "hevc.cpp"
 MP4V_ENTRIES = ("mp4v",)
 H264_ENTRIES = ("avc1", "avc3")
-HEVC_ENTRIES = ("hvc1", "hev1")
+HEVC_ENTRIES = ("hvc1", "hev1", "dvh1", "dvhe")
 DEFAULT_QSCALE = 3   # the fixed quantiser: ~36 dB on smooth content
 DEFAULT_GOP = 12     # an I-VOP every 12 frames, P-VOPs between (cv2's GOP)
 # the counters of mp4v_stats, in the codec's order
@@ -119,7 +119,10 @@ H264_STAT_NAMES = ("idr_pictures", "i_slices", "p_slices", "cabac_slices", "intr
 # bits); sao_offsets_above_7: SAO offsets coded above 7 (at 9 and 10 bits);
 # pcm_upshifted_cus: PCM coding units whose PCM bit depth is below the
 # picture's; hvcc_bit_depth_mismatches: SPSs whose bit depths hvcC's do not
-# give, 0 in a right file)
+# give, 0 in a right file; colour_managed_pictures: frames converted through
+# the 3D LUT of BT.2020 primaries or HLG; alternative_transfer_seis: SEI
+# messages of payload 147 read; dolby_vision_rpus: NAL units of type 62
+# skipped)
 HEVC_STAT_NAMES = ("idr_pictures", "cra_pictures", "trail_n_pictures", "i_slices", "p_slices",
                    "multi_slice_pictures", "ctb16_pictures", "ctb32_pictures", "ctb64_pictures",
                    "partial_ctbs", "intra_cus", "intra_nxn_cus", "pcm_cus", "bypass_cus",
@@ -139,7 +142,8 @@ HEVC_STAT_NAMES = ("idr_pictures", "cra_pictures", "trail_n_pictures", "i_slices
                    "wpp_initialised_rows", "tile_pictures", "tiles", "tile_edges_unfiltered",
                    "dependent_slice_segments", "dependent_restores", "entry_points",
                    "entry_point_mismatches", "pictures_9bit", "pictures_10bit", "negative_qp_cus",
-                   "sao_offsets_above_7", "pcm_upshifted_cus", "hvcc_bit_depth_mismatches")
+                   "sao_offsets_above_7", "pcm_upshifted_cus", "hvcc_bit_depth_mismatches",
+                   "colour_managed_pictures", "alternative_transfer_seis", "dolby_vision_rpus")
 _CODECS = {"mp4v": (SOURCE, MP4V_ENTRIES, STAT_NAMES),
            "h264": (H264_SOURCE, H264_ENTRIES, H264_STAT_NAMES),
            "hevc": (HEVC_SOURCE, HEVC_ENTRIES, HEVC_STAT_NAMES)}
@@ -199,6 +203,20 @@ def sample_entry(path: str) -> str:
     if code:
         _raise(code, err, path)
     return entry.value.decode(errors="replace")
+
+
+def colour_lut(bt2020: bool, hlg: bool) -> np.ndarray:
+    """The 3D LUT through which the HEVC decoder converts frames with BT.2020
+    primaries and/or HLG as cv2's swscale does (csrc/mp4.h): (65, 65, 65, 3)
+    uint16, indexed [b, g, r], each node's 16-bit R, G, B on BT.709 at
+    BT.1886. Built once in the process (about a second on the host's
+    cores)."""
+    lib = _lib(HEVC_SOURCE)
+    fn = lib.hevc_colour_lut
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], None
+    out = np.empty((65, 65, 65, 3), np.uint16)
+    fn(int(bt2020), int(hlg), out.ctypes.data)
+    return out
 
 
 class VideoReader:

@@ -19,7 +19,8 @@ muxer writes; where nothing tells FFmpeg the reorder delay, it drops the
 pictures that arrive too late, and so does the decoder. The writer's frames
 mode round-trips frames at >= 30 dB (I/P and I/P/B) and decodes to cv2's
 frames. The VUI's full range and
-BT.709 matrix convert as cv2 converts them. Every refused feature raises
+BT.709 and BT.2020 matrices convert as cv2 converts them; an alternative
+transfer characteristics SEI that makes cv2 tone-map is refused by name. Every refused feature raises
 UnsupportedVideoError naming it. The build digest covers the headers the
 sources include, and a reader left open at interpreter exit closes quietly."""
 
@@ -238,6 +239,37 @@ def test_signalled_colour_converts_as_cv2(colour, tmp_path):
     write_random(path, (64, 48), 3, seed=7, **colour)
     want, _ = cv2_read(path)
     assert_same_frames(list(read_video(path)), want)
+
+
+@pytest.mark.parametrize("full_range", [0, 1])
+def test_bt2020_matrix_converts_as_cv2(full_range, tmp_path):
+    """matrix_coefficients 9 (non-constant luminance) at 8 bits: swscale's
+    unscaled yuv2rgb with its coefficients, in both ranges."""
+    path = str(tmp_path / "bt2020.mp4")
+    write_random(path, (64, 48), 3, seed=9, matrix=9, primaries=1, transfer=1, full_range=full_range)
+    want, _ = cv2_read(path)
+    assert_same_frames(list(read_video(path)), want)
+
+
+@pytest.mark.parametrize("sei", [18, 1])
+def test_alternative_transfer_sei_is_held_or_refused(sei, tmp_path):
+    """FFmpeg hands cv2 the transfer of the alternative transfer
+    characteristics SEI (payload 147) in place of the VUI's: with HLG named
+    over the VUI's BT.2020 transfer, cv2 tone-maps the frames, and the
+    decoder, which takes no HDR in H.264, refuses the stream naming the SEI;
+    an SEI naming BT.709 changes nothing cv2 shows, and decodes."""
+    plain, with_sei = str(tmp_path / "plain.mp4"), str(tmp_path / "sei.mp4")
+    write_random(plain, (64, 48), 4, seed=4, matrix=1, primaries=1, transfer=14)
+    write_random(with_sei, (64, 48), 4, seed=4, matrix=1, primaries=1, transfer=14, atc_sei=sei)
+    want, _ = cv2_read(with_sei)
+    unmapped, _ = cv2_read(plain)
+    if sei == 18:  # (FFmpeg's H.264 decoder applies it to its access unit's picture alone)
+        assert not np.array_equal(want[0], unmapped[0])
+        with pytest.raises(UnsupportedVideoError,
+                           match="transfer_characteristics 18 from the alternative transfer"):
+            list(read_video(with_sei))
+    else:
+        assert_same_frames(list(read_video(with_sei)), want)
 
 
 def _patch_matrix(path, matrix):

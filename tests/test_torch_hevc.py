@@ -35,6 +35,7 @@ signalled colour converts as cv2 converts it at 8 and 10 bits. Every
 refused feature raises UnsupportedVideoError naming it (mixed bit depths,
 12 bits, BT.2020 and the HDR transfers among them)."""
 
+import numpy as np
 import pytest
 
 from monohair_tpu_torch.io.hevc_streams import write_frames, write_random
@@ -170,6 +171,16 @@ FEATURE_SETS = {
     "main9": (dict(bit_depth=9, bslices=0.5, group=2, refs=2, sao=1, deblock=1, pcm=1,
                    cu_qp_delta=1, weighted=1), SIZE,
               ("pictures_9bit", "sao_offsets_above_7", "negative_qp_cus", "qp_delta_cus")),
+    # an iPhone's HDR recording: Main 10, BT.2020 matrix and primaries, HLG
+    # named by the alternative transfer characteristics SEI over the VUI's
+    # BT.2020 transfer, Dolby Vision 8.4's RPU units and dvvC box
+    "hlg_bt2020_main10_dolby": (dict(bit_depth=10, matrix=9, primaries=9, transfer=14, atc_sei=18,
+                                     dv_rpu=1, dvcc=8, bslices=0.5, group=2, refs=2, sao=1,
+                                     deblock=1), SIZE,
+                                ("colour_managed_pictures", "alternative_transfer_seis",
+                                 "dolby_vision_rpus", "pictures_10bit", "b_slices")),
+    "hlg_bt709_8bit": (dict(matrix=1, primaries=1, transfer=18, full_range=1, refs=2, pcm=1),
+                       SIZE, ("colour_managed_pictures",)),
 }
 # counters that every stream holds at 0
 ZERO_COUNTERS = ("entry_point_mismatches", "hvcc_bit_depth_mismatches")
@@ -389,12 +400,26 @@ REFUSED = {
     "idr_over_generated_refs": (dict(refuse="idr_over_generated", cra=3, leading=2),
                                 "references generated for the CRA that starts the stream"),
     "left_crop": (dict(crop_left=2), "conf_win_left_offset"),
-    "bt2020_primaries": (dict(matrix=1, primaries=9, transfer=1), "colour_primaries 9"),
+    # BT.2020 primaries with a transfer whose EOTF is not BT.1886's or HLG's
+    "bt2020_primaries": (dict(matrix=1, primaries=9, transfer=8),
+                         "colour_primaries 9 with transfer_characteristics 8"),
     "pq_transfer": (dict(matrix=1, primaries=1, transfer=16), "transfer_characteristics 16"),
-    "hlg_transfer": (dict(matrix=1, primaries=1, transfer=18), "transfer_characteristics 18"),
+    "hlg_transfer": (dict(matrix=1, primaries=5, transfer=18),
+                     "transfer_characteristics 18 with colour_primaries 5"),
     "gbr_matrix": (dict(matrix=0, primaries=1, transfer=1), "matrix_coefficients 0"),
     "ycgco_matrix": (dict(matrix=8, primaries=1, transfer=1), "matrix_coefficients 8"),
-    "bt2020_matrix": (dict(matrix=9, primaries=1, transfer=1), "matrix_coefficients 9"),
+    # constant luminance: cv2's swscale does not convert it
+    "bt2020_matrix": (dict(matrix=10, primaries=9, transfer=14), "matrix_coefficients 10"),
+    "other_primaries": (dict(matrix=9, primaries=11, transfer=1), "colour_primaries 11"),
+    "pq_from_sei": (dict(matrix=9, primaries=9, transfer=14, atc_sei=16, atc_aus="2"),
+                    "transfer_characteristics 16 from the alternative transfer characteristics SEI"),
+    "reserved_transfer_from_sei": (dict(matrix=1, primaries=1, transfer=1, atc_sei=0),
+                                   "transfer_characteristics 0 from the alternative transfer"),
+    "hlg_luminance_seis": (dict(matrix=9, primaries=9, transfer=18, luminance_sei=1),
+                           "mastering display colour volume or content light level SEI"),
+    "short_hlg_picture": (dict(matrix=1, primaries=1, transfer=18), "8 rows with BT.2020"),
+    "dolby_vision_profile5": (dict(dvcc=5, dv_entry="dvh1", dv_rpu=1), "Dolby Vision profile 5"),
+    "dolby_vision_profile7": (dict(dvcc=7, dv_rpu=1), "Dolby Vision profile 7"),
 }
 
 
@@ -402,7 +427,8 @@ REFUSED = {
 def test_refused_features_raise_by_name(name, tmp_path):
     features, words = REFUSED[name]
     path = str(tmp_path / f"{name}.mp4")
-    size = {"left_crop": (56, 40), "short_main10_picture": (64, 8)}.get(name, (64, 48))
+    size = {"left_crop": (56, 40), "short_main10_picture": (64, 8),
+            "short_hlg_picture": (64, 8)}.get(name, (64, 48))
     write_random(path, size, 4, seed=1, refs=2, **features)
     with pytest.raises(UnsupportedVideoError, match=words):
         list(read_video(path))
@@ -416,7 +442,7 @@ def test_an_unknown_sample_entry_is_refused_by_name(tmp_path):
     data = open(path, "rb").read()
     bad = tmp_path / "vp09.mp4"
     bad.write_bytes(data.replace(b"hvc1", b"vp09"))
-    with pytest.raises(UnsupportedVideoError, match=r"'vp09'.*mp4v, avc1, avc3, hvc1, hev1"):
+    with pytest.raises(UnsupportedVideoError, match=r"'vp09'.*mp4v, avc1, avc3, hvc1, hev1, dvh1, dvhe"):
         VideoReader(str(bad))
 
 
@@ -475,3 +501,154 @@ def test_build_digest_covers_the_headers_hevc_includes(header, tmp_path, monkeyp
     with open(csrc / header, "a") as f:
         f.write("\n// changed\n")
     assert all(_build.build(s) != p for s, p in first.items()) and len(calls) == 4
+
+
+# ---------------------------------------------- HDR and wide gamut --
+# cv2's swscale converts BT.2020 primaries and HLG through colour
+# management (csrc/mp4.h: three passes around a 3D LUT); the decoder holds
+# each held combination bit for bit, and refuses the others by name (REFUSED).
+
+def _decode(path):
+    with VideoReader(path) as reader:
+        return list(reader), reader.stats
+
+
+@pytest.mark.parametrize("at", ["first", "later_reordered", "later_no_vui_colour"])
+def test_alternative_transfer_sei_replaces_the_vui_transfer(at, tmp_path):
+    """FFmpeg hands cv2 the transfer of the alternative transfer
+    characteristics SEI (payload 147) in place of the VUI's, from the picture
+    of its access unit on (it persists): a BT.709 stream whose VUI says
+    BT.2020's transfer (14) and whose SEI says HLG (18), as cameras write
+    HLG, is tone-mapped by cv2, and so by the decoder. With pictures out of
+    decode order, each frame keeps what was in effect at its decoding; one
+    whose VUI names no colours takes the last SEI read when it is output."""
+    features = dict(first=dict(atc_aus="first", gop=3),
+                    later_reordered=dict(atc_aus="3", group=3, refs=3),
+                    later_no_vui_colour=dict(atc_aus="3", group=4, refs=2))[at]
+    base = (dict(pcm=1, pcm_share=0.3) if at == "later_no_vui_colour" else
+            dict(matrix=1, primaries=1, transfer=14, pcm=1, pcm_share=0.3))
+    plain, with_sei = str(tmp_path / "plain.mp4"), str(tmp_path / "sei.mp4")
+    write_random(plain, (64, 48), 6, seed=5, **base, **features)
+    write_random(with_sei, (64, 48), 6, seed=5, atc_sei=18, **base, **features)
+    want, _ = cv2_read(with_sei)
+    unmapped, _ = cv2_read(plain)
+    mapped = [not np.array_equal(a, b) for a, b in zip(want, unmapped)]
+    assert mapped[-1] and (all(mapped) or at != "first")
+    got, stats = _decode(with_sei)
+    assert_same_frames(got, want)
+    assert stats["alternative_transfer_seis"] >= 1
+    assert stats["colour_managed_pictures"] == sum(mapped)
+
+
+@pytest.mark.parametrize("sei", [2, 19])
+def test_alternative_transfer_sei_naming_no_transfer_changes_nothing(sei, tmp_path):
+    """An SEI naming "unspecified" (2) or no transfer at all (19) leaves
+    FFmpeg's frames with the VUI's transfer: HLG here, as without the SEI."""
+    plain, with_sei = str(tmp_path / "plain.mp4"), str(tmp_path / "sei.mp4")
+    base = dict(matrix=1, primaries=1, transfer=18, atc_aus="2", group=2, refs=2)
+    write_random(plain, (64, 48), 5, seed=8, **base)
+    write_random(with_sei, (64, 48), 5, seed=8, atc_sei=sei, **base)
+    want, _ = cv2_read(with_sei)
+    got, stats = _decode(with_sei)
+    assert_same_frames(got, want)
+    # the pictures without the SEI, through the HLG conversion the other tests hold to cv2's
+    assert_same_frames(want, _decode(plain)[0])
+    assert stats["alternative_transfer_seis"] == 1 and stats["colour_managed_pictures"] == len(got)
+
+
+@pytest.mark.parametrize("bit_depth", [8, 9, 10])
+@pytest.mark.parametrize("full_range", [0, 1])
+def test_bt2020_matrix_converts_as_cv2(bit_depth, full_range, tmp_path):
+    """matrix_coefficients 9 (non-constant luminance) with BT.709 primaries:
+    swscale's coefficients for it, at each depth and range."""
+    path = str(tmp_path / "bt2020.mp4")
+    write_random(path, (64, 48), 3, seed=bit_depth, bit_depth=bit_depth, matrix=9, primaries=1,
+                 transfer=1, full_range=full_range, pcm=1, pcm_share=0.3)
+    want, _ = cv2_read(path)
+    got, stats = _decode(path)
+    assert_same_frames(got, want)
+    assert stats["colour_managed_pictures"] == 0
+
+
+HDR_COLOURS = {"bt2020_hlg": (9, 9, 18), "bt709_hlg": (1, 1, 18), "bt2020_sdr": (9, 9, 1),
+               "bt2020_sdr_10bit_transfer": (9, 9, 14)}
+
+
+@pytest.mark.parametrize("bit_depth", [8, 10])
+@pytest.mark.parametrize("name", sorted(HDR_COLOURS))
+def test_hdr_probe_pictures_convert_as_cv2(name, bit_depth, tmp_path):
+    """PCM pictures of random samples over the whole range (at 10 bits half of
+    them on smooth surfaces), each combination in another chroma location and
+    range: the three passes and the LUT's interpolation between its nodes,
+    out-of-gamut colours and HLG above the SDR white among them."""
+    matrix, primaries, transfer = HDR_COLOURS[name]
+    k = sorted(HDR_COLOURS).index(name) * 2 + bit_depth // 10
+    path = str(tmp_path / "probe.mp4")
+    write_random(path, (192, 96), 2, seed=k, bit_depth=bit_depth, intra_only=1, pcm=1, pcm_share=1,
+                 matrix=matrix, primaries=primaries, transfer=transfer, full_range=k % 3 == 1,
+                 chroma_loc_type=k % 7)
+    want, _ = cv2_read(path)
+    got, stats = _decode(path)
+    assert_same_frames(got, want)
+    assert stats["colour_managed_pictures"] == len(got) > 0 and stats["pcm_cus"] > 0
+
+
+@pytest.mark.parametrize("bit_depth, colour", [(10, (9, 9, 18)), (8, (1, 1, 18))],
+                         ids=["main10_bt2020_hlg", "main_bt709_hlg"])
+def test_hdr_ipb_stream_converts_as_cv2(bit_depth, colour, tmp_path):
+    """An I/P/B stream in HEVC_B's shape with the HDR colours, as cv2 shows it."""
+    matrix, primaries, transfer = colour
+    path = str(tmp_path / "ipb.mp4")
+    frames = smooth_frames(72, 136, 8)
+    write_frames(path, frames, fps=24, qp=22, ctb=32, bframes=4, pyramid=1, refs=3, gop=8, cra=1,
+                 wpp=1, bit_depth=bit_depth, matrix=matrix, primaries=primaries, transfer=transfer)
+    want, props = cv2_read(path)
+    assert props == (len(frames), 24.0, 136, 72)
+    got, stats = _decode(path)
+    assert_same_frames(got, want)
+    assert stats["colour_managed_pictures"] == len(frames) and stats["b_slices"] > 0
+
+
+@pytest.mark.parametrize("entry", ["hvc1", "dvh1", "dvhe"])
+def test_dolby_vision_8_4_base_layer_decodes_as_cv2(entry, tmp_path):
+    """Dolby Vision profile 8.4 (an HLG base layer any HEVC decoder shows):
+    the RPU NAL units (type 62) ending each access unit are skipped, the
+    dvvC box in the sample entry is read for its profile, and the dvh1 and
+    dvhe entries decode as HEVC, as FFmpeg reads them."""
+    path = str(tmp_path / "dolby.mp4")
+    write_random(path, (64, 48), 5, seed=3, bit_depth=10, matrix=9, primaries=9, transfer=18,
+                 dv_rpu=1, dvcc=8, hev1=int(entry == "dvhe"),
+                 **({} if entry == "hvc1" else dict(dv_entry=entry)))
+    data = open(path, "rb").read()
+    assert data.count(entry.encode()) == 1 and data.count(b"dvvC") == 1
+    want, props = cv2_read(path)
+    assert video_info(path) == props
+    got, stats = _decode(path)
+    assert_same_frames(got, want)
+    assert stats["dolby_vision_rpus"] == 5 and stats["colour_managed_pictures"] == len(got)
+
+
+# SHA-256 of video.colour_lut's nodes, each of which equalled swscale's (the
+# library cv2 bundles, node by node) when taken; chip_smoke.py holds the
+# same digests on the card's host, whose libm builds them there
+COLOUR_LUT_SHA256 = {
+    (True, False): "45378ca2955d30408a7eef7de8e6dd6b504f2ed547a22a644e1ab47c66114f58",
+    (False, True): "e22aa8b92106b58ca6e4c09031cac3b28846652ce49b922b8690238c8f5be08d",
+    (True, True): "be9edc8cf25d2e306551795d217346948dc2f0bd328e40c99b0fb6f003b3aa6a"}
+
+
+@pytest.mark.parametrize("bt2020, hlg", sorted(COLOUR_LUT_SHA256), ids=["hlg", "bt2020", "bt2020_hlg"])
+def test_colour_lut_keeps_its_digest(bt2020, hlg):
+    """The 3D LUTs of cv2's colour management (BT.2020 primaries to BT.709;
+    HLG to BT.1886; both) keep the nodes they had when held against
+    swscale's: a change to their construction, or a libm that rounds
+    differently, shows here before it shows in a frame."""
+    import hashlib
+
+    from monohair_tpu_torch.io.video import colour_lut
+    lut = colour_lut(bt2020, hlg)
+    assert lut.shape == (65, 65, 65, 3) and lut.dtype == np.uint16
+    assert hashlib.sha256(lut.tobytes()).hexdigest() == COLOUR_LUT_SHA256[(bt2020, hlg)]
+    # the grey axis keeps its order, black and white at their ends
+    grey = lut[np.arange(65), np.arange(65), np.arange(65)].astype(int)
+    assert (np.diff(grey, axis=0) >= 0).all() and grey[-1].min() >= 64000 and grey[0].max() < 64

@@ -10,9 +10,13 @@ and collocated list, slices, deblocking and SAO, weights and bi-prediction
 weights, list modification, TMVP, the residual tools, WPP or tiles and
 dependent slice segments, the bit depth (8, 9 or 10) and the chroma
 location, ...) from a seed, on
-top of the writer's own per-stream draws, and prints one line a stream,
-then the count of mismatches and of the streams that used WPP, tiles,
-dependent slice segments and 9 or 10 bits. A stream whose substreams do not start where its entry points say
+top of the writer's own per-stream draws, and the colours from a generator
+of their own (the BT.709 or BT.2020 matrix and primaries, the transfers 1,
+6, 14 and 18, the range, an alternative transfer characteristics SEI in
+some access units, Dolby Vision 8.4's RPU units and dvvC box), and prints
+one line a stream, then the count of mismatches and of the streams that
+used WPP, tiles, dependent slice segments, 9 or 10 bits, colour
+management and the SEI. A stream whose substreams do not start where its entry points say
 counts as a mismatch too. Run on the CPU:
 
     python tools/hevc_sweep.py --seed 1 --configs 100
@@ -47,6 +51,22 @@ def cv2_frames(path: str):
              int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)), int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
     cap.release()
     return frames, props
+
+
+def draw_colour(rnd: random.Random) -> dict:
+    """The colours of one configuration: BT.709 or BT.2020 matrix and
+    primaries, an SDR transfer or HLG, an SEI naming HLG or an SDR transfer,
+    Dolby Vision 8.4's signalling."""
+    f = {}
+    if rnd.random() < 0.6:
+        f.update(matrix=rnd.choice([1, 9]), primaries=rnd.choice([1, 9]),
+                 transfer=rnd.choice([1, 6, 14, 18]), full_range=int(rnd.random() < 0.3))
+    if rnd.random() < 0.3:
+        f.update(atc_sei=rnd.choice([18, 18, 14, 1]),
+                 atc_aus=rnd.choice(["first", "all", "irap", str(rnd.randrange(4))]))
+    if rnd.random() < 0.2:
+        f.update(dv_rpu=1, dvcc=8)
+    return f
 
 
 def draw(rnd: random.Random) -> tuple:
@@ -89,7 +109,8 @@ def draw(rnd: random.Random) -> tuple:
 
 
 TOOLS = {"wpp": "wpp_pictures", "tiles": "tile_pictures", "dependent": "dependent_slice_segments",
-         "9 bits": "pictures_9bit", "10 bits": "pictures_10bit"}
+         "9 bits": "pictures_9bit", "10 bits": "pictures_10bit",
+         "colour management": "colour_managed_pictures", "the SEI": "alternative_transfer_seis"}
 
 
 def check(path: str, size, n: int, seed: int, features: dict) -> tuple:
@@ -114,12 +135,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=2, help="streams a configuration")
     args = ap.parse_args(argv)
     rnd = random.Random(args.seed)
+    rnd_colour = random.Random(args.seed ^ 0x5EED)
     bad = 0
     used = dict.fromkeys(TOOLS, 0)
     with tempfile.TemporaryDirectory(prefix="hevc_sweep_") as tmp:
         path = os.path.join(tmp, "s.mp4")
         for k in range(args.configs):
             size, n, features = draw(rnd)
+            features.update(draw_colour(rnd_colour))
             for j in range(args.seeds):
                 same, tools = check(path, size, n, 10 * k + j, features)
                 bad += not same
