@@ -55,22 +55,22 @@ Phases, each printing a line when it starts and when it ends:
               CPU (a training step's loss and gradients on given draws within
               1e-4, a 16384-ray render chunk, a 64^3 block of the density
               export) with the card's times; 9b: the prepare_data CLI with
-              run_ngp on (fit_bust off) on a fresh 32-frame 1280x720 capture
+              run_ngp on (fit_bust, process_bust and render_depth off: phase
+              10 runs them on this case) on a fresh 32-frame 1280x720 capture
               case at the shipped budget (4000 steps of 4096 rays x 64
               samples, 16 views at 720x1280, a 256^3 export at iso 3.0):
               colmap/base.obj and ours/colmap_points.obj non-empty with equal
               vertex counts, the 16 fixed-view PNGs and imgs/NNN/origin.png,
               shell recall >= 0.8 against the r = 0.72 head sphere; printed:
-              precision, final loss, PSNR of 2 training frames, depth IoU of
-              render_depth from this mesh, seconds per part against bounds,
-              peak memory
+              precision, final loss, PSNR of 2 training frames, seconds per
+              part against bounds, peak memory
  10. bust fit 10a: FAN (2DFAN-4 at its published width, seeded random
               weights) on the 16 rig frames of a fresh phase-8 case, its
               heatmaps on the card against the CPU on 2 frames (1e-4 of the
               largest heat), ms a frame; the four annotation backends
               (MODNet matte, FAN landmarks, iris, BiSeNet parse) on a copy of
-              the case and the formats they write. 10b: the case through
-              select_images and process_camera, a synthetic SMPL-X at the
+              the case and the formats they write. 10b: phase 9's case (the
+              NeRF's mesh as its coarse mesh), a synthetic SMPL-X at the
               official sizes (10,475 vertices, 20,908 faces, 55 joints) whose
               template the known similarity carries onto the capture head,
               annotations written from truth; fit_losses and its gradients on
@@ -83,7 +83,8 @@ Phases, each printing a line when it starts and when it ends:
               the start, model_tsfm[_semantic].dat at the root, Bust/ and
               ours/*_tsfm.obj non-empty, bust depth in every rig view;
               printed: model_tsfm.dat's own share of the rotation, seconds
-              per step, ms a fit step, the loss curve, depth IoU, peak memory
+              per step, ms a fit step, the loss curve, depth IoU of
+              render_depth from the NeRF's mesh, peak memory
  11. train    the MVS nets' training at full width (OccAttn and OriAttn, 16
               views) on their training family (4 cases of 16 ring views
               rendered at 256x256, Occ3D/Ori3D from the wigs), batches of 4096
@@ -99,11 +100,9 @@ Phases, each printing a line when it starts and when it ends:
               below the first 50's, occ.npz and load_net's net equal to the
               resumed run's final state, and its val F1 through deep_mvs_eval
               at least 0.7; steps/s
- 12. pipeline the run_pipeline CLI on the card: (a) a fresh 16-view synthwig
+ 12. pipeline the run_pipeline CLI on the card on a fresh 16-view synthwig
               case (phase 7d's, prepare_data's steps off) under 7d's gates
               and the synthwig strand checks on full/connected_strands.hair;
-              (b) the 16-frame 96x128 capture case (prepare_data's image half,
-              run_ngp and fit_bust off) through to full/connected_strands.hair;
               metrics.jsonl holds stage/<name>/seconds for the four stages
  13. JPEG, bf16, mesh
               13a the JPEG codec on the host: ms a frame to encode and decode
@@ -118,8 +117,8 @@ Phases, each printing a line when it starts and when it ends:
               run_pipeline (run_ngp and fit_bust off) to
               full/connected_strands.hair: best_ori/, conf/, Ori/ and
               render_depth/<view>.JPG written as JPEG, hair IoU >= 0.7, strands;
-              printed: stage seconds, the PMVO candidates kept beside the same
-              case written as PNG, the codec's share of process_imgs
+              printed: stage seconds, the PMVO candidates kept, the codec's
+              share of process_imgs
  14. video    the mp4v codec (host C++) and the two functions that use it:
               14a ms a frame to encode (the port's writer: qscale 3, an I-VOP
               and 11 P-VOPs) and to decode 12 orbit frames of phase 8's scene
@@ -190,6 +189,17 @@ Phases, each printing a line when it starts and when it ends:
               each net's mean loss over its last 25 steps below its first
               25's; printed: hair IoU and matte MAE through the runners (no
               gate at this cut), seconds of the frames and of each loop
+ 16. capture  the run_pipeline CLI on phases 9's and 10's case (32 frames at
+              1280x720: the NeRF's mesh, the fitted bust and their depth
+              maps), stage 1's steps off: PMVO over every candidate of the
+              mesh, infer_inner with the shipped nets at their shipped margin,
+              HairGrow from full/ through connect_all_segments; gated on both
+              kernels launched, a non-empty finite full/connected_strands.hair
+              and the share of PMVO's surface points on the true hair cap
+              (synthetic.capture_cap_share_of_points, at least
+              CAP_SHARE_GATE); printed: the candidates after each of PMVO's
+              filters, each stage's seconds and peak device memory,
+              connect_all_segments' free segments and ms a segment
 Phase 3 also holds the tap loop at the shapes PR 7's kernel refused (S = 1 at
 P = 225, the refine pass at patch 15; 1100 views), and times the gather's
 library call (one advanced-index gather with its indices built beforehand).
@@ -260,6 +270,7 @@ from monohair_tpu_torch.ops import _build
 from monohair_tpu_torch.ops import patch_kernels as pk
 from monohair_tpu_torch.ops.gabor import orientation_maps as gabor_maps
 from monohair_tpu_torch.ops.voxelize import voxelize_directions
+from monohair_tpu_torch.pipeline import hair_grow_stage, infer_inner_stage, pmvo_stage
 from monohair_tpu_torch.pipeline.common import case_paths
 from monohair_tpu_torch.pipeline.hair_grow_stage import (run_hair_grow, scalp_seeds,
                                                          voxel_strands_to_world)
@@ -289,6 +300,7 @@ from monohair_tpu_torch.strands.trace import (generate_guide_and_segments, stran
                                               trace_bidirectional, trace_from_scalp)
 from monohair_tpu_torch.synthetic import (CAPTURE_HEAD_R_NERF, SMPLX_OFFICIAL,
                                           analytic_head_maps, cameras_numpy,
+                                          capture_cap_share_of_points,
                                           curved_strand_batch, grow_bust_mesh, grow_field,
                                           grow_scalp_cap, hair_shell_points, head_camera_list,
                                           mvs_train_camera_list, mvs_train_head_mesh,
@@ -1769,99 +1781,102 @@ def shell_recall_precision(verts: np.ndarray, res: int, bound: float, radius: fl
 
 
 def obj_records(path: str) -> tuple:
-    """An OBJ's count of `v` records and its `f` records as written."""
-    with open(path) as f:
-        lines = f.read().splitlines()
-    return sum(line.startswith("v ") for line in lines), [x for x in lines if x.startswith("f ")]
+    """An OBJ written by save_obj (its `v` records, then its `f` records):
+    the count of `v` records and the bytes of the `f` records."""
+    with open(path, "rb") as f:
+        data = b"\n" + f.read()
+    faces = data.find(b"\nf ")
+    faces = len(data) if faces < 0 else faces
+    return data.count(b"\nv ", 0, faces), data[faces:]
 
 
-def phase_ngp(dev: torch.device) -> dict:
+def phase_ngp(dev: torch.device, tmp: str) -> dict:
     """Phase 9: stage 1 with the NeRF on, through its CLI, on a fresh capture
-    case (32 frames at 1280x720) at the shipped budget; 9a before it."""
+    case (32 frames at 1280x720) written into `tmp` at the shipped budget
+    (process_bust and render_depth off: phase 10 runs them on this case with
+    the fitted bust); 9a before it. Returns the numbers with the case's
+    "config" and "mvs_poses"."""
     exact_f32()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ngp_") as tmp:
-        written = write_capture_case(tmp, "capture", CAPTURE_FRAMES, *CAPTURE_SIZE,
-                                     frame_interval=CAPTURE_INTERVAL,
-                                     modnet=SEGMENT_WEIGHTS["modnet"],
-                                     parser=SEGMENT_WEIGHTS["bisenet"])
-        cfg = written["config"]
-        with open(os.path.join(tmp, "case.yaml"), "w") as f:
-            f.write(dump_yaml(cfg.to_dict()))
-        case = os.path.join(tmp, "capture")
-        colmap = os.path.join(case, "colmap")
-        ds = load_nerf_dataset(os.path.join(colmap, "transforms.json"),
-                               os.path.join(colmap, "images"))
-        with Phase("9a NeRF card vs CPU"):
-            versus = nerf_card_against_cpu(dev, ds)
-        torch.cuda.empty_cache()
-        with open(os.path.join(case, "ours", "colmap_points.obj"), "rb") as f:
-            analytic = f.read()
-        kept = {}
-        real_train, real_stage = pipeline_ngp.train_ngp, pipeline_ngp.run_ngp_stage
+    written = write_capture_case(tmp, "capture", CAPTURE_FRAMES, *CAPTURE_SIZE,
+                                 frame_interval=CAPTURE_INTERVAL,
+                                 modnet=SEGMENT_WEIGHTS["modnet"],
+                                 parser=SEGMENT_WEIGHTS["bisenet"])
+    cfg = written["config"]
+    with open(os.path.join(tmp, "case.yaml"), "w") as f:
+        f.write(dump_yaml(cfg.to_dict()))
+    case = os.path.join(tmp, "capture")
+    colmap = os.path.join(case, "colmap")
+    ds = load_nerf_dataset(os.path.join(colmap, "transforms.json"),
+                           os.path.join(colmap, "images"))
+    with Phase("9a NeRF card vs CPU"):
+        versus = nerf_card_against_cpu(dev, ds)
+    torch.cuda.empty_cache()
+    with open(os.path.join(case, "ours", "colmap_points.obj"), "rb") as f:
+        analytic = f.read()
+    kept = {}
+    real_train, real_stage = pipeline_ngp.train_ngp, pipeline_ngp.run_ngp_stage
 
-        def train_kept(args, device="cuda"):
-            kept["train"] = real_train(args, device)
-            return kept["train"]
+    def train_kept(args, device="cuda"):
+        kept["train"] = real_train(args, device)
+        return kept["train"]
 
-        def stage_kept(args, device="cuda"):
-            kept["seconds"] = real_stage(args, device)
-            return kept["seconds"]
+    def stage_kept(args, device="cuda"):
+        kept["seconds"] = real_stage(args, device)
+        return kept["seconds"]
 
-        pipeline_ngp.train_ngp, pipeline_ngp.run_ngp_stage = train_kept, stage_kept
-        torch.cuda.reset_peak_memory_stats(dev)
-        pk.reset_launch_counts()
-        t = time.perf_counter()
-        try:
-            steps = prepare_cli.main(["--yaml=" + os.path.join(tmp, "case"),
-                                      "--prepare_data.run_ngp", "--prepare_data.fit_bust="])
-        finally:
-            pipeline_ngp.train_ngp, pipeline_ngp.run_ngp_stage = real_train, real_stage
-        wall = time.perf_counter() - t
-        launches = dict(pk.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev)
-        field, losses, _ = kept["train"]
-        sub = kept["seconds"]
+    pipeline_ngp.train_ngp, pipeline_ngp.run_ngp_stage = train_kept, stage_kept
+    torch.cuda.reset_peak_memory_stats(dev)
+    pk.reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        steps = prepare_cli.main(["--yaml=" + os.path.join(tmp, "case"),
+                                  "--prepare_data.run_ngp", "--prepare_data.fit_bust=",
+                                  "--prepare_data.process_bust=",
+                                  "--prepare_data.render_depth="])
+    finally:
+        pipeline_ngp.train_ngp, pipeline_ngp.run_ngp_stage = real_train, real_stage
+    wall = time.perf_counter() - t
+    launches = dict(pk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    field, losses, _ = kept["train"]
+    sub = kept["seconds"]
 
-        # 9b's gates on the files
-        t = time.perf_counter()
-        nerf_v, nerf_f = load_obj(os.path.join(colmap, "base.obj"))
-        # the MVS-frame copy: as many vertices and the same face records
-        nerf_nv, nerf_faces = obj_records(os.path.join(colmap, "base.obj"))
-        mvs_nv, mvs_faces = obj_records(os.path.join(case, "ours", "colmap_points.obj"))
-        with open(os.path.join(case, "ours", "colmap_points.obj"), "rb") as f:
-            replaced = f.read() != analytic
-        views = len(load_base_cam(os.path.join(colmap, "base_cam.json"))[0])
-        shots = [os.path.join(case, "trainning_images", "capture_images", "%03d.png" % i)
-                 for i in range(views)]
-        origins = [os.path.join(case, "imgs", "%03d" % i, "origin.png") for i in range(views)]
-        H, W = cfg.infer_inner["render_size"]
-        missing = [p for p in shots + origins if not os.path.exists(p)]
-        shapes = {read_png(p).shape for p in shots + origins if os.path.exists(p)}
-        recall, precision = shell_recall_precision(nerf_v, pipeline_ngp.DEFAULT_MESH_RES,
-                                                   pipeline_ngp.DEFAULT_MESH_BOUND,
-                                                   CAPTURE_HEAD_R_NERF)
-        # printed, not gated: the fit on two training frames, depth from this mesh
-        bg = NGP_BG
-        psnrs = []
-        for i in (0, 1):
-            rgb, _ = render_image(field, ds.c2w[i], *ds.images.shape[1:3], ds.fx, ds.fy,
-                                  ds.cx, ds.cy, background=bg)
-            psnrs.append(psnr(rgb, ds.images[i]))
-        kept_frames = sorted(f[:-4] for f in os.listdir(os.path.join(case, "capture_images")))
-        depth_iou = [iou(np.load(os.path.join(case, "render_depth", n + ".npy"))[..., 0] < 255.0,
-                         read_png(os.path.join(case, "labels", "hit", n + ".png")) > 127)
-                     for n in kept_frames]
-        checks_s = time.perf_counter() - t
+    # 9b's gates on the files
+    t = time.perf_counter()
+    nerf_v, nerf_f = load_obj(os.path.join(colmap, "base.obj"))
+    # the MVS-frame copy: as many vertices and the same face records
+    nerf_nv, nerf_faces = obj_records(os.path.join(colmap, "base.obj"))
+    mvs_nv, mvs_faces = obj_records(os.path.join(case, "ours", "colmap_points.obj"))
+    with open(os.path.join(case, "ours", "colmap_points.obj"), "rb") as f:
+        replaced = f.read() != analytic
+    views = len(load_base_cam(os.path.join(colmap, "base_cam.json"))[0])
+    shots = [os.path.join(case, "trainning_images", "capture_images", "%03d.png" % i)
+             for i in range(views)]
+    origins = [os.path.join(case, "imgs", "%03d" % i, "origin.png") for i in range(views)]
+    H, W = cfg.infer_inner["render_size"]
+    missing = [p for p in shots + origins if not os.path.exists(p)]
+    shapes = {read_png(p).shape for p in shots + origins if os.path.exists(p)}
+    recall, precision = shell_recall_precision(nerf_v, pipeline_ngp.DEFAULT_MESH_RES,
+                                               pipeline_ngp.DEFAULT_MESH_BOUND,
+                                               CAPTURE_HEAD_R_NERF)
+    # printed, not gated: the fit on two training frames
+    bg = NGP_BG
+    psnrs = []
+    for i in (0, 1):
+        rgb, _ = render_image(field, ds.c2w[i], *ds.images.shape[1:3], ds.fx, ds.fy,
+                              ds.cx, ds.cy, background=bg)
+        psnrs.append(psnr(rgb, ds.images[i]))
+    checks_s = time.perf_counter() - t
     steps_n = int(ngp_options(cfg).get("train_steps", pipeline_ngp.DEFAULT_TRAIN_STEPS))
     fps = field.flops_per_sample()
     view_bound = fps * H * W * NGP_RENDER_SAMPLES / H100_F32_FLOPS
     out = dict(steps=steps, sub=sub, wall=wall, launches=launches, peak_bytes=peak,
                recall=recall, precision=precision, final_loss=losses[-1], psnr=psnrs,
-               depth_iou_min=min(depth_iou), depth_iou_mean=float(np.mean(depth_iou)),
                train_ms_per_step=sub["train"] / steps_n * 1e3,
                view_s=sub["render"] / views, view_bound_s=view_bound,
-               triangles=len(nerf_f), checks_s=checks_s, **versus)
+               triangles=len(nerf_f), checks_s=checks_s, config=cfg,
+               mvs_poses=written["mvs_poses"], **versus)
     log(f"stage 1 with the NeRF on cuda: {wall:.3f} s through the CLI; seconds per step "
         f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; run_ngp's parts "
         f"{json.dumps({k: round(v, 4) for k, v in sub.items()})}; peak device memory "
@@ -1876,8 +1891,7 @@ def phase_ngp(dev: torch.device) -> dict:
     log(f"run_ngp mesh: {len(nerf_f)} triangles, shell recall {recall:.4f}, precision (vertices "
         f"within 2 voxels of the r={CAPTURE_HEAD_R_NERF} shell) {precision:.4f}; final loss "
         f"{losses[-1]:.6f} (curve {[round(x, 6) for x in losses]}); PSNR of frames 0 and 1 "
-        f"{psnrs[0]:.3f} / {psnrs[1]:.3f} dB; depth IoU of render_depth from this mesh with "
-        f"the head silhouettes min {min(depth_iou):.6f} mean {np.mean(depth_iou):.6f}")
+        f"{psnrs[0]:.3f} / {psnrs[1]:.3f} dB (phase 10 renders the depth maps from this mesh)")
     print(smi_line(), flush=True)
     if not (len(nerf_f) and mvs_nv == nerf_nv == len(nerf_v) and mvs_faces == nerf_faces
             and replaced):
@@ -1914,22 +1928,13 @@ def fan_checkpoint(path: str) -> None:
     save_flax_npz(net, path)
 
 
-def write_fit_case(tmp: str):
-    """Phase 8's capture case (32 frames at 1280x720, the shipped hair-parser
-    weights) through select_images and process_camera, then the bust fit's
-    synthetic assets and annotations at the official SMPL-X sizes. Returns
-    (config, case dir, truth)."""
-    written = write_capture_case(tmp, "capture", CAPTURE_FRAMES, *CAPTURE_SIZE,
-                                 frame_interval=CAPTURE_INTERVAL,
-                                 modnet=SEGMENT_WEIGHTS["modnet"],
-                                 parser=SEGMENT_WEIGHTS["bisenet"])
-    cfg, case = written["config"], os.path.join(tmp, "capture")
-    with open(os.path.join(tmp, "case.yaml"), "w") as f:
-        f.write(dump_yaml(cfg.to_dict()))
-    prepare_cli.main(["--yaml=" + os.path.join(tmp, "case"), "--prepare_data.run_ngp=",
-                      "--prepare_data.fit_bust=", "--prepare_data.process_bust=",
-                      "--prepare_data.render_depth=", "--prepare_data.process_imgs="])
-    truth = write_bust_fit_assets(case, cfg, written["mvs_poses"], *CAPTURE_SIZE,
+def write_fit_case(tmp: str, cfg: Config, mvs_poses: dict):
+    """The bust fit's synthetic assets and annotations at the official SMPL-X
+    sizes, written into phase 9's case in `tmp` (32 frames at 1280x720, the
+    shipped hair-parser weights, stage 1 run with the NeRF). Returns (config,
+    case dir, truth)."""
+    case = os.path.join(tmp, "capture")
+    truth = write_bust_fit_assets(case, cfg, mvs_poses, *CAPTURE_SIZE,
                                   sizes=SMPLX_OFFICIAL, iters=FIT_ITERS)
     return cfg, case, truth
 
@@ -2078,87 +2083,87 @@ def fit_card_against_cpu(args: Config, dev: torch.device) -> dict:
                 busy=busy)
 
 
-def phase_bust_fit(dev: torch.device) -> dict:
+def phase_bust_fit(dev: torch.device, tmp: str, cfg: Config, mvs_poses: dict) -> dict:
     """Phase 10: the FAN checks (10a), then the prepare_data CLI with fit_bust,
-    process_bust and render_depth on (10b) on a fresh capture case with the
-    synthetic SMPL-X at the official sizes and annotations from truth."""
+    process_bust and render_depth on (10b) on phase 9's capture case in `tmp`
+    with the synthetic SMPL-X at the official sizes and annotations from
+    truth: the depth maps come from the NeRF's mesh and the fitted bust."""
     exact_f32()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_bust_") as tmp:
-        cfg, case, truth = write_fit_case(tmp)
-        with Phase("10a FAN and the annotation backends"):
-            fan = phase_fan(dev, case, cfg, tmp)
-        torch.cuda.empty_cache()
-        args = stage_args(cfg, case)
-        versus = fit_card_against_cpu(args, dev)
-        iters = min(FIT_ITERS, int(FIT_BUDGET_S * 1e3 / versus["step_ms"]))
-        if iters < FIT_ITERS:
-            log(f"10b: the fit runs {iters} of its {FIT_ITERS} iterations (at "
-                f"{versus['step_ms']:.3f} ms a step, {FIT_ITERS} would take "
-                f"{FIT_ITERS * versus['step_ms'] / 1e3:.1f} s)")
-        cfg.optimize["iter"] = iters
-        with open(os.path.join(tmp, "case.yaml"), "w") as f:
-            f.write(dump_yaml(cfg.to_dict()))
-        kept = {}
-        real = bust_pipeline.run_bust_fit
+    cfg, case, truth = write_fit_case(tmp, cfg, mvs_poses)
+    with Phase("10a FAN and the annotation backends"):
+        fan = phase_fan(dev, case, cfg, tmp)
+    torch.cuda.empty_cache()
+    args = stage_args(cfg, case)
+    versus = fit_card_against_cpu(args, dev)
+    iters = min(FIT_ITERS, int(FIT_BUDGET_S * 1e3 / versus["step_ms"]))
+    if iters < FIT_ITERS:
+        log(f"10b: the fit runs {iters} of its {FIT_ITERS} iterations (at "
+            f"{versus['step_ms']:.3f} ms a step, {FIT_ITERS} would take "
+            f"{FIT_ITERS * versus['step_ms'] / 1e3:.1f} s)")
+    cfg.optimize["iter"] = iters
+    with open(os.path.join(tmp, "case.yaml"), "w") as f:
+        f.write(dump_yaml(cfg.to_dict()))
+    kept = {}
+    real = bust_pipeline.run_bust_fit
 
-        def fit_kept(a, device="cuda"):
-            kept["fit"] = real(a, device)
-            return kept["fit"]
+    def fit_kept(a, device="cuda"):
+        kept["fit"] = real(a, device)
+        return kept["fit"]
 
-        bust_pipeline.run_bust_fit = fit_kept
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        pk.reset_launch_counts()
-        t = time.perf_counter()
-        try:
-            steps = prepare_cli.main(["--yaml=" + os.path.join(tmp, "case"),
-                                      "--prepare_data.select_images=",
-                                      "--prepare_data.process_camera=",
-                                      "--prepare_data.run_ngp=", "--prepare_data.fit_bust",
-                                      "--prepare_data.process_bust",
-                                      "--prepare_data.render_depth",
-                                      "--prepare_data.process_imgs="])
-        finally:
-            bust_pipeline.run_bust_fit = real
-        wall = time.perf_counter() - t
-        launches = dict(pk.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev)
-        fit = kept["fit"]
+    bust_pipeline.run_bust_fit = fit_kept
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pk.reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        steps = prepare_cli.main(["--yaml=" + os.path.join(tmp, "case"),
+                                  "--prepare_data.select_images=",
+                                  "--prepare_data.process_camera=",
+                                  "--prepare_data.run_ngp=", "--prepare_data.fit_bust",
+                                  "--prepare_data.process_bust",
+                                  "--prepare_data.render_depth",
+                                  "--prepare_data.process_imgs="])
+    finally:
+        bust_pipeline.run_bust_fit = real
+    wall = time.perf_counter() - t
+    launches = dict(pk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    fit = kept["fit"]
 
-        # 10b's gates on the files
-        opt = os.path.join(case, "optimize")
-        tsfm = load_model_tsfm(os.path.join(opt, "model_tsfm.dat"))
-        sem = np.fromfile(os.path.join(opt, "model_tsfm_semantic.dat"), np.float32)
-        verts, _ = load_obj(os.path.join(opt, "final_template.obj"))
-        verts = verts + BUST_TO_ORIGIN
-        Vh = truth["head_count"]
-        s, R, tr = similarity_of(truth["template"][:Vh].astype(np.float64), verts[:Vh])
-        S = truth["similarity"]
-        s_true = float(np.cbrt(np.linalg.det(S[:3, :3])))
-        rot_err = rotation_deg(R @ (S[:3, :3] / s_true).T)
-        scale_err = abs(s / s_true - 1)
-        transl_err = float(np.abs(tr - S[:3, 3]).max())
-        m_s = float(np.cbrt(np.linalg.det(tsfm[:3, :3])))
-        tsfm_rot_deg = rotation_deg(tsfm[:3, :3] / m_s)
-        true_rot_deg = rotation_deg(S[:3, :3] / s_true)
-        lmk_ids = truth["lmk_ids"]
-        err = np.linalg.norm(verts[lmk_ids] - truth["landmark_truth"], axis=1)
-        err0 = np.linalg.norm(truth["template"][lmk_ids] - truth["landmark_truth"], axis=1)
-        files = {name: os.path.getsize(os.path.join(case, name)) if os.path.exists(
-            os.path.join(case, name)) else -1 for name in (
-            "model_tsfm.dat", "model_tsfm_semantic.dat", "optimize/final_template.obj",
-            "optimize/fit_losses.txt", "Bust/bust_long.obj", "Bust/flame_bust.obj",
-            "Bust/scalp.obj", "ours/bust_long_tsfm.obj", "ours/scalp_tsfm.obj",
-            "ours/flame_bust_tsfm.obj")}
-        kept_frames = sorted(f[:-4] for f in os.listdir(os.path.join(case, "capture_images")))
-        depth_iou = [iou(np.load(os.path.join(case, "render_depth", n + ".npy"))[..., 0] < 255.0,
-                         read_png(os.path.join(case, "labels", "hit", n + ".png")) > 127)
-                     for n in kept_frames]
-        with open(cfg.camera_path) as f:
-            rig_views = len(json.load(f)["cam_list"])
-        bust_depth = [os.path.exists(os.path.join(case, "imgs", "%03d" % i, "bust_hair_depth.png"))
-                      for i in range(rig_views)]
+    # 10b's gates on the files
+    opt = os.path.join(case, "optimize")
+    tsfm = load_model_tsfm(os.path.join(opt, "model_tsfm.dat"))
+    sem = np.fromfile(os.path.join(opt, "model_tsfm_semantic.dat"), np.float32)
+    verts, _ = load_obj(os.path.join(opt, "final_template.obj"))
+    verts = verts + BUST_TO_ORIGIN
+    Vh = truth["head_count"]
+    s, R, tr = similarity_of(truth["template"][:Vh].astype(np.float64), verts[:Vh])
+    S = truth["similarity"]
+    s_true = float(np.cbrt(np.linalg.det(S[:3, :3])))
+    rot_err = rotation_deg(R @ (S[:3, :3] / s_true).T)
+    scale_err = abs(s / s_true - 1)
+    transl_err = float(np.abs(tr - S[:3, 3]).max())
+    m_s = float(np.cbrt(np.linalg.det(tsfm[:3, :3])))
+    tsfm_rot_deg = rotation_deg(tsfm[:3, :3] / m_s)
+    true_rot_deg = rotation_deg(S[:3, :3] / s_true)
+    lmk_ids = truth["lmk_ids"]
+    err = np.linalg.norm(verts[lmk_ids] - truth["landmark_truth"], axis=1)
+    err0 = np.linalg.norm(truth["template"][lmk_ids] - truth["landmark_truth"], axis=1)
+    files = {name: os.path.getsize(os.path.join(case, name)) if os.path.exists(
+        os.path.join(case, name)) else -1 for name in (
+        "model_tsfm.dat", "model_tsfm_semantic.dat", "optimize/final_template.obj",
+        "optimize/fit_losses.txt", "Bust/bust_long.obj", "Bust/flame_bust.obj",
+        "Bust/scalp.obj", "ours/bust_long_tsfm.obj", "ours/scalp_tsfm.obj",
+        "ours/flame_bust_tsfm.obj")}
+    kept_frames = sorted(f[:-4] for f in os.listdir(os.path.join(case, "capture_images")))
+    depth_iou = [iou(np.load(os.path.join(case, "render_depth", n + ".npy"))[..., 0] < 255.0,
+                     read_png(os.path.join(case, "labels", "hit", n + ".png")) > 127)
+                 for n in kept_frames]
+    with open(cfg.camera_path) as f:
+        rig_views = len(json.load(f)["cam_list"])
+    bust_depth = [os.path.exists(os.path.join(case, "imgs", "%03d" % i, "bust_hair_depth.png"))
+                  for i in range(rig_views)]
     ms_per_step = fit["fit_s"] / fit["iters"] * 1e3
     log(f"stage 1 with the bust fit on cuda: {wall:.3f} s through the CLI; seconds per step "
         f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; peak device memory "
@@ -2411,7 +2416,6 @@ def train_cli_run(tmp: str, calib: str, dev: torch.device, step_ms: float) -> di
 PIPELINE_STAGES = ("prepare_data", "pmvo", "infer_inner", "hair_grow")
 PREPARE_STEPS = ("select_images", "process_camera", "run_ngp", "fit_bust", "process_bust",
                  "render_depth", "process_imgs")
-CAPTURE_SMALL = dict(num_frames=16, H=96, W=128)   # tools/check_capture_camera_roll.py's case
 
 
 def check_stage_metrics(output_path: str) -> dict:
@@ -2425,15 +2429,13 @@ def check_stage_metrics(output_path: str) -> dict:
 
 
 def phase_pipeline(dev: torch.device, margin: float) -> dict:
-    """Phase 12: python -m monohair_tpu_torch.run_pipeline's main on the card,
-    (a) on a fresh 16-view synthwig case (phase 7d's: the shipped nets at 7d's
+    """Phase 12: python -m monohair_tpu_torch.run_pipeline's main on the card
+    on a fresh 16-view synthwig case (phase 7d's: the shipped nets at 7d's
     median margin, the depth maps at camera depth 1.08 from the start, here
     for PMVO too), prepare_data's steps off, under phase 7d's gates and the
-    synthwig strand checks on full/connected_strands.hair; (b) on the small
-    capture case (prepare_data's image half with the shipped hair-parser
-    weights, run_ngp and fit_bust off, random nets: the case has 8 rig views)
-    through to full/connected_strands.hair. Launches are counted over (a) and
-    (b); (a) alone must launch every kernel."""
+    synthwig strand checks on full/connected_strands.hair; it must launch
+    every kernel. (The capture case runs whole in phase 16, and through
+    prepare_data in 13d.)"""
     exact_f32()
     torch.cuda.empty_cache()
     result = {}
@@ -2463,29 +2465,6 @@ def phase_pipeline(dev: torch.device, margin: float) -> dict:
         checked["hair"] = check_hair_outputs(os.path.join(case, "output", "verify", "full"))
         log(f"12a run_pipeline on synthwig: {wall:.2f} s, stage seconds {seconds}")
         result["synthwig"] = dict(wall=wall, seconds=seconds, steps=steps, **checked)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_capture_") as tmp:
-        cfg = write_capture_case(tmp, "cap", **CAPTURE_SMALL, modnet=SEGMENT_WEIGHTS["modnet"],
-                                 parser=SEGMENT_WEIGHTS["bisenet"])["config"]
-        cfg.PMVO["infer_inner"] = True
-        cfg.infer_inner["render_size"] = [96, 64]
-        cfg.mvs["eval_vsize"] = 0.02
-        with open(os.path.join(tmp, "case.yaml"), "w") as f:
-            f.write(dump_yaml(cfg.to_dict()))
-        t = time.perf_counter()
-        pipeline_cli.main(["--yaml=" + os.path.join(tmp, "case"), f"--device={dev.type}",
-                           "--prepare_data.run_ngp=", "--prepare_data.fit_bust="])
-        wall = time.perf_counter() - t
-        out = os.path.join(tmp, "cap", "output", "capture")
-        seconds = check_stage_metrics(out)
-        segments, points = load_hair(os.path.join(out, "full", "connected_strands.hair"))
-        surface = np.load(os.path.join(out, "optimize", "surface.npy"))
-        log(f"12b run_pipeline on the capture case ({CAPTURE_SMALL}): {wall:.2f} s, stage "
-            f"seconds {seconds}; PMVO kept {len(surface)} surface points; "
-            f"full/connected_strands.hair {len(segments)} strands, {len(points)} points")
-        if len(segments) == 0 or not np.isfinite(points).all():
-            raise AssertionError("12b: the capture case grew no strands")
-        result["capture"] = dict(wall=wall, seconds=seconds, surface=len(surface),
-                                 strands=len(segments))
     result["launches"] = dict(pk.LAUNCHES)
     return result
 
@@ -2651,78 +2630,63 @@ def phase_jpeg_capture(dev: torch.device) -> dict:
     """13d: phase 8's scene (32 frames at 1280x720, frame_interval 2) with its
     frames written as .JPG at quality 95 by the port's encoder, through
     run_pipeline (run_ngp and fit_bust off, the case's head sphere as the
-    coarse mesh, as in phase 12b) to full/connected_strands.hair; gated on
+    coarse mesh) to full/connected_strands.hair; gated on
     best_ori/, conf/, Ori/ and render_depth/<view>.JPG written as JPEG, the
     hair masks against the labels (mean IoU >= 0.7, phase 8's gate) and a
-    non-empty strand file. The same case written as PNG through prepare_data
-    and PMVO gives the candidates PMVO keeps beside the JPEG case's."""
+    non-empty strand file."""
     exact_f32()
     torch.cuda.empty_cache()
-    result = {}
-    for ext in (".JPG", ".png"):
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_") as tmp:
-            written = write_capture_case(tmp, "cap", CAPTURE_FRAMES, *CAPTURE_SIZE,
-                                         frame_interval=CAPTURE_INTERVAL, ext=ext,
-                                         modnet=SEGMENT_WEIGHTS["modnet"],
-                                         parser=SEGMENT_WEIGHTS["bisenet"])
-            cfg = written["config"]
-            cfg.PMVO["infer_inner"] = True
-            cfg.infer_inner["render_size"] = [96, 64]
-            cfg.mvs["eval_vsize"] = 0.02
-            with open(os.path.join(tmp, "case.yaml"), "w") as f:
-                f.write(dump_yaml(cfg.to_dict()))
-            flags = ["--yaml=" + os.path.join(tmp, "case"), f"--device={dev.type}",
-                     "--prepare_data.run_ngp=", "--prepare_data.fit_bust="]
-            case = os.path.join(tmp, "cap")
-            out = os.path.join(case, "output", "capture")
-            t = time.perf_counter()
-            if ext == ".png":
-                prepare_cli.main(flags)
-                pmvo_cli.main(flags[:2] + ["--PMVO.infer_inner="])
-                wall = time.perf_counter() - t
-                surface = np.load(os.path.join(out, "optimize", "surface.npy"))
-                log(f"13d the same case as PNG: prepare_data + PMVO {wall:.2f} s; PMVO kept "
-                    f"{len(surface)} surface points")
-                result["png"] = dict(wall=wall, surface=len(surface))
-                continue
-            steps = pipeline_cli.main(flags)
-            wall = time.perf_counter() - t
-            seconds = check_stage_metrics(out)
-            kept = sorted(os.listdir(os.path.join(case, "capture_images")))
-            names = [k[:-4] for k in kept]
-            written_as_jpeg = all(
-                k.endswith(".JPG") and is_jpeg_file(os.path.join(case, sub, k))
-                for k in kept for sub in ("capture_images", "best_ori", "conf", "Ori")) and all(
-                is_jpeg_file(os.path.join(case, "render_depth", n + ".JPG")) for n in names)
-            hair_iou = [iou(imread_gray(os.path.join(case, "hair_mask", k)) > 127,
-                            read_png(os.path.join(case, "labels", "hair", n + ".png")) > 127)
-                        for k, n in zip(kept, names)]
-            segments, points = load_hair(os.path.join(out, "full", "connected_strands.hair"))
-            surface = np.load(os.path.join(out, "optimize", "surface.npy"))
-            codec = host_jpeg_seconds(case)
-            imgs_s = steps["prepare_data"]["calculate_masks"] + steps["prepare_data"]["process_images"]
-            share = (codec["decode_s"] + codec["encode_s"]) / imgs_s
-            log(f"13d run_pipeline on the JPEG capture case ({len(kept)} frames kept of "
-                f"{CAPTURE_FRAMES} at {CAPTURE_SIZE[1]}x{CAPTURE_SIZE[0]}): {wall:.2f} s, stage "
-                f"seconds {seconds}; prepare_data steps "
-                f"{json.dumps({k: round(v, 4) for k, v in steps['prepare_data'].items()})}; "
-                f"written as JPEG: {written_as_jpeg}; hair IoU with the labels mean "
-                f"{np.mean(hair_iou):.6f}; PMVO kept {len(surface)} surface points; "
-                f"{len(segments)} strands, {len(points)} points")
-            log(f"13d host JPEG work of process_imgs: decode {codec['decode_s']:.3f} s, encode "
-                f"{codec['encode_s']:.3f} s of {imgs_s:.3f} s (share {share:.3f})")
-            if not written_as_jpeg:
-                raise AssertionError("13d: best_ori/, conf/, Ori/ or render_depth/ not JPEG")
-            if np.mean(hair_iou) < 0.7:
-                raise AssertionError(f"13d: hair_mask/ against the labels: IoU {np.mean(hair_iou)}")
-            if len(segments) == 0 or not np.isfinite(points).all():
-                raise AssertionError("13d: the JPEG capture case grew no strands")
-            result["jpeg"] = dict(wall=wall, seconds=seconds, steps=steps, surface=len(surface),
-                                  strands=len(segments), hair_iou=float(np.mean(hair_iou)),
-                                  codec=codec, codec_share=share)
-    log(f"13d PMVO candidates kept: JPEG {result['jpeg']['surface']}, PNG "
-        f"{result['png']['surface']}")
-    return result
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_") as tmp:
+        written = write_capture_case(tmp, "cap", CAPTURE_FRAMES, *CAPTURE_SIZE,
+                                     frame_interval=CAPTURE_INTERVAL, ext=".JPG",
+                                     modnet=SEGMENT_WEIGHTS["modnet"],
+                                     parser=SEGMENT_WEIGHTS["bisenet"])
+        cfg = written["config"]
+        cfg.PMVO["infer_inner"] = True
+        cfg.infer_inner["render_size"] = [96, 64]
+        cfg.mvs["eval_vsize"] = 0.02
+        with open(os.path.join(tmp, "case.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_dict()))
+        flags = ["--yaml=" + os.path.join(tmp, "case"), f"--device={dev.type}",
+                 "--prepare_data.run_ngp=", "--prepare_data.fit_bust="]
+        case = os.path.join(tmp, "cap")
+        out = os.path.join(case, "output", "capture")
+        t = time.perf_counter()
+        steps = pipeline_cli.main(flags)
+        wall = time.perf_counter() - t
+        seconds = check_stage_metrics(out)
+        kept = sorted(os.listdir(os.path.join(case, "capture_images")))
+        names = [k[:-4] for k in kept]
+        written_as_jpeg = all(
+            k.endswith(".JPG") and is_jpeg_file(os.path.join(case, sub, k))
+            for k in kept for sub in ("capture_images", "best_ori", "conf", "Ori")) and all(
+            is_jpeg_file(os.path.join(case, "render_depth", n + ".JPG")) for n in names)
+        hair_iou = [iou(imread_gray(os.path.join(case, "hair_mask", k)) > 127,
+                        read_png(os.path.join(case, "labels", "hair", n + ".png")) > 127)
+                    for k, n in zip(kept, names)]
+        segments, points = load_hair(os.path.join(out, "full", "connected_strands.hair"))
+        surface = np.load(os.path.join(out, "optimize", "surface.npy"))
+        codec = host_jpeg_seconds(case)
+    imgs_s = steps["prepare_data"]["calculate_masks"] + steps["prepare_data"]["process_images"]
+    share = (codec["decode_s"] + codec["encode_s"]) / imgs_s
+    log(f"13d run_pipeline on the JPEG capture case ({len(kept)} frames kept of "
+        f"{CAPTURE_FRAMES} at {CAPTURE_SIZE[1]}x{CAPTURE_SIZE[0]}): {wall:.2f} s, stage "
+        f"seconds {seconds}; prepare_data steps "
+        f"{json.dumps({k: round(v, 4) for k, v in steps['prepare_data'].items()})}; "
+        f"written as JPEG: {written_as_jpeg}; hair IoU with the labels mean "
+        f"{np.mean(hair_iou):.6f}; PMVO kept {len(surface)} surface points; "
+        f"{len(segments)} strands, {len(points)} points")
+    log(f"13d host JPEG work of process_imgs: decode {codec['decode_s']:.3f} s, encode "
+        f"{codec['encode_s']:.3f} s of {imgs_s:.3f} s (share {share:.3f})")
+    if not written_as_jpeg:
+        raise AssertionError("13d: best_ori/, conf/, Ori/ or render_depth/ not JPEG")
+    if np.mean(hair_iou) < 0.7:
+        raise AssertionError(f"13d: hair_mask/ against the labels: IoU {np.mean(hair_iou)}")
+    if len(segments) == 0 or not np.isfinite(points).all():
+        raise AssertionError("13d: the JPEG capture case grew no strands")
+    return dict(wall=wall, seconds=seconds, steps=steps, surface=len(surface),
+                strands=len(segments), hair_iou=float(np.mean(hair_iou)), codec=codec,
+                codec_share=share)
 
 
 # ---------------------------------------------------------------------------
@@ -3571,6 +3535,143 @@ def phase_hair_parser(dev: torch.device) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the capture case whole
+# ---------------------------------------------------------------------------
+
+# PMVO's surface points on the true hair cap, at least: 0.7927 measured on
+# the card with the NeRF's mesh (its fog passes the filters too), 0.09 below
+CAP_SHARE_GATE = 0.7
+# infer_inner's query spacing (base.yaml's 0.005 asks 62 M queries of the
+# NeRF's mesh, whose fog fills its box: 595 s in tools/run_capture_case.py)
+CAPTURE_EVAL_VSIZE = 0.02
+
+
+@contextlib.contextmanager
+def timed_calls(seconds: dict, *targets):
+    """Each (module, name) of `targets` replaced, for the block, by a wrapper
+    that adds its calls' wall seconds (after a device synchronisation) to
+    seconds[name]."""
+    real = [getattr(m, name) for m, name in targets]
+
+    def wrap(fn, name):
+        def timed(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return timed
+
+    for (m, name), fn in zip(targets, real):
+        setattr(m, name, wrap(fn, name))
+    try:
+        yield seconds
+    finally:
+        for (m, name), fn in zip(targets, real):
+            setattr(m, name, fn)
+
+
+def counting_filter_masks(counts: dict):
+    """solver.filter_masks, adding each call's points, and those left after
+    each of the filters filter_points combines, to `counts`."""
+    real = solver.filter_masks
+
+    def counted(maps, points, *args):
+        k = real(maps, points, *args)
+        seen, confident, hair = k["seen"], ~k["low_conf"], k["hair"]
+        for name, n in (("loaded", len(points)), ("seen", seen.sum()),
+                        ("confident", (seen & confident).sum()),
+                        ("hair", (seen & confident & hair).sum())):
+            counts[name] = counts.get(name, 0) + int(n)
+        return k
+    return real, counted
+
+
+def phase_capture_whole(dev: torch.device, tmp: str, cfg: Config) -> dict:
+    """Phase 16: python -m monohair_tpu_torch.run_pipeline's main on the card
+    over phase 9's and 10's capture case in `tmp` (32 frames at 1280x720: the
+    NeRF's mesh as ours/colmap_points.obj, the fitted bust's Bust/, the depth
+    maps from both), stage 1's steps off: PMVO over every candidate of the
+    mesh, infer_inner with the shipped nets at their shipped margin (queries
+    at CAPTURE_EVAL_VSIZE), HairGrow from full/ through connect_all_segments
+    to full/connected_strands.hair.
+    Gated on both kernels launched, a non-empty finite strand file and the
+    share of PMVO's surface points on the true hair cap (CAP_SHARE_GATE);
+    printed: the candidates after each filter (counted as PMVO's filter
+    runs), each stage's seconds and peak device memory,
+    connect_all_segments' free segments and ms a segment."""
+    exact_f32()
+    torch.cuda.empty_cache()
+    case = os.path.join(tmp, "capture")
+    cfg["prepare_data"] = dict.fromkeys(PREPARE_STEPS, False)
+    cfg.PMVO["infer_inner"] = True
+    cfg.mvs.update(occ_model_path=MVS_WEIGHTS["occ"], ori_model_path=MVS_WEIGHTS["ori"],
+                   eval_vsize=CAPTURE_EVAL_VSIZE)
+    with open(os.path.join(tmp, "case.yaml"), "w") as f:
+        f.write(dump_yaml(cfg.to_dict()))
+    connect, kept = {}, {}
+    real = hair_grow_stage.connect_all_segments
+    real_masks, solver.filter_masks = counting_filter_masks(kept)
+
+    def connect_timed(strands, *a, **k):
+        t = time.perf_counter()
+        joined = real(strands, *a, **k)
+        connect.update(segments=len(strands), seconds=time.perf_counter() - t)
+        return joined
+
+    hair_grow_stage.connect_all_segments = connect_timed
+    pk.reset_launch_counts()
+    t = time.perf_counter()
+    parts = {}
+    try:
+        with timed_calls(parts, (pmvo_stage, "load_colmap_points"),
+                         (pmvo_stage, "filter_raw_points"),
+                         (infer_inner_stage, "load_mvs_inputs"),
+                         (infer_inner_stage, "colmap_guided_queries")):
+            steps = pipeline_cli.main(["--yaml=" + os.path.join(tmp, "case"),
+                                       f"--device={dev.type}"])
+    finally:
+        hair_grow_stage.connect_all_segments, solver.filter_masks = real, real_masks
+    wall = time.perf_counter() - t
+    launches = dict(pk.LAUNCHES)
+    out = os.path.join(case, "output", cfg.name)
+    seconds = check_stage_metrics(out)
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        peaks = {json.loads(line)["name"].split("/")[1]: json.loads(line).get("peak_bytes")
+                 for line in f}
+    surface = np.load(os.path.join(out, "optimize", "surface.npy"))
+    share = capture_cap_share_of_points(case, surface)
+    segments, points = load_hair(os.path.join(out, "full", "connected_strands.hair"))
+    ms_a_segment = connect["seconds"] / max(connect["segments"], 1) * 1e3
+    log(f"16 run_pipeline on phase 9's and 10's capture case ({CAPTURE_FRAMES} frames at "
+        f"{CAPTURE_SIZE[1]}x{CAPTURE_SIZE[0]}, the NeRF's mesh, the fitted bust): {wall:.2f} s; "
+        f"stage seconds {seconds}; peak device memory per stage (GiB) "
+        f"{json.dumps({k: round(v / 2**30, 3) for k, v in peaks.items() if v is not None})}; "
+        f"steps {json.dumps({k: {n: round(x, 3) for n, x in v.items()} for k, v in steps.items()})}; "
+        f"within them (s) {json.dumps({k: round(v, 3) for k, v in parts.items()})}")
+    log(f"16 PMVO's candidates through its filters: loaded {kept['loaded']}, seen in > 1 views "
+        f"{kept['seen']}, and not low-confidence in > 4 {kept['confident']}, and on the hair "
+        f"mask in >= half {kept['hair']} ({len(surface)} surface points written); "
+        f"{share:.4f} of them on the true hair cap (gate {CAP_SHARE_GATE}); kernel launches "
+        f"{launches}")
+    log(f"16 connect_all_segments: {connect['segments']} free segments in "
+        f"{connect['seconds']:.3f} s = {ms_a_segment:.3f} ms a segment; "
+        f"full/connected_strands.hair {len(segments)} strands, {len(points)} points")
+    print(smi_line(), flush=True)
+    if unlaunched(launches, ("patch_gather", "patch_min_loss")):
+        raise AssertionError(f"16: a kernel of PMVO's path was not launched: {launches}")
+    if len(segments) == 0 or not np.isfinite(points).all():
+        raise AssertionError("16: the capture case grew no strands")
+    if share < CAP_SHARE_GATE:
+        raise AssertionError(f"16: {share:.4f} of PMVO's surface points on the true hair cap "
+                             f"(gate {CAP_SHARE_GATE})")
+    return dict(wall=wall, seconds=seconds, peaks=peaks, steps=steps, parts=parts, survivors=kept,
+                surface=len(surface), cap_share=share, connect=connect,
+                connect_ms_a_segment=ms_a_segment, strands=len(segments), launches=launches)
+
+
 KERNEL_META = {
     "patch_gather": dict(route="cuda", source="monohair_tpu_torch/csrc/patch_kernels.cu",
                          replaces="monohair_tpu/ops/pallas_kernels.py:188"),
@@ -3605,30 +3706,36 @@ def main(argv=None) -> int:
     stage3 = phase_stage3(dev, grow.pop("voxel_strands"), opts.profile)
     with Phase("8 prepare_data"):
         stage1 = phase_prepare_data(dev)
-    with Phase("9 prepare_data with the NeRF"):
-        ngp = phase_ngp(dev)
-    with Phase("10 prepare_data with the bust fit"):
-        bust = phase_bust_fit(dev)
-    with Phase("11 train"):
-        train = phase_train(dev)
-    with Phase("12 run_pipeline"):
-        pipeline = phase_pipeline(dev, stage3["stage"]["margin"])
-    with Phase("13a JPEG codec"):
-        phase_codec()
-    with Phase("13b-c bf16 maps and the mesh"):
-        bf16 = phase_bf16_and_mesh(dev)
-    with Phase("13d JPEG capture through run_pipeline"):
-        phase_jpeg_capture(dev)
-    with Phase("14 video"):
-        video = phase_video(dev)
-    with Phase("15 hair parser training"):
-        hair_parser = phase_hair_parser(dev)
+    # phases 9, 10 and 16 share one capture case
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as capture:
+        with Phase("9 prepare_data with the NeRF"):
+            ngp = phase_ngp(dev, capture)
+        capture_cfg = ngp.pop("config")
+        with Phase("10 prepare_data with the bust fit"):
+            bust = phase_bust_fit(dev, capture, capture_cfg, ngp.pop("mvs_poses"))
+        with Phase("11 train"):
+            train = phase_train(dev)
+        with Phase("12 run_pipeline"):
+            pipeline = phase_pipeline(dev, stage3["stage"]["margin"])
+        with Phase("13a JPEG codec"):
+            phase_codec()
+        with Phase("13b-c bf16 maps and the mesh"):
+            bf16 = phase_bf16_and_mesh(dev)
+        with Phase("13d JPEG capture through run_pipeline"):
+            phase_jpeg_capture(dev)
+        with Phase("14 video"):
+            video = phase_video(dev)
+        with Phase("15 hair parser training"):
+            hair_parser = phase_hair_parser(dev)
+        with Phase("16 the capture case whole through run_pipeline"):
+            whole = phase_capture_whole(dev, capture, capture_cfg)
     print(smi_line(), flush=True)
     by_path = {"pmvo": width["launches"], "infer_inner_fuse": stage3["stage"]["launches"],
                "prepare_data": stage1["launches"], "prepare_data_ngp": ngp["launches"],
                "prepare_data_bust": bust["launches"], "train_mvs": train["launches"],
                "run_pipeline": pipeline["launches"], "pmvo_bf16": bf16["launches"],
-               "video": video["launches"], "train_hair_parser": hair_parser["launches"]}
+               "video": video["launches"], "train_hair_parser": hair_parser["launches"],
+               "capture_whole": whole["launches"]}
     kernels["patch_min_loss"]["scene_ms"] = width["scene_ms"]
     if opts.profile:
         with Phase("profile"):

@@ -29,12 +29,48 @@ def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
     return v, fa
 
 
+def _parse_numbers(text: str, dtype) -> Optional[np.ndarray]:
+    """numpy's text parser over whitespace-separated numbers (it rounds as
+    float() does; text it cannot read ends the array early, which the callers'
+    counts refuse, or raises, as later numpy does); None where it raises."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        try:
+            return np.fromstring(text, dtype=dtype, sep=" ")
+        except ValueError:
+            return None
+
+
+def _load_blocks(text: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """save_obj's layout, parsed without splitting lines: `v x y z` lines, then
+    `f a b c` lines with positive indices, and nothing else (None otherwise,
+    or where a record does not hold three numbers)."""
+    body = "\n" + text
+    split = body.find("\nf ")
+    split = len(body) if split < 0 else split
+    nv, nf = body.count("\nv ", 0, split), body.count("\nf ", split)
+    if nv + nf != body.count("\n") - (text.endswith("\n") or not text) or "/" in body[split:]:
+        return None
+    verts = _parse_numbers(body[:split].replace("\nv ", " "), np.float64)
+    faces = _parse_numbers(body[split:].replace("\nf ", " "), np.int64)
+    if verts is None or faces is None or len(verts) != 3 * nv or len(faces) != 3 * nf:
+        return None
+    faces = faces.reshape(-1, 3)
+    if len(faces) and faces.min() < 1:
+        return None
+    return verts.reshape(-1, 3), faces - 1
+
+
 def _load_plain_triangles(path: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """(vertices, faces) of an OBJ whose vertex and face records are all
     `v x y z` and `f a b c` with positive indices (other records ignored, no
     texture coordinates), else None."""
     with open(path) as f:
-        lines = f.read().splitlines()
+        text = f.read()
+    blocks = _load_blocks(text)
+    if blocks is not None:
+        return blocks
+    lines = text.splitlines()
     if any(line.startswith("vt ") for line in lines):
         return None
     vrec = [line[2:] for line in lines if line.startswith("v ")]
@@ -42,15 +78,10 @@ def _load_plain_triangles(path: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     fjoined = " ".join(frec)
     if "/" in fjoined:
         return None
-    # numpy's text parser rounds as float() does; text it cannot read ends
-    # the array early (the counts below refuse it) or raises, as later numpy does
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        try:
-            verts = np.fromstring(" ".join(vrec), dtype=np.float64, sep=" ")
-            faces = np.fromstring(fjoined, dtype=np.int64, sep=" ")
-        except ValueError:
-            return None
+    verts = _parse_numbers(" ".join(vrec), np.float64)
+    faces = _parse_numbers(fjoined, np.int64)
+    if verts is None or faces is None:
+        return None
     if len(verts) != 3 * len(vrec) or len(faces) != 3 * len(frec):
         return None
     faces = faces.reshape(-1, 3)
@@ -139,16 +170,19 @@ def vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
 
 
 def sample_mesh_surface(vertices: np.ndarray, faces: np.ndarray, num_points: int,
-                        rng: Optional[np.random.Generator] = None
-                        ) -> Tuple[np.ndarray, np.ndarray]:
-    """Uniform area-weighted surface sampling -> (points (N,3), normals (N,3)).
+                        rng: Optional[np.random.Generator] = None, normals: bool = True
+                        ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Uniform area-weighted surface sampling -> (points (N,3), normals (N,3),
+    or None when `normals` is off).
 
     Equivalent of o3d.sample_points_uniformly (used at HairGrow.py:881-884 to
-    draw 60k scalp seeds and PMVO_utils.py:346 for colmap-mesh points).
+    draw 60k scalp seeds and PMVO_utils.py:346 for colmap-mesh points). Each
+    sampled face's corner and edges come in one gather of its packed row.
     """
     rng = rng or np.random.default_rng(0)
-    e1 = vertices[faces[:, 1]] - vertices[faces[:, 0]]
-    e2 = vertices[faces[:, 2]] - vertices[faces[:, 0]]
+    tri = vertices[faces]
+    e1 = tri[:, 1] - tri[:, 0]
+    e2 = tri[:, 2] - tri[:, 0]
     fn = np.cross(e1, e2)
     areas = 0.5 * np.linalg.norm(fn, axis=-1)
     probs = areas / max(areas.sum(), 1e-12)
@@ -158,8 +192,9 @@ def sample_mesh_surface(vertices: np.ndarray, faces: np.ndarray, num_points: int
     flip = u + v > 1.0
     u = np.where(flip, 1.0 - u, u)
     v = np.where(flip, 1.0 - v, v)
-    pts = (vertices[faces[fidx, 0]]
-           + u[:, None] * e1[fidx]
-           + v[:, None] * e2[fidx])
-    normals = fn[fidx] / np.maximum(np.linalg.norm(fn[fidx], axis=-1, keepdims=True), 1e-12)
-    return pts, normals
+    picked = np.concatenate([tri[:, 0], e1, e2], 1)[fidx]
+    pts = picked[:, 0:3] + u[:, None] * picked[:, 3:6] + v[:, None] * picked[:, 6:9]
+    if not normals:
+        return pts, None
+    n = fn[fidx]
+    return pts, n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)

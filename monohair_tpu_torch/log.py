@@ -5,7 +5,9 @@ optional torch.profiler trace of a stage.
 `Log.metric` appends one JSON line {"t", "name", "value", ...} to
 `metrics_path` when it is set; `Log.stage` writes `stage/<name>/seconds`
 through it. On a CUDA device the stage's clock stops after a synchronisation,
-so its seconds include the device work it queued."""
+so its seconds include the device work it queued, and the line also holds the
+stage's peak device memory (`peak_bytes`, torch.cuda.max_memory_allocated
+from the stage's start) once CUDA is initialised."""
 
 from __future__ import annotations
 
@@ -61,16 +63,22 @@ class Log:
             if on_card:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             ctx = torch.profiler.profile(activities=acts)
+        extra = {}
+        # CUDA that no stage has touched yet holds no memory to reset
+        if on_card and torch.cuda.is_initialized():
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.monotonic()
         with ctx as prof:
             yield
             if on_card:
                 torch.cuda.synchronize(device)
         dt = time.monotonic() - t0
+        if on_card and torch.cuda.is_initialized():
+            extra["peak_bytes"] = torch.cuda.max_memory_allocated(device)
         if trace_dir:
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.json"))
-        self.metric(f"stage/{name}/seconds", round(dt, 2))
+        self.metric(f"stage/{name}/seconds", round(dt, 2), **extra)
         self.ok(f"stage {name} done in {dt:.1f}s")
 
 

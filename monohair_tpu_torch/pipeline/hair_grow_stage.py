@@ -129,9 +129,14 @@ def run_hair_grow(args: Config, device="cuda") -> Dict[str, float]:
         strands = strands_from_flat(segments, points)
         # free segments connect in bust-origin world frame (HairGrow.py:925-936)
         free = [s + BUST_TO_ORIGIN for s in strands[num_root:]]
+        tc = time.monotonic()
         connected = connect_all_segments(
             free, occ, ori_voxel, hg.connect_threshold, hg.connect_dot_threshold,
             VOXEL_MIN, VOXEL_SIZE)
+        tc = time.monotonic() - tc
+        print(f"[hair_grow] connect_all_segments: {len(free)} free segments in {tc:.2f}s "
+              f"({tc / max(len(free), 1) * 1e3:.3f} ms a segment), {len(connected)} out",
+              flush=True)
         new_strands = list(strands[:num_root]) + [s - BUST_TO_ORIGIN for s in connected]
         new_strands = smooth_strand_list(new_strands, 4.0, 2.0, device=device)
         save_hair(os.path.join(save_path, "strands.hair"), new_strands)

@@ -9,12 +9,17 @@ samples per occupied voxel.
 
 from __future__ import annotations
 
-from typing import Optional
+import hashlib
+from typing import Optional, Tuple
 
 import numpy as np
 
 from ..constants import BUST_TO_ORIGIN, VOXEL_MIN
 from ..io.mesh_io import load_obj, sample_mesh_surface
+
+# the last mesh's surface samples: PMVO's candidates and infer_inner's
+# colmap-guided queries draw the same ones from one file
+_SURFACE: dict = {}
 
 
 def sample_points_around_mesh(points_world: np.ndarray, bbox_min: np.ndarray,
@@ -42,18 +47,37 @@ def sample_points_around_mesh(points_world: np.ndarray, bbox_min: np.ndarray,
     return sample.astype(np.float32)
 
 
+def mesh_surface_samples(path: str, seed: int = 0) -> Tuple[np.ndarray, np.random.Generator]:
+    """The mesh's surface samples (5 a vertex; its vertices when it has no
+    faces) drawn by a generator seeded `seed`, and that generator after the
+    draws. The last file's samples are kept, keyed by its contents' digest,
+    and handed out again with the generator's state."""
+    with open(path, "rb") as f:
+        key = (hashlib.blake2b(f.read(), digest_size=16).digest(), seed)
+    if key not in _SURFACE:
+        verts, faces = load_obj(path)
+        rng = np.random.default_rng(seed)
+        if len(faces):
+            pts, _ = sample_mesh_surface(verts, faces, num_points=5 * len(verts), rng=rng,
+                                         normals=False)
+        else:
+            pts = verts
+        pts.setflags(write=False)
+        _SURFACE.clear()
+        _SURFACE[key] = (pts, rng.bit_generator.state)
+    pts, state = _SURFACE[key]
+    rng = np.random.default_rng(seed)
+    rng.bit_generator.state = state
+    return pts, rng
+
+
 def load_colmap_points(path: str, bbox_min=VOXEL_MIN,
                        bust_to_origin=BUST_TO_ORIGIN, vsize: float = 0.005 / 4,
                        grid_resolution=(512, 512, 384), num_per_grid: int = 4,
                        seed: int = 0) -> np.ndarray:
     """Load the coarse mesh and produce the PMVO query samples
     (PMVO_utils.py:341-362 + PMVO.py:843-845 call site)."""
-    verts, faces = load_obj(path)
-    rng = np.random.default_rng(seed)
-    if len(faces):
-        pts, _ = sample_mesh_surface(verts, faces, num_points=5 * len(verts), rng=rng)
-    else:
-        pts = verts
+    pts, rng = mesh_surface_samples(path, seed)
     pts = pts + np.asarray(bust_to_origin)
     return sample_points_around_mesh(pts, np.asarray(bbox_min), vsize,
                                      num_per_grid, grid_resolution, rng)

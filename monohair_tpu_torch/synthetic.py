@@ -600,22 +600,112 @@ def uv_sphere(radius: float, rings: int = 48, sectors: int = 96,
     return verts * radius, np.asarray(faces, np.int64)
 
 
-def capture_mvs_pose(ngp: np.ndarray) -> np.ndarray:
-    """The MVS c2w that stage 1's pose chain gives a frame of NGP pose `ngp`
-    (3x4) when the key frame is frame 0 and the rig is derived through the
-    +1.5 anchor (tools/make_capture_case.py): rotation with its y/z columns
-    negated, translation (t + 1.5) / 2 - 1."""
+# The capture scene is drawn with +y up, the MVS and bust frames' up, and the
+# rig stands upright in the MVS frame: the key frame (frame 0's NGP pose) and
+# rig view 0 (frame 0's MVS pose) then anchor the chain with the turn back
+# from instant-ngp's axes (coords.nerf_to_ngp: NGP = (y, z, x) of NeRF) and a
+# +1.5 translation, so every frame's MVS pose is its NeRF pose scaled by
+# 0.33 / 2 about the origin. tools/make_capture_case.py writes the rig in
+# NGP axes instead (its anchor turns nothing), which puts the scene's up, and
+# the hair cap, at MVS +x, away from its bust, scalp and SMPL-X.
+
+
+def capture_mvs_pose(c2w: np.ndarray) -> np.ndarray:
+    """The MVS c2w that stage 1's pose chain gives a frame of NeRF pose `c2w`
+    (the writer's rig and key frame): the same rotation, the translation
+    scaled by 0.33 / 2."""
+    from .coords import _NGP_SCALE
     m = np.eye(4)
-    m[:3, :3] = ngp[:, :3]
-    m[:3, 1:3] *= -1
-    m[:3, 3] = (ngp[:, 3] + 1.5) / 2.0 - 1.0
+    m[:3, :3] = np.asarray(c2w, np.float64)[:3, :3]
+    m[:3, 3] = np.asarray(c2w, np.float64)[:3, 3] * _NGP_SCALE / 2.0
     return m
+
+
+def capture_mesh_axes(v: np.ndarray) -> np.ndarray:
+    """NeRF-frame points (N, 3) in the axes of instant-ngp's mesh export (NGP's
+    order, NeRF's scale), which nerf.poses.convert_mesh_nerf_to_mvs takes."""
+    return np.asarray(v)[:, [1, 2, 0]]
+
+
+def capture_hair_cap_shares(case_root: str, image_size, cap_polar_deg: float = 50.0,
+                            num: int = 20000) -> List[Tuple[str, float, float]]:
+    """Per view of <case_root>/ours/cam_params.json: (view, the share of the
+    true hair cap on the frame's hair label under PMVO's pixel lookup
+    (camera.pixel_index_and_validity), the same under the renderer's GL flip
+    (ops.rasterize._pixel_from_ndc, rounded)). The cap is `num` points spread
+    evenly by area over the head sphere within cap_polar_deg of up (NeRF
+    +y), in the axes convert_mesh_nerf_to_mvs takes (capture_mesh_axes),
+    carried through the case's pose chain; each view counts the
+    points that face its camera (the sphere hides the rest), and a point out
+    of the frame counts as off the label."""
+    import torch
+
+    from .camera import pixel_index_and_validity, project
+    from .io.cameras_io import load_cam_params
+    from .io.image_io import read_png
+    from .nerf.poses import convert_mesh_nerf_to_mvs
+    from .ops.rasterize import _pixel_from_ndc
+
+    H, W = image_size
+    k = np.arange(num) + 0.5
+    y = 1.0 - k / num * (1.0 - math.cos(math.radians(cap_polar_deg)))
+    r, phi = np.sqrt(1.0 - y * y), k * math.pi * (3.0 - math.sqrt(5.0))
+    cap = np.stack([r * np.cos(phi), y, r * np.sin(phi)], 1) * CAPTURE_HEAD_R_NERF
+    colmap, calib = os.path.join(case_root, "colmap"), os.path.join(case_root,
+                                                                    "calib_cam_params.json")
+    pts = convert_mesh_nerf_to_mvs(capture_mesh_axes(np.concatenate([cap, np.zeros((1, 3))])),
+                                   colmap, calib)
+    pts, centre = pts[:-1], pts[-1]
+    names, cams = load_cam_params(os.path.join(case_root, "ours", "cam_params.json"), "cpu")
+    uv, _ = project(cams, torch.from_numpy((pts + BUST_TO_ORIGIN).astype(np.float32)))
+    eyes = np.linalg.inv(cams.w2c.double().numpy())[:, :3, 3] - BUST_TO_ORIGIN
+    out = []
+    for v, name in enumerate(names):
+        hair = read_png(os.path.join(case_root, "labels", "hair", name + ".png")) > 127
+        facing = ((eyes[v] - pts) * (pts - centre)).sum(1) > 0
+        rc_pmvo, off = pixel_index_and_validity(uv[v], (H, W))
+        rc_gl = torch.round(_pixel_from_ndc(uv[v], (H, W))).long()
+        off_gl = ((rc_gl[:, 0] < 0) | (rc_gl[:, 0] >= H) | (rc_gl[:, 1] < 0)
+                  | (rc_gl[:, 1] >= W))
+        shares = []
+        for rc, outside in ((rc_pmvo, off), (rc_gl, off_gl)):
+            rc = rc.numpy().clip(0, [H - 1, W - 1])
+            on = hair[rc[:, 0], rc[:, 1]] & ~outside.numpy()
+            shares.append(float(on[facing].mean()) if facing.any() else 0.0)
+        out.append((name, *shares))
+    return out
+
+
+def capture_cap_share_of_points(case_root: str, points: np.ndarray, shell: float = 0.1
+                                ) -> float:
+    """The share of `points` (PMVO's frame: the MVS frame plus BUST_TO_ORIGIN,
+    as pmvo.points.load_colmap_points gives them) on the true hair cap: within
+    CAPTURE_HAIR_POLAR_DEG of up from the head's centre and within `shell`
+    (relative) of the head's radius, both carried through the case's pose
+    chain as capture_hair_cap_shares carries the cap; 0.0 for no points."""
+    from .nerf.poses import convert_mesh_nerf_to_mvs
+
+    centre, top = convert_mesh_nerf_to_mvs(
+        capture_mesh_axes(np.array([[0.0, 0.0, 0.0], [0.0, CAPTURE_HEAD_R_NERF, 0.0]])),
+        os.path.join(case_root, "colmap"),
+        os.path.join(case_root, "calib_cam_params.json")) + BUST_TO_ORIGIN
+    if len(points) == 0:
+        return 0.0
+    up = top - centre
+    radius = float(np.linalg.norm(up))
+    d = np.asarray(points, np.float64) - centre
+    r = np.linalg.norm(d, axis=1)
+    cos_polar = d @ (up / radius) / np.maximum(r, 1e-12)
+    on = ((np.abs(r / radius - 1.0) <= shell)
+          & (cos_polar >= math.cos(math.radians(CAPTURE_HAIR_POLAR_DEG))))
+    return float(on.mean())
 
 
 def capture_config(data_root: str, case: str, H: int, W: int, frame_interval: int,
                    modnet: str = None, parser: str = None) -> Config:
     """The capture case's config: synthwig_config's keys with the capture
-    case's data, rig, stage-1 flags and, when given, the hair-parser weights."""
+    case's data, rig, stage-1 flags, the tool's PMVO keys and, when given, the
+    hair-parser weights."""
     root = os.path.join(data_root, case)
     cfg = synthwig_config(data_root, case)
     cfg.data["image_size"] = [H, W]
@@ -631,7 +721,10 @@ def capture_config(data_root: str, case: str, H: int, W: int, frame_interval: in
     # scene metadata, not budget: the NeRF composites the backdrop behind the
     # volume, as configs/reconstruct/bigsynth.yaml sets it
     cfg["ngp"] = Config({"background": [_BG] * 3})
-    cfg.PMVO["patch_size"] = 7
+    # the tool's PMVO keys (tools/make_capture_case.py:349-354): synthwig's
+    # conf_threshold of 0.4 suits its drawn maps, not Gabor's confidence on
+    # these frames (on the hair label at 1280x720 its median is ~0.08)
+    cfg.PMVO.update(patch_size=7, conf_threshold=0.1, threshold=0.05)
     return cfg
 
 
@@ -641,8 +734,9 @@ def write_capture_case(data_root: str, case: str = "capture", num_frames: int = 
     """Write stage 1's inputs for an orbit of `num_frames` frames around the
     analytic head (tools/make_capture_case.py:41-80,156-250, without OpenCV):
     colmap/images/frame_XXXX<ext> (ext ".png", or ".JPG"/".jpg" for frames
-    written as JPEG at quality 95 by the port's encoder), colmap/transforms.json, colmap/key_frame.json
-    (frame 0's NGP pose), calib_cam_params.json (the rig: every 2nd frame), the
+    written as JPEG at quality 95 by the port's encoder), colmap/transforms.json,
+    colmap/key_frame.json (frame 0's NGP pose), calib_cam_params.json (the rig: every 2nd frame's
+    MVS pose, upright, see capture_mvs_pose), the
     head sphere as ours/colmap_points.obj (through the port's
     convert_mesh_nerf_to_mvs, standing in for the NeRF's mesh), a Bust/ head
     sphere and scalp cap, and labels/{hair,hit}/frame_XXXX.png (the hair label
@@ -653,7 +747,7 @@ def write_capture_case(data_root: str, case: str = "capture", num_frames: int = 
     from .coords import nerf_to_ngp
     from .io.image_io import imwrite, write_png
     from .io.mesh_io import save_obj
-    from .nerf.poses import _se3, convert_mesh_nerf_to_mvs, mvs_to_ngp_rot, save_base_cam
+    from .nerf.poses import _se3, convert_mesh_nerf_to_mvs, save_base_cam
 
     if ext not in (".png", ".JPG", ".jpg"):
         raise ValueError(f"write_capture_case: ext {ext!r} is not .png, .JPG or .jpg")
@@ -685,28 +779,27 @@ def write_capture_case(data_root: str, case: str = "capture", num_frames: int = 
     B = [nerf_to_ngp(p) for p in poses]
     save_base_cam(os.path.join(root, "colmap/key_frame.json"),
                   [_se3(B[0][:, :3], B[0][:, 3])], [CAPTURE_FOV_Y])
-    for j, b in enumerate(B):
-        mvs_poses[f"frame_{j:04d}"] = capture_mvs_pose(b)
-    # the rig: every 2nd frame, its MVS pose through a +1.5 anchor translation
+    for j, c2w in enumerate(poses):
+        mvs_poses[f"frame_{j:04d}"] = capture_mvs_pose(c2w)
+    # the rig: every 2nd frame's MVS pose, upright in the MVS frame
     fy_rig = 1920.0 / (3.0 * math.tan(math.radians(CAPTURE_FOV_Y) / 2))
     ndc = [2 * f_pix / W, 2 * f_pix / H, 0.0, 0.0]
     cam_list = []
     for k, j in enumerate(range(0, num_frames, 2)):
-        rot = mvs_to_ngp_rot(B[j][:, :3])
-        trans = (B[j][:, 3] + 1.5) / 2.0 - 1.0
         cam_list.append({"file": f"{k:03d}", "intrin": [0.0] * 4,
                          "intrin_op": [fy_rig, fy_rig, 0.0, 0.0], "dist": [0.0] * 5,
-                         "pose": _se3(rot, trans).tolist(), "ndc_prj": ndc})
+                         "pose": mvs_poses[f"frame_{j:04d}"].tolist(), "ndc_prj": ndc})
     calib_path = os.path.join(root, "calib_cam_params.json")
     with open(calib_path, "w") as f:
         json.dump({"cam_list": cam_list}, f, indent=1)
 
-    # the head sphere in the NeRF frame, through the pose chain to the MVS
-    # bust frame: what the coarse NeRF's mesh would be
+    # the head sphere as instant-ngp's mesh export gives it (NeRF scale, NGP
+    # axes), through the pose chain to the MVS bust frame: what the coarse
+    # NeRF's mesh would be
     hv, hf = uv_sphere(CAPTURE_HEAD_R_NERF)
     colmap_dir = os.path.join(root, "colmap")
     save_obj(os.path.join(root, "ours/colmap_points.obj"),
-             convert_mesh_nerf_to_mvs(hv, colmap_dir, calib_path), hf)
+             convert_mesh_nerf_to_mvs(capture_mesh_axes(hv), colmap_dir, calib_path), hf)
     # Bust/: the head sphere and its hair cap in the MVS bust frame
     head_r_mvs = CAPTURE_HEAD_R_NERF * 0.33 / 2.0
     bv, bf = uv_sphere(head_r_mvs * 0.98)

@@ -22,6 +22,7 @@ writes a small NeRF fly-through, and `python -m
 monohair_tpu_torch.train_hair_parser` draws its frames, trains both nets a
 few steps at a tiny size and writes its four files."""
 
+import json
 import os
 import subprocess
 import sys
@@ -348,6 +349,61 @@ def test_port_and_chip_smoke_need_no_jax_cv2_yaml_pil():
     assert "GUARD_OK" in proc.stdout
     modules = int(proc.stdout.split("GUARD_OK")[1].split()[0])
     assert modules >= 20
+
+
+TOOL_GUARDED = textwrap.dedent('''
+    import importlib.abc, json, os, runpy, sys, tempfile
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "cv2", "yaml", "PIL", "monohair_tpu", "tools",
+               "tests")
+
+    def blocked(name):
+        return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ImportError(f"import of {name} refused")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    tool = runpy.run_path(os.path.join("tools", "run_capture_case.py"), run_name="tool")
+    with tempfile.TemporaryDirectory() as tmp:
+        # the whole pipeline on the CPU: 8 frames at 96x128 (4 views: random
+        # MVS nets, the shipped ones hold 16), the case's head sphere for the
+        # NeRF, the writer's bust for the fit
+        code = tool["main"](["--frames=8", "--size=96x128", "--device=cpu", "--out=" + tmp,
+                             "--set", "prepare_data.run_ngp=false",
+                             "--set", "prepare_data.fit_bust=false", "--set", "PMVO.patch_size=3",
+                             "--set", "infer_inner.render_size=[48,40]",
+                             "--set", "mvs.eval_vsize=0.08", "--set", "mvs.eval_batch=4096",
+                             "--set", "mvs.occ_model_path=absent",
+                             "--set", "mvs.ori_model_path=absent"])
+        assert code == 0, code
+        assert os.path.exists(os.path.join(tmp, "run_pipeline.log"))
+    loaded = sorted(m for m in sys.modules if blocked(m))
+    assert not loaded, loaded
+    print("TOOL_OK")
+''')
+
+
+def test_run_capture_case_needs_no_jax_cv2_yaml_pil():
+    """tools/run_capture_case.py imports nothing the GPU machine lacks, and
+    runs the whole pipeline on a small capture case on the CPU: its last line
+    is the JSON of what each stage did, with strands grown and the surface
+    points on the true hair cap."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", TOOL_GUARDED], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == "TOOL_OK"
+    result = json.loads(lines[-2])
+    assert list(result["stages"]) == ["prepare_data", "pmvo", "infer_inner", "hair_grow"]
+    kept = list(result["survivors"].values())
+    assert kept[0] > kept[1] >= kept[2] >= kept[3] > 0, kept
+    assert result["strands"] > 0 and result["finite"] and result["surface_on_cap"] >= 0.9
+    assert result["steps"]["connect_all_segments"]["segments"] > 0
 
 
 def test_stage_clis_run_on_the_card_unless_told_otherwise(monkeypatch):

@@ -275,7 +275,10 @@ def test_cli_with_fit_bust_matches_jax(tmp_path):
     np.testing.assert_allclose(sa[3:6], sb[3:6], rtol=0, atol=0.05)
     la, lb = (np.loadtxt(os.path.join(d, "optimize", "fit_losses.txt")) for d in (port, ref))
     np.testing.assert_allclose(la, lb, rtol=1e-3)
-    assert la[-1] < 0.5 * la[0]
+    # the loss falls at every logged step (most of it is the silhouette and
+    # scale terms, which 30 steps at 48x64 hardly move; the scene's poses
+    # agree with its frames, so the landmark term starts low)
+    assert np.all(np.diff(la) < 0)
     for name in ("optimize/final_template.obj", "Bust/bust_long.obj", "Bust/flame_bust.obj",
                  "Bust/scalp.obj", "ours/bust_long_tsfm.obj", "ours/scalp_tsfm.obj",
                  "ours/flame_bust_tsfm.obj"):
@@ -289,7 +292,7 @@ def test_cli_with_fit_bust_matches_jax(tmp_path):
     from monohair_tpu_torch.constants import BUST_TO_ORIGIN
     err = np.linalg.norm(v[truth["lmk_ids"]] + BUST_TO_ORIGIN - truth["landmark_truth"], axis=1)
     err0 = np.linalg.norm(truth["template"][truth["lmk_ids"]] - truth["landmark_truth"], axis=1)
-    assert err.mean() < 0.8 * err0.mean()
+    assert err.mean() < 0.2 * err0.mean()
     for f in sorted(os.listdir(os.path.join(port, "render_depth"))):
         if f.endswith(".npy"):
             x, y = (np.load(os.path.join(d, "render_depth", f)) for d in (port, ref))
